@@ -1,0 +1,153 @@
+"""JSON config reader (counterpart of cartslam_tpu/config/registry.py).
+
+Same schema ({"data_source": {...}, "modules": [...]}, or a source file and
+a modules file) and the same per-type defaults.  The slice's module types
+are built; any other type raises.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+import torch
+
+from .. import models
+from ..runtime.module import Module, PipelineContext
+from ..runtime.pipeline import Pipeline
+from ..sources import DataSource, KITTIDataSource, SyntheticDataSource
+from ..utils.plane_params import (
+    HistogramPeakPlaneParameterProvider,
+    StaticPlaneParameterProvider,
+)
+
+
+def _read_parameter_provider(cfg: dict):
+    ptype = cfg["type"]
+    if ptype == "static":
+        h = (cfg["horizontal_range_min"], cfg["horizontal_range_max"])
+        v = (cfg["vertical_range_min"], cfg["vertical_range_max"])
+        return StaticPlaneParameterProvider(h, v)
+    if ptype == "histogram_peak":
+        return HistogramPeakPlaneParameterProvider()
+    raise ValueError(f"unknown parameter provider type '{ptype}'")
+
+
+def create_data_source(cfg) -> DataSource:
+    """A source from its config dict, or a pre-constructed DataSource
+    (e.g. a PreloadedSource) as it is."""
+    if isinstance(cfg, DataSource):
+        return cfg
+    stype = cfg["type"]
+    if stype == "kitti":
+        return KITTIDataSource(
+            cfg["path"], cfg.get("sequence", 0),
+            decode_workers=cfg.get("decode_workers", 6),
+        )
+    if stype == "synthetic":
+        return SyntheticDataSource(
+            image_size=tuple(cfg.get("image_size", (96, 192))),
+            num_frames=cfg.get("num_frames", 20),
+            seed=cfg.get("seed", 0),
+        )
+    raise ValueError(f"unknown data source type '{stype}'")
+
+
+class ConfigState:
+    """Carries cross-module wiring facts during config interpretation."""
+
+    def __init__(self, image_size: tuple[int, int]):
+        self.image_size = image_size
+        self.superpixel_module: models.SuperPixelModule | None = None
+
+    def num_superpixel_labels(self) -> int:
+        if self.superpixel_module is None:
+            raise ValueError("this module requires a 'superpixels' module")
+        return self.superpixel_module.num_labels
+
+
+def build_module(cfg: dict, st: ConfigState) -> Module:
+    mtype = cfg["type"]
+    g = cfg.get
+    if mtype == "disparity":
+        return models.ImageDisparityModule(
+            st.image_size,
+            min_disparity=g("min_disparity", 4),
+            num_disparities=g("num_disparities", 256),
+            block_size=g("block_size", 3),
+            smoothing_radius=g("smoothing_radius", -1),
+            smoothing_iterations=g("smoothing_iterations", 5),
+        )
+    if mtype == "disparity_derivative":
+        return models.ImageDisparityDerivativeModule()
+    if mtype == "depth":
+        return models.DepthModule()
+    if mtype == "superpixels":
+        direct = g("direct_clique_cost", 0.5)
+        m = models.SuperPixelModule(
+            st.image_size,
+            initial_iterations=g("initial_iterations", 18),
+            iterations=g("iterations", 6),
+            block_size=g("block_size", 12),
+            reset_iterations=g("reset_iterations", 64),
+            direct_clique_cost=direct,
+            diagonal_clique_cost=g("diagonal_clique_cost", direct / np.sqrt(2)),
+            compactness_weight=g("compactness_weight", 0.1),
+            progressive_compactness_cost=g("progressive_compactness_cost", 0.0),
+            image_weight=g("image_weight", 1.5),
+            disparity_weight=g("disparity_weight", 1.0),
+            relax_phases=g("relax_phases", 1),
+            stats_refresh=g("stats_refresh", "frame"),
+        )
+        st.superpixel_module = m
+        return m
+    if mtype == "superpixel_disparity_planeseg":
+        return models.SuperPixelDisparityPlaneSegmentationModule(
+            _read_parameter_provider(cfg["parameter_provider"]),
+            num_labels=st.num_superpixel_labels(),
+            update_interval=g("update_interval", 30),
+            reset_interval=g("reset_interval", 10),
+            use_temporal_smoothing=g("use_temporal_smoothing", False),
+        )
+    raise ValueError(f"module type '{mtype}' is not ported yet")
+
+
+def build_pipeline(source_cfg, modules_cfg: list[dict], *, device="cpu",
+                   grayscale: bool = False) -> tuple[Pipeline, DataSource]:
+    """(Pipeline on `device`, its data source) from config dicts."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but no CUDA device is available")
+    source = create_data_source(source_cfg)
+    h, w = source.get_image_size()
+    st = ConfigState((h, w))
+    modules = [build_module(cfg, st) for cfg in modules_cfg]
+    ctx = PipelineContext(
+        height=h,
+        width=w,
+        q=np.asarray(source.get_camera_intrinsics().q, np.float32),
+        device=device,
+        grayscale=grayscale,
+    )
+    return Pipeline(ctx, modules), source
+
+
+def read_config(*paths: str, device="cpu") -> tuple[Pipeline, DataSource]:
+    """One combined config, or a (source config, modules config) pair."""
+
+    def load(p):
+        with open(os.path.expanduser(p)) as f:
+            return json.load(f)
+
+    if len(paths) == 1:
+        data = load(paths[0])
+        if "data_source" not in data or "modules" not in data:
+            raise ValueError("config must contain data_source and modules")
+        if "parallel" in data:
+            raise ValueError("parallel configs are not ported yet")
+        return build_pipeline(data["data_source"], data["modules"], device=device,
+                              grayscale=bool(data.get("grayscale", False)))
+    if len(paths) == 2:
+        return build_pipeline(load(paths[0]), load(paths[1]), device=device)
+    raise ValueError("expected 1 or 2 config paths")

@@ -1,0 +1,210 @@
+// Kernel K1: census-Hamming semi-global matching, 4 paths, then WTA + LR.
+//
+// Replaces the Pallas TPU kernels of cartslam_tpu/ops/pallas/sgm.py
+// (sgm_fused_pallas :654 with _make_hsweep :97, _make_vsweep :172,
+// _make_btwta_kernel :201) and ops/pallas/wta.py:wta_lr_row :66.
+// Bit-identical to the XLA path of ops/stereo.py (sgm_disparity,
+// backend="xla"), which the plain version in cartslam_tpu_torch/ops/stereo.py
+// follows line by line.
+//
+// What bounds it on an H100: the path recurrence is serial along each
+// scanline (1248 steps for a KITTI row, 376 for a column), so latency per
+// step, not bandwidth, bounds the path kernel; the four uint8 path volumes
+// (4 x H x W x D bytes, 480 MB at 376x1248x256) are written once and read by
+// the WTA kernel, so device-memory traffic bounds the WTA kernel.
+//
+// Design:
+//  * sgm_paths: one warp per scanline and direction (2H + 2W warps, all
+//    resident at once).  Disparities are interleaved over lanes
+//    (d = 32k + lane, k < 8), so d+-1 are the neighbouring lanes (__shfl) and
+//    the path minimum is a warp reduction; no shared memory, no block
+//    barriers.  The Hamming cost is computed on the fly with __popc; a
+//    candidate reading left of the right image costs 62.  Each sweep starts
+//    at the real first column/row with a zero carry, as the XLA scan does.
+//    Path values are bounded by 62 + P2 and stored as uint8.
+//  * sgm_wta: one block per row, one warp per pixel.  A first pass computes
+//    the right-view winner best_r[x'] (S[x' + d + minD, d], 32767 past the
+//    edge) into shared memory; the second pass takes the keyed minimum
+//    (value * D + d: lowest-d tie-break), the OpenCV uniqueness test, the
+//    quadratic subpixel fit with FLOOR division, cols >= best + minD, and
+//    the +-1 left-right agreement.
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <limits.h>
+
+namespace {
+
+constexpr int kMaxK = 8;  // disparities per lane: D <= 256
+constexpr int kBig = 1 << 20;
+constexpr int kCostInvalid = 62;
+constexpr int kBig16 = 32767;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ int warp_min(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+__global__ void sgm_paths_kernel(const int* __restrict__ l0, const int* __restrict__ l1,
+                                 const int* __restrict__ r0, const int* __restrict__ r1,
+                                 uint8_t* __restrict__ vol, int H, int W, int D,
+                                 int minD, int p1, int p2) {
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= 2 * H + 2 * W) return;  // warp-uniform
+  int dir, line;
+  if (warp < 2 * H) {
+    dir = warp / H;  // 0: left->right, 1: right->left
+    line = warp % H;
+  } else {
+    dir = 2 + (warp - 2 * H) / W;  // 2: top->bottom, 3: bottom->top
+    line = (warp - 2 * H) % W;
+  }
+  const int steps = dir < 2 ? W : H;
+  const int nk = (D + 31) / 32;
+  uint8_t* out = vol + (size_t)dir * H * W * D;
+
+  int L[kMaxK];
+#pragma unroll
+  for (int k = 0; k < kMaxK; ++k) L[k] = (k * 32 + lane < D) ? 0 : kBig;
+  int m = 0;  // min over d of the carry
+
+  for (int s = 0; s < steps; ++s) {
+    int y, x;
+    if (dir == 0) { y = line; x = s; }
+    else if (dir == 1) { y = line; x = W - 1 - s; }
+    else if (dir == 2) { y = s; x = line; }
+    else { y = H - 1 - s; x = line; }
+    const int pix = y * W + x;
+    const unsigned a0 = (unsigned)l0[pix], a1 = (unsigned)l1[pix];
+
+    int nl[kMaxK];
+    int lmin = kBig;
+#pragma unroll
+    for (int k = 0; k < kMaxK; ++k) {
+      if (k < nk) {  // warp-uniform
+        int dn = __shfl_up_sync(kFull, L[k], 1);    // d - 1 (lane - 1)
+        int up = __shfl_down_sync(kFull, L[k], 1);  // d + 1 (lane + 1)
+        int prev_last = kBig, next_first = kBig;
+        if (k > 0) prev_last = __shfl_sync(kFull, L[k > 0 ? k - 1 : 0], 31);
+        if (k + 1 < kMaxK && k + 1 < nk)
+          next_first = __shfl_sync(kFull, L[k + 1 < kMaxK ? k + 1 : k], 0);
+        if (lane == 0) dn = prev_last;
+        if (lane == 31) up = next_first;
+        const int d = k * 32 + lane;
+        int v = kBig;
+        if (d < D) {
+          const int xr = x - minD - d;
+          int c = kCostInvalid;
+          if (xr >= 0) {
+            const int q = y * W + xr;
+            c = __popc(a0 ^ (unsigned)r0[q]) + __popc(a1 ^ (unsigned)r1[q]);
+          }
+          const int best = min(min(L[k], min(dn, up) + p1), m + p2);
+          v = c + best - m;
+          out[(size_t)pix * D + d] = (uint8_t)v;
+        }
+        nl[k] = v;
+        lmin = min(lmin, v);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kMaxK; ++k)
+      if (k < nk) L[k] = nl[k];
+    m = warp_min(lmin);
+  }
+}
+
+__device__ __forceinline__ int floor_div(int a, int b) {  // b > 0
+  int q = a / b;
+  return (a % b != 0 && a < 0) ? q - 1 : q;
+}
+
+__global__ void sgm_wta_kernel(const uint8_t* __restrict__ vol, int16_t* __restrict__ out,
+                               int H, int W, int D, int minD, int uniqueness,
+                               int subpixel, int lr_check) {
+  extern __shared__ int best_r[];  // [W]
+  const int y = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const size_t plane = (size_t)H * W * D;
+  const uint8_t* v0 = vol;
+  const uint8_t* v1 = vol + plane;
+  const uint8_t* v2 = vol + 2 * plane;
+  const uint8_t* v3 = vol + 3 * plane;
+  const size_t row = (size_t)y * W;
+  auto S = [&](int x, int d) -> int {
+    const size_t i = (row + x) * D + d;
+    return (int)v0[i] + (int)v1[i] + (int)v2[i] + (int)v3[i];
+  };
+
+  if (lr_check) {
+    for (int xr = wid; xr < W; xr += nw) {
+      int key = INT_MAX;
+      for (int d = lane; d < D; d += 32) {
+        const int xs = xr + d + minD;
+        const int s = xs < W ? S(xs, d) : kBig16;
+        key = min(key, s * D + d);
+      }
+      key = warp_min(key);
+      if (lane == 0) best_r[xr] = key % D;
+    }
+    __syncthreads();
+  }
+
+  for (int x = wid; x < W; x += nw) {
+    int key = INT_MAX;
+    for (int d = lane; d < D; d += 32) key = min(key, S(x, d) * D + d);
+    key = warp_min(key);
+    const int best = key % D;
+    const int min_s = key / D;
+    int second = kBig16;
+    for (int d = lane; d < D; d += 32)
+      if (abs(d - best) > 1) second = min(second, S(x, d));
+    second = warp_min(second);
+    if (lane == 0) {
+      bool ok = second * (100 - uniqueness) >= min_s * 100;
+      int delta = 0;
+      if (subpixel && best > 0 && best < D - 1) {
+        const int sm = S(x, best - 1), sp = S(x, best + 1);
+        const int denom2 = max(sm + sp - 2 * min_s, 1);
+        delta = floor_div((sm - sp) * 16 + denom2, denom2 * 2);
+      }
+      ok = ok && x >= best + minD;
+      if (lr_check) {
+        const int xr = x - best - minD;
+        ok = ok && xr >= 0 && abs(best_r[xr] - best) <= 1;
+      }
+      out[row + x] = (int16_t)(ok ? (best + minD) * 16 + delta : -32768);
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int sgm_paths(const void* l0, const void* l1, const void* r0, const void* r1,
+                         void* vol, int H, int W, int D, int minD, int p1, int p2,
+                         void* stream) {
+  const int warps = 2 * H + 2 * W;
+  const int threads = 128;
+  const int blocks = (warps * 32 + threads - 1) / threads;
+  sgm_paths_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const int*)l0, (const int*)l1, (const int*)r0, (const int*)r1, (uint8_t*)vol,
+      H, W, D, minD, p1, p2);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sgm_wta(const void* vol, void* out, int H, int W, int D, int minD,
+                       int uniqueness, int subpixel, int lr_check, void* stream) {
+  const size_t smem = lr_check ? (size_t)W * sizeof(int) : 0;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        sgm_wta_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  sgm_wta_kernel<<<H, 256, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)vol, (int16_t*)out, H, W, D, minD, uniqueness, subpixel, lr_check);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,176 @@
+"""Build and load the CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into an
+object, and the objects are linked into ONE shared library with a plain C
+interface, loaded with ``ctypes``.  No PyTorch headers are involved, so a
+cold build takes seconds.  The library lives under ``build/cartslam_tpu_torch/``
+in the checkout and is named by a hash of the sources and flags: the first
+use builds it, and a changed source builds a new one.
+
+Each C entry point launches on the stream it is given (the wrapper passes
+``torch.cuda.current_stream().cuda_stream``) and returns
+``cudaGetLastError()``; ``check`` raises when that is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cartslam_tpu_torch"
+
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMMON_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+# Per-file extra flags.  relax.cu must not contract a*b+c into FMAs: its
+# plain version (separate PyTorch ops) rounds after every operation.
+FILE_FLAGS = {"relax.cu": ["-fmad=false"]}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures of the entry points (all return cudaError_t as int).
+SIGNATURES = {
+    "sgm_paths": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "sgm_wta": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "moment_tally": [_P, _P, _I, _I, _I, _P, _P, _P],
+    "vote_tally": [_P, _P, _I, _I, _I, _P, _P],
+    "relax_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                    _P, _P, _P, _P, _P, _F, _F, _P],
+}
+
+
+@dataclasses.dataclass
+class BuildInfo:
+    path: Path
+    seconds: float  # 0.0 when an existing library was loaded
+    built: bool
+
+
+_lib: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def source_files() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest(sources: list[Path]) -> str:
+    h = hashlib.sha256()
+    for p in sources:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(repr((ARCH, COMMON_FLAGS, sorted(FILE_FLAGS.items()))).encode())
+    return h.hexdigest()[:16]
+
+
+def build() -> BuildInfo:
+    """Compile the library if no library of the current sources exists."""
+    sources = source_files()
+    lib_path = BUILD_DIR / f"libcartslam_kernels_{_digest(sources)}.so"
+    if lib_path.exists():
+        return BuildInfo(lib_path, 0.0, False)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    tmp = BUILD_DIR / f"tmp_{os.getpid()}"
+    tmp.mkdir(exist_ok=True)
+    procs = []
+    objs = []
+    for src in sources:
+        obj = tmp / (src.stem + ".o")
+        cmd = [nvcc, *ARCH, *COMMON_FLAGS, *FILE_FLAGS.get(src.name, []),
+               "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+        objs.append(str(obj))
+    for cmd, p in procs:
+        out, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{out}")
+    part = tmp / lib_path.name
+    link = [nvcc, *ARCH, "-shared", "-o", str(part), *objs]
+    res = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({' '.join(link)}):\n{res.stdout}")
+    os.replace(part, lib_path)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return BuildInfo(lib_path, time.perf_counter() - t0, True)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build().path))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple | None = None,
+           device: torch.device | None = None) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor of `dtype` (and shape)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+@dataclasses.dataclass
+class Counter:
+    """Launch count of one kernel wrapper, and how often its plain version
+    ran in the wrapper's place (CPU tensors only)."""
+
+    name: str
+    launches: int = 0
+    plain_calls: int = 0
+
+
+COUNTERS: dict[str, Counter] = {}
+
+
+def counter(name: str) -> Counter:
+    return COUNTERS.setdefault(name, Counter(name))
+
+
+def reset_counts() -> None:
+    for c in COUNTERS.values():
+        c.launches = 0
+        c.plain_calls = 0

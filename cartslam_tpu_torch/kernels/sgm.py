@@ -1,0 +1,53 @@
+"""Kernel K1: fused SGM (csrc/sgm.cu) and its plain version.
+
+Replaces the Pallas ``sgm_fused_pallas`` (cartslam_tpu/ops/pallas/sgm.py:654,
+with ``wta_lr_row`` of ops/pallas/wta.py:66).  On a CUDA tensor the wrapper
+launches the two CUDA kernels (4-path aggregation, then WTA + LR check) or
+raises; on a CPU tensor it runs the plain version, the XLA path's chain in
+ops/stereo.py.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import stereo
+from . import build
+
+COUNTER = build.counter("sgm")
+# Path values are stored as uint8: each is bounded by COST_INVALID + p2.
+MAX_P2 = 255 - stereo.COST_INVALID
+MAX_DISPARITIES = 256
+
+
+def sgm_fused(cl0, cl1, cr0, cr1, *, min_disparity: int, num_disparities: int,
+              p1: int, p2: int, uniqueness: int, subpixel: bool,
+              lr_check: bool) -> torch.Tensor:
+    """Census words (int32 [H, W] x2 per view) -> int16 x16 disparity."""
+    kw = dict(min_disparity=min_disparity, num_disparities=num_disparities,
+              p1=p1, p2=p2, uniqueness=uniqueness, subpixel=subpixel,
+              lr_check=lr_check)
+    if cl0.device.type == "cpu":
+        COUNTER.plain_calls += 1
+        return stereo.sgm_from_census_plain(cl0, cl1, cr0, cr1, **kw)
+    if p2 > MAX_P2:
+        raise ValueError(f"sgm kernel stores path values as uint8: needs p2 <= {MAX_P2}")
+    if not 1 <= num_disparities <= MAX_DISPARITIES:
+        raise ValueError(f"sgm kernel takes 1..{MAX_DISPARITIES} disparities")
+    h, w = cl0.shape
+    for name, t in (("cl0", cl0), ("cl1", cl1), ("cr0", cr0), ("cr1", cr1)):
+        build.expect(t, name, torch.int32, (h, w), cl0.device)
+    lib = build.library()
+    vol = torch.empty((4, h, w, num_disparities), dtype=torch.uint8, device=cl0.device)
+    out = torch.empty((h, w), dtype=torch.int16, device=cl0.device)
+    s = build.stream()
+    build.check(lib.sgm_paths(cl0.data_ptr(), cl1.data_ptr(), cr0.data_ptr(),
+                              cr1.data_ptr(), vol.data_ptr(), h, w,
+                              num_disparities, min_disparity, p1, p2, s),
+                "sgm_paths")
+    build.check(lib.sgm_wta(vol.data_ptr(), out.data_ptr(), h, w, num_disparities,
+                            min_disparity, uniqueness, int(subpixel),
+                            int(lr_check), s),
+                "sgm_wta")
+    COUNTER.launches += 1
+    return out

@@ -1,0 +1,78 @@
+"""Kernels K2 (moment tally) and K4 (vote tally), csrc/tally.cu, with their
+plain versions.
+
+K2 replaces the Pallas ``moment_tally_pallas`` (cartslam_tpu/ops/pallas/
+tally.py:231); K4 replaces ``vote_tally_pallas`` (ops/pallas/tally.py:102).
+On a CUDA tensor the wrappers launch the kernel or raise; on a CPU tensor
+they run the plain version.  Both versions compute exact integer sums: K2's
+table entries are int64 sums rounded to float32 once (the JAX CPU path adds
+in float32, exact only below 2^24 per entry).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import build
+
+MOMENT_COUNTER = build.counter("moment_tally")
+VOTE_COUNTER = build.counter("vote_tally")
+MAX_CHANNELS = 8
+
+
+def moment_tally_plain(labels: torch.Tensor, data: torch.Tensor, num_labels: int) -> torch.Tensor:
+    """labels int32 [N], data int32 [C, N] -> float32 [1 + 2C, L]:
+    per-label count | per-channel sums | per-channel sums of squares.
+    Labels outside [0, L) drop."""
+    keep = (labels >= 0) & (labels < num_labels)
+    idx = labels[keep].to(torch.int64)
+    d = data[:, keep].to(torch.int64)
+    rows = torch.cat([torch.ones_like(d[:1]), d, d * d], dim=0)
+    acc = torch.zeros((rows.shape[0], num_labels), dtype=torch.int64, device=labels.device)
+    return acc.index_add_(1, idx, rows).to(torch.float32)
+
+
+def moment_tally(labels: torch.Tensor, data: torch.Tensor, num_labels: int) -> torch.Tensor:
+    if labels.device.type == "cpu":
+        MOMENT_COUNTER.plain_calls += 1
+        return moment_tally_plain(labels, data, num_labels)
+    c, n = data.shape
+    if c > MAX_CHANNELS:
+        raise ValueError(f"moment tally kernel takes at most {MAX_CHANNELS} channels, got {c}")
+    build.expect(labels, "labels", torch.int32, (n,))
+    build.expect(data, "data", torch.int32, (c, n), labels.device)
+    lib = build.library()
+    acc = torch.empty((1 + 2 * c, num_labels), dtype=torch.int64, device=labels.device)
+    out = torch.empty((1 + 2 * c, num_labels), dtype=torch.float32, device=labels.device)
+    build.check(lib.moment_tally(labels.data_ptr(), data.data_ptr(), n, c, num_labels,
+                                 acc.data_ptr(), out.data_ptr(), build.stream()),
+                "moment_tally")
+    MOMENT_COUNTER.launches += 1
+    return out
+
+
+def vote_tally_plain(labels: torch.Tensor, votes: torch.Tensor, num_labels: int,
+                     num_classes: int) -> torch.Tensor:
+    """labels int32 [N], votes uint8 [N] -> int32 [L, P] class counts."""
+    v = votes.to(torch.int64)
+    keep = (labels >= 0) & (labels < num_labels) & (v < num_classes)
+    idx = labels[keep].to(torch.int64) * num_classes + v[keep]
+    counts = torch.bincount(idx, minlength=num_labels * num_classes)
+    return counts.view(num_labels, num_classes).to(torch.int32)
+
+
+def vote_tally(labels: torch.Tensor, votes: torch.Tensor, num_labels: int,
+               num_classes: int) -> torch.Tensor:
+    if labels.device.type == "cpu":
+        VOTE_COUNTER.plain_calls += 1
+        return vote_tally_plain(labels, votes, num_labels, num_classes)
+    (n,) = labels.shape
+    build.expect(labels, "labels", torch.int32, (n,))
+    build.expect(votes, "votes", torch.uint8, (n,), labels.device)
+    lib = build.library()
+    out = torch.empty((num_labels, num_classes), dtype=torch.int32, device=labels.device)
+    build.check(lib.vote_tally(labels.data_ptr(), votes.data_ptr(), n, num_labels,
+                               num_classes, out.data_ptr(), build.stream()),
+                "vote_tally")
+    VOTE_COUNTER.launches += 1
+    return out

@@ -1,0 +1,112 @@
+"""Contour-relaxation superpixels (counterpart of ops/superpixels.py).
+
+Features are per-label sufficient statistics (count, per-channel sums and
+sums of squares) kept CHANNEL-MAJOR as a table [1 + 2C, L].  The table comes
+from kernel K2 (``init_stats``); it is gathered once per frame into a
+per-pixel stat image, and each sweep (kernel K3) relabels the boundary
+pixels and carries the stat image forward from the winners' rows.
+
+Only the production mode is ported: ``stats_refresh="frame"`` with one
+phase per sweep.  Cost models (gaussian.cu:30-43, compactness.cu:28-35 of
+the reference): gaussian = sum_ch [n/2 log(2 pi var) + n/2] / C with var
+floored at 1/12; compactness = sum_xy [sumsq - sum^2/n].
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import torch
+
+from ..kernels import relax as krelax
+from ..kernels import tally as ktally
+from .tally import table_gather
+
+
+@dataclasses.dataclass(frozen=True)
+class FeatureSpec:
+    kind: str  # 'gaussian' | 'compactness'
+    weight: float
+    channels: int
+    progressive: float = 0.0  # compactness only
+
+
+def block_init_labels(height: int, width: int, block_w: int, block_h: int, device=None):
+    """Regular-grid initialization -> (labels int32 [H, W], nBlocksX * nBlocksY)."""
+    bx = -(-width // block_w)
+    by = -(-height // block_h)
+    ys = torch.arange(height, dtype=torch.int32, device=device)[:, None] // block_h
+    xs = torch.arange(width, dtype=torch.int32, device=device)[None, :] // block_w
+    return (ys * bx + xs).to(torch.int32), bx * by
+
+
+def init_stats(labels: torch.Tensor, data: torch.Tensor, num_labels: int) -> torch.Tensor:
+    """Stat table float32 [1 + 2C, L] (count | sums | sums of squares) from
+    integer-valued channel planes data [C, H, W]; negative labels drop.
+    Each entry is the exact integer sum, rounded to float32 once (kernel K2)."""
+    c = data.shape[0]
+    return ktally.moment_tally(
+        labels.reshape(-1).contiguous(),
+        data.reshape(c, -1).to(torch.int32).contiguous(),
+        num_labels,
+    )
+
+
+def relax(labels: torch.Tensor, feature_data: Sequence[torch.Tensor],
+          feature_specs: Sequence[FeatureSpec], num_labels: int, iterations: int,
+          direct_cost: float, diagonal_cost: float, phases: int = 1,
+          stats_refresh: str = "frame") -> torch.Tensor:
+    """Run `iterations` relaxation sweeps; returns the new label image.
+
+    feature_data[i]: [H, W, C_i] aligned with the gaussian entries of
+    feature_specs; compactness uses implicit (x, y) pixel coordinates.
+    """
+    if phases != 1 or stats_refresh != "frame":
+        raise ValueError(
+            f"relax(phases={phases}, stats_refresh={stats_refresh!r}) is not "
+            "ported yet: only phases=1, stats_refresh='frame'"
+        )
+    h, w = labels.shape
+    dev = labels.device
+    xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
+    ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
+    coords = torch.stack([xs, ys], dim=0)
+
+    data_list, features = [], []
+    it = iter(feature_data)
+    offset = 0
+    prog_value = 0.0
+    for spec in feature_specs:
+        if spec.kind == "compactness":
+            part = coords
+            if spec.progressive > 0.0:
+                prog_value = spec.progressive
+        else:
+            part = next(it)
+            part = part.permute(2, 0, 1) if part.dim() == 3 else part[None]
+            part = part.to(torch.float32)
+        data_list.append(part)
+        features.append(krelax.RelaxFeature(spec.kind, offset, part.shape[0], float(spec.weight)))
+        offset += part.shape[0]
+    data_all = torch.cat(data_list, dim=0).contiguous()  # [C_total, H, W]
+    c_total = data_all.shape[0]
+
+    prog = None
+    if prog_value > 0.0:
+        gh = torch.tensor(float(h), dtype=torch.float32, device=dev)
+        rows = torch.arange(h, dtype=torch.float32, device=dev)
+        prog = (1.0 + prog_value * (gh - rows) / gh).contiguous()
+
+    stats0 = init_stats(labels, data_all, num_labels)
+    stat_img = table_gather(stats0, labels).contiguous()
+    pixel_rows = torch.cat(
+        [torch.ones((1, h, w), dtype=torch.float32, device=dev), data_all, data_all * data_all]
+    ).contiguous()
+    labels = labels.contiguous()
+    for _ in range(iterations):
+        labels, stat_img = krelax.relax_sweep(
+            labels, stat_img, pixel_rows, features, c_total, direct_cost,
+            diagonal_cost, prog,
+        )
+    return labels

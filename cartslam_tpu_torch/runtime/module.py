@@ -1,0 +1,110 @@
+"""Module contracts (counterpart of cartslam_tpu/runtime/module.py).
+
+A module is a function over named tensors on the pipeline's device:
+``compute(ctx, step, deps, state, params, variant) -> (outputs, new_state)``.
+PyTorch runs eagerly, so ``compute`` executes directly instead of being
+traced into one program.  Cross-frame dependencies (``offset < 0``) are ring
+buffers in the explicit pipeline state.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Hashable, Mapping
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Dependency:
+    """A required data key, optionally from a previous frame (offset <= 0)."""
+
+    key: str
+    offset: int = 0
+    optional: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """Shape and dtype of a provided key (sizes the history rings)."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineContext:
+    """Static facts about the pipeline shared by all modules."""
+
+    height: int
+    width: int
+    q: np.ndarray  # 4x4 float32 disparity->3D reprojection matrix
+    device: torch.device = torch.device("cpu")
+    grayscale: bool = False
+
+
+class StepContext:
+    """Per-step access to frame inputs and history ring buffers."""
+
+    def __init__(self, frame: Mapping[str, Any], history: Mapping[str, torch.Tensor]):
+        self.frame = frame  # left, right, frame_id (+ source extras)
+        self._history = history
+
+    @property
+    def frame_id(self) -> int:
+        """1-based frame id (reference run ids are 1-based)."""
+        return int(self.frame["frame_id"])
+
+    def history(self, key: str, offset: int) -> torch.Tensor:
+        """Value of `key` from `offset` frames ago (offset <= -1)."""
+        assert offset < 0
+        return self._history[key][-offset - 1]
+
+
+class Module:
+    """A compute module: function from named tensors to named tensors."""
+
+    name: str = "module"
+
+    def provides(self) -> list[str]:
+        return []
+
+    def requires(self) -> list[Dependency]:
+        return []
+
+    def output_spec(self, ctx: PipelineContext) -> dict[str, TensorSpec]:
+        return {}
+
+    def init_state(self, ctx: PipelineContext) -> dict[str, torch.Tensor]:
+        """Persistent cross-frame state, on ctx.device."""
+        return {}
+
+    def initial_host_params(self, ctx: PipelineContext) -> dict[str, np.ndarray]:
+        return {}
+
+    def host_fetch_keys(self) -> list[str]:
+        """Output keys this module wants back on host each frame."""
+        return []
+
+    def host_update(
+        self, ctx: PipelineContext, frame_id: int, fetched: Mapping[str, np.ndarray]
+    ) -> dict[str, np.ndarray] | None:
+        """Host-side per-frame hook; may return updated host params."""
+        return None
+
+    def variant(self, frame_id: int) -> Hashable:
+        """Per-frame variant (e.g. superpixel reset)."""
+        return None
+
+    def compute(
+        self,
+        ctx: PipelineContext,
+        step: StepContext,
+        deps: Mapping[str, torch.Tensor],
+        state: Mapping[str, torch.Tensor],
+        params: Mapping[str, Any],
+        variant: Hashable,
+    ) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
+        """Returns (outputs keyed by provided names, new state)."""
+        raise NotImplementedError

@@ -1,0 +1,33 @@
+"""State carried across packages.
+
+The JAX pipeline's state is a tree ``{"modules": {name: {key: array}},
+"history": {key: array}}`` of numpy-convertible arrays, and its host params
+are ``{name: {key: array}}``.  These two functions map such trees to the
+port's tensors and back, keys, shapes and dtypes unchanged, so both packages
+can start from the same state.  This system has no weights: its state (the
+superpixel labels, the history rings, the provider ranges) takes their place.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+
+def state_from_reference(tree: Any, device) -> Any:
+    """Nested dict of arrays (numpy or array-likes) -> tensors on `device`."""
+    if isinstance(tree, dict):
+        return {k: state_from_reference(v, device) for k, v in tree.items()}
+    arr = np.ascontiguousarray(np.asarray(tree))
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def state_to_numpy(tree: Any) -> Any:
+    """Nested dict of tensors -> numpy arrays on the host."""
+    if isinstance(tree, dict):
+        return {k: state_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree)

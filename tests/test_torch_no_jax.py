@@ -1,0 +1,56 @@
+"""The port imports neither JAX nor the JAX package.
+
+The card's machine has no JAX, so nothing the port (or chip_smoke.py)
+imports may pull it in.
+"""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / "cartslam_tpu_torch"
+
+CHILD = r"""
+import sys
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.path.insert(0, {repo!r})
+from cartslam_tpu_torch.config import build_pipeline
+from cartslam_tpu_torch.runtime import run
+
+src = {{"type": "synthetic", "image_size": [32, 64], "num_frames": 1}}
+mods = [
+    {{"type": "disparity", "num_disparities": 16, "min_disparity": 0}},
+    {{"type": "disparity_derivative"}},
+    {{"type": "depth"}},
+    {{"type": "superpixels", "block_size": 8, "initial_iterations": 2}},
+    {{"type": "superpixel_disparity_planeseg",
+      "parameter_provider": {{"type": "histogram_peak"}}}},
+]
+pipeline, source = build_pipeline(src, mods, device="cpu")
+seen = {{}}
+result = run(pipeline, source, on_frame=lambda fid, out: seen.update(out))
+assert result.frames == 1 and seen["planes"].shape == (32, 64)
+bad = [m for m in sys.modules if m == "jax" and sys.modules[m] is not None
+       or m.startswith("jax.") or m == "cartslam_tpu" or m.startswith("cartslam_tpu.")]
+assert not bad, bad
+print("OK")
+"""
+
+
+def test_port_runs_without_jax():
+    res = subprocess.run(
+        [sys.executable, "-c", CHILD.format(repo=str(REPO))],
+        capture_output=True, text=True, timeout=300, cwd=str(REPO),
+    )
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("OK")
+
+
+def test_no_jax_import_in_port_sources():
+    pattern = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+cartslam_tpu\b"
+                         r"|from\s+cartslam_tpu(\.|\s))", re.M)
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    offenders = [str(p.relative_to(REPO)) for p in files if pattern.search(p.read_text())]
+    assert not offenders, offenders

@@ -1,0 +1,324 @@
+"""Parity of the PyTorch port's ops with the JAX package's, on the CPU.
+
+The same numpy inputs (made from a seed) go through the JAX function (its
+XLA path, as the JAX package's own CPU tests run it) and through the port's
+function on CPU tensors, where every kernel wrapper takes its plain version.
+Tolerances are stated per test; integer outputs must be equal.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cartslam_tpu.ops import color as jcolor
+from cartslam_tpu.ops import depth as jdepth
+from cartslam_tpu.ops import derivative as jderiv
+from cartslam_tpu.ops import disparity as jdisp
+from cartslam_tpu.ops import planeseg as jplane
+from cartslam_tpu.ops import stereo as jstereo
+from cartslam_tpu.ops import superpixels as jsp
+from cartslam_tpu_torch.kernels import build
+from cartslam_tpu_torch.kernels import relax as krelax
+from cartslam_tpu_torch.kernels import sgm as ksgm
+from cartslam_tpu_torch.kernels import tally as ktally
+from cartslam_tpu_torch.ops import color as tcolor
+from cartslam_tpu_torch.ops import depth as tdepth
+from cartslam_tpu_torch.ops import derivative as tderiv
+from cartslam_tpu_torch.ops import disparity as tdisp
+from cartslam_tpu_torch.ops import planeseg as tplane
+from cartslam_tpu_torch.ops import stereo as tstereo
+from cartslam_tpu_torch.ops import superpixels as tsp
+
+
+def t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def stereo_pair(h, w, d, seed=0):
+    """Random texture with a disparity step, as a gray uint8 pair."""
+    rng = np.random.RandomState(seed)
+    tex = rng.randint(0, 255, (h, w + 2 * d + 8)).astype(np.uint8)
+    left = tex[:, :w].copy()
+    right = tex[:, d : d + w].copy()
+    right[:, w // 2 :] = tex[:, 2 * d + w // 2 : 2 * d + w]
+    return left, right
+
+
+def sample_disparity(h, w, seed=0):
+    """int16 x16 disparities with invalid (-32768) holes."""
+    rng = np.random.RandomState(seed)
+    d = rng.randint(0, 900, (h, w)).astype(np.int16)
+    d[rng.rand(h, w) < 0.15] = -32768
+    return d
+
+
+# ----------------------------------------------------------------- color
+
+
+@pytest.mark.parametrize("fn", ["bgr_to_gray", "bgr_to_ycrcb"])
+def test_color_matches_jax(fn):
+    """Exact (uint8 equal) against the JAX op called eagerly."""
+    img = np.random.RandomState(3).randint(0, 256, (37, 53, 3)).astype(np.uint8)
+    ref = np.asarray(getattr(jcolor, fn)(jnp.asarray(img)))
+    out = getattr(tcolor, fn)(t(img)).numpy()
+    assert out.dtype == ref.dtype
+    np.testing.assert_array_equal(out, ref)
+
+
+# ---------------------------------------------------------------- stereo
+
+
+def test_census_matches_jax():
+    gray = np.random.RandomState(4).randint(0, 256, (19, 33)).astype(np.uint8)
+    r0, r1 = jstereo.census_transform(jnp.asarray(gray))
+    o0, o1 = tstereo.census_transform(t(gray))
+    np.testing.assert_array_equal(o0.numpy(), np.asarray(r0))
+    np.testing.assert_array_equal(o1.numpy(), np.asarray(r1))
+
+
+SGM_CASES = [
+    dict(num_disparities=16, min_disparity=0, lr_check=True),
+    dict(num_disparities=16, min_disparity=4, lr_check=False),
+    dict(num_disparities=32, min_disparity=0, lr_check=False),
+    dict(num_disparities=32, min_disparity=4, lr_check=True),
+    dict(num_disparities=16, min_disparity=2, p1=7, p2=86),
+    dict(num_disparities=16, min_disparity=0, uniqueness=5),
+    dict(num_disparities=16, min_disparity=0, uniqueness=30, subpixel=False),
+]
+
+
+@pytest.mark.parametrize("kw", SGM_CASES, ids=lambda kw: "-".join(f"{k}{v}" for k, v in kw.items()))
+def test_sgm_matches_jax_xla(kw):
+    """int16 disparity array_equal at an odd width (24x61)."""
+    left, right = stereo_pair(24, 61, 6, seed=sum(kw.values()) % 7)
+    ref = np.asarray(jstereo.sgm_disparity(jnp.asarray(left), jnp.asarray(right),
+                                           backend="xla", **kw))
+    before = ksgm.COUNTER.plain_calls
+    out = tstereo.sgm_disparity(t(left), t(right), **kw).numpy()
+    assert ksgm.COUNTER.plain_calls == before + 1  # CPU tensors -> plain version
+    assert out.dtype == np.int16
+    assert (ref != jstereo.DISPARITY_INVALID).mean() > 0.3
+    np.testing.assert_array_equal(out, ref)
+
+
+def test_sgm_aggregate_matches_jax():
+    """The plain 4-path volume equals the XLA path's, exactly."""
+    left, right = stereo_pair(12, 29, 4)
+    jl, jr = jstereo.census_transform(jnp.asarray(left)), jstereo.census_transform(jnp.asarray(right))
+    ref = np.asarray(jstereo.sgm_aggregate(jstereo.hamming_cost_volume(jl, jr, 1, 8), 10, 120))
+    tl, tr = tstereo.census_transform(t(left)), tstereo.census_transform(t(right))
+    out = tstereo.sgm_aggregate(tstereo.hamming_cost_volume(tl, tr, 1, 8), 10, 120)
+    np.testing.assert_array_equal(out.numpy(), ref.astype(np.int32))
+
+
+def test_sgm_param_limits_raise():
+    g = torch.zeros((8, 16), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        tstereo.sgm_disparity(g, g, num_disparities=8, p2=9000)
+    with pytest.raises(ValueError):
+        tstereo.sgm_disparity(g, g, num_disparities=8, p1=20, p2=10)
+
+
+# ------------------------------------------------- disparity post-processing
+
+
+@pytest.mark.parametrize("radius,iterations", [(2, 1), (3, 2)])
+def test_interpolate_matches_jax(radius, iterations):
+    d = sample_disparity(21, 34, seed=radius)
+    kw = dict(radius=radius, iterations=iterations, min_disparity=64, max_disparity=34 * 16)
+    ref = np.asarray(jdisp.interpolate(jnp.asarray(d), **kw))
+    out = tdisp.interpolate(t(d), **kw).numpy()
+    np.testing.assert_array_equal(out, ref)
+
+
+def test_derivative_and_histogram_match_jax():
+    d = sample_disparity(23, 31, seed=5)
+    d[3, 4] = 32000  # int16 wrap-around of the difference
+    d[3, 8] = -32000
+    rd, rh = jderiv.directional_derivatives(jnp.asarray(d))
+    od, oh = tderiv.directional_derivatives(t(d))
+    assert od.dtype == torch.int16 and oh.dtype == torch.int32
+    np.testing.assert_array_equal(od.numpy(), np.asarray(rd))
+    np.testing.assert_array_equal(oh.numpy(), np.asarray(rh))
+
+
+def _ulp_distance(a, b):
+    ia = a.view(np.int32).astype(np.int64)
+    ib = b.view(np.int32).astype(np.int64)
+    ia = np.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = np.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return np.abs(ia - ib)
+
+
+def test_depth_matches_jax_within_2ulp():
+    """Float32 within 2 ulp; inf/nan at the same positions (the JAX einsum
+    may sum or fuse in another order)."""
+    d = sample_disparity(17, 29, seed=6)
+    d[2, 3] = 0  # W = 0 -> inf / nan
+    q = np.eye(4, dtype=np.float32)
+    q[0, 3], q[1, 3] = -14.5, -8.0
+    q[2, 2], q[2, 3] = 0.0, 718.856
+    q[3, 2], q[3, 3] = 1.0 / 0.54, 0.0
+    ref = np.asarray(jdepth.reproject_to_3d(jnp.asarray(d), jnp.asarray(q)))
+    out = tdepth.reproject_to_3d(t(d), q).numpy()
+    np.testing.assert_array_equal(np.isnan(out), np.isnan(ref))
+    np.testing.assert_array_equal(np.isinf(out), np.isinf(ref))
+    assert np.isinf(ref).any()
+    fin = np.isfinite(ref)
+    np.testing.assert_array_equal(out[np.isinf(out)], ref[np.isinf(ref)])
+    assert _ulp_distance(out[fin], ref[fin]).max() <= 2
+
+
+# ----------------------------------------------------------- superpixels
+
+
+def test_block_init_labels_match_jax():
+    ref, rmax = jsp.block_init_labels(37, 50, 8, 8)
+    out, omax = tsp.block_init_labels(37, 50, 8, 8)
+    assert rmax == omax
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+def test_init_stats_exact_sums():
+    """Counts and sums equal the JAX f32 scatter (exact there); squares
+    equal it where the f32 sum is exact (below 2^24) and equal the int64
+    numpy sum rounded once everywhere (the port's exact-sum rule)."""
+    rng = np.random.RandomState(7)
+    h, w, num_labels = 24, 40, 16
+    labels = rng.randint(-1, num_labels, (h, w)).astype(np.int32)
+    data = rng.randint(-200, 255, (3, h, w)).astype(np.float32)
+    data[0][rng.rand(h, w) < 0.1] = -32768  # invalid derivatives: 2^30 squares
+    ref = np.asarray(jsp.init_stats(jnp.asarray(labels), jnp.asarray(data), num_labels,
+                                    use_matmul=False))
+    out = tsp.init_stats(t(labels), t(data), num_labels).numpy()
+
+    keep = labels >= 0
+    exact = np.zeros((7, num_labels), np.int64)
+    di = data.astype(np.int64)
+    rows = [np.ones_like(di[0]), *di, *(di * di)]
+    for r, v in enumerate(rows):
+        np.add.at(exact[r], labels[keep], v[keep])
+    np.testing.assert_array_equal(out, exact.astype(np.float32))
+    np.testing.assert_array_equal(out[:4], ref[:4])
+    small = np.abs(exact[4:]) < 2**24
+    np.testing.assert_array_equal(out[4:][small], ref[4:][small])
+    assert not small.all()  # the case the rule is about is exercised
+
+
+def test_moment_tally_drops_out_of_range_labels():
+    labels = torch.tensor([0, -1, 2, 3, 1], dtype=torch.int32)
+    data = torch.tensor([[1, 5, 2, 9, 4]], dtype=torch.int32)
+    out = ktally.moment_tally(labels, data, 3)
+    np.testing.assert_array_equal(out.numpy(), [[1, 1, 1], [1, 4, 2], [1, 16, 4]])
+
+
+def _relax_inputs(h, w, seed):
+    rng = np.random.RandomState(seed)
+    labels, _ = jsp.block_init_labels(h, w, 8, 8)
+    deriv = rng.randint(-60, 60, (h, w, 2)).astype(np.float32)
+    img = np.clip(rng.randn(h, w, 3) * 30 + 128 + (np.arange(w)[None, :, None] > w // 2) * 60, 0, 255)
+    return np.asarray(labels), deriv, np.round(img).astype(np.float32)
+
+
+@pytest.mark.parametrize("progressive", [0.0, 0.5])
+def test_relax_matches_jax(progressive):
+    """Labels array_equal over 5 sweeps at a geometry where every moment
+    stays below 2^24 (so the f32 and exact tallies agree)."""
+    h, w = 29, 43
+    labels, deriv, img = _relax_inputs(h, w, seed=int(progressive * 10))
+    specs = dict(disparity=1.0, image=1.5, compact=0.1)
+    jspecs = [jsp.FeatureSpec("gaussian", specs["disparity"], 2),
+              jsp.FeatureSpec("gaussian", specs["image"], 3, bounds=(0, 255)),
+              jsp.FeatureSpec("compactness", specs["compact"], 2, progressive)]
+    tspecs = [tsp.FeatureSpec("gaussian", specs["disparity"], 2),
+              tsp.FeatureSpec("gaussian", specs["image"], 3),
+              tsp.FeatureSpec("compactness", specs["compact"], 2, progressive)]
+    num_labels = int(jsp.block_init_labels(h, w, 8, 8)[1]) + 1
+    diag = 0.5 / np.sqrt(2)
+    ref = np.asarray(jsp.relax(jnp.asarray(labels), [jnp.asarray(deriv), jnp.asarray(img)],
+                               jspecs, num_labels, 5, 0.5, diag, stats_refresh="frame",
+                               backend="xla"))
+    before = krelax.COUNTER.plain_calls
+    out = tsp.relax(t(labels), [t(deriv), t(img)], tspecs, num_labels, 5, 0.5, diag).numpy()
+    assert krelax.COUNTER.plain_calls == before + 5
+    assert (ref != labels).sum() > 0  # the sweeps moved labels
+    np.testing.assert_array_equal(out, ref)
+
+
+def test_relax_sweep_plain_matches_jax_phase_update():
+    """One sweep from one stat image: labels equal JAX's one-sweep relax,
+    and the carried stat image holds each pixel's table row exactly."""
+    h, w = 21, 30
+    labels, deriv, img = _relax_inputs(h, w, seed=11)
+    num_labels = int(jsp.block_init_labels(h, w, 8, 8)[1]) + 1
+    data = np.concatenate([np.moveaxis(deriv, -1, 0), np.moveaxis(img, -1, 0),
+                           np.stack(np.meshgrid(np.arange(w), np.arange(h))).astype(np.float32)])
+    feats = [krelax.RelaxFeature("gaussian", 0, 2, 1.0), krelax.RelaxFeature("gaussian", 2, 3, 1.5),
+             krelax.RelaxFeature("compactness", 5, 2, 0.1)]
+    stats = tsp.init_stats(t(labels), t(data), num_labels)
+    stat_img = stats[:, t(labels).reshape(-1).long()].reshape(-1, h, w)
+    pix = torch.cat([torch.ones(1, h, w), t(data), t(data) * t(data)])
+    nl, ns = krelax.relax_sweep(t(labels), stat_img, pix, feats, 7, 0.5, 0.5 / np.sqrt(2))
+
+    # JAX's relax() returns labels only; in frame mode each pixel's carried
+    # rows are the table row of its (new) label.
+    ref = np.asarray(jsp.relax(jnp.asarray(labels), [jnp.asarray(deriv), jnp.asarray(img)],
+                               [jsp.FeatureSpec("gaussian", 1.0, 2),
+                                jsp.FeatureSpec("gaussian", 1.5, 3),
+                                jsp.FeatureSpec("compactness", 0.1, 2)],
+                               num_labels, 1, 0.5, 0.5 / np.sqrt(2), stats_refresh="frame",
+                               backend="xla"))
+    np.testing.assert_array_equal(nl.numpy(), ref)
+    np.testing.assert_array_equal(ns.numpy(), stats[:, nl.reshape(-1).long()].reshape(-1, h, w).numpy())
+
+
+# ---------------------------------------------------------------- planes
+
+
+def test_classify_matches_jax():
+    rng = np.random.RandomState(8)
+    d = rng.randint(-60, 60, (19, 27)).astype(np.int16)
+    d[rng.rand(19, 27) < 0.1] = -32768
+    ranges = np.array([[3, 40], [-6, 3]], np.int32)
+    ref = np.asarray(jplane.classify(jnp.asarray(d), jnp.asarray(ranges)))
+    out = tplane.classify(t(d), t(ranges)).numpy()
+    assert out.dtype == np.uint8
+    np.testing.assert_array_equal(out, ref)
+
+
+def test_superpixel_vote_matches_jax():
+    rng = np.random.RandomState(9)
+    h, w, num_labels = 26, 35, 21
+    labels = rng.randint(0, num_labels, (h, w)).astype(np.int32)
+    planes = rng.randint(0, 3, (h, w)).astype(np.uint8)
+    planes[labels % 4 == 0] = 1  # clear winners beside near ties
+    ref = np.asarray(jplane.superpixel_vote(jnp.asarray(planes), jnp.asarray(labels), num_labels))
+    before = ktally.VOTE_COUNTER.plain_calls
+    out = tplane.superpixel_vote(t(planes), t(labels), num_labels).numpy()
+    assert ktally.VOTE_COUNTER.plain_calls == before + 1
+    np.testing.assert_array_equal(out, ref)
+
+
+def test_vote_tally_plain_counts():
+    labels = torch.tensor([0, 0, 1, 2, -1, 2], dtype=torch.int32)
+    votes = torch.tensor([1, 1, 2, 0, 1, 0], dtype=torch.uint8)
+    out = ktally.vote_tally(labels, votes, 3, 3)
+    np.testing.assert_array_equal(out.numpy(), [[0, 2, 0], [0, 0, 1], [2, 0, 0]])
+
+
+# ------------------------------------------------------- kernel wrappers
+
+
+def test_expect_rejects_cpu_tensors():
+    """The CUDA path of every wrapper checks its tensors: a CPU tensor is
+    never handed to a kernel."""
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        build.expect(torch.zeros(4, dtype=torch.int32), "x", torch.int32)
+
+
+def test_counters_reset():
+    ksgm.COUNTER.launches, ksgm.COUNTER.plain_calls = 3, 2
+    build.reset_counts()
+    assert all(c.launches == 0 and c.plain_calls == 0 for c in build.COUNTERS.values())
+    assert {"sgm", "moment_tally", "relax", "vote_tally"} <= set(build.COUNTERS)
