@@ -1,20 +1,20 @@
 """JSON config reader (counterpart of cartslam_tpu/config/registry.py).
 
 Same schema ({"data_source": {...}, "modules": [...]}, or a source file and
-a modules file) and the same per-type defaults.  The slice's module types
-are built; any other type raises.
+a modules file) and the same per-type defaults.  The flagship's device
+module types are built; any other type raises.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 
 import numpy as np
-import torch
 
 from .. import models
-from ..runtime.module import Module, PipelineContext
+from ..runtime.module import Module, PipelineContext, checked_device
 from ..runtime.pipeline import Pipeline
 from ..sources import DataSource, KITTIDataSource, SyntheticDataSource
 from ..utils.plane_params import (
@@ -83,6 +83,15 @@ def build_module(cfg: dict, st: ConfigState) -> Module:
         return models.ImageDisparityDerivativeModule()
     if mtype == "depth":
         return models.DepthModule()
+    if mtype == "optflow":
+        return models.ImageOpticalFlowModule(
+            st.image_size,
+            levels=g("levels", 4),
+            search=g("search", 4),
+            refine=g("refine", 2),
+            base_level=g("base_level", 1),
+            med_passes=g("med_passes", 2),
+        )
     if mtype == "superpixels":
         direct = g("direct_clique_cost", 0.5)
         m = models.SuperPixelModule(
@@ -109,20 +118,44 @@ def build_module(cfg: dict, st: ConfigState) -> Module:
             update_interval=g("update_interval", 30),
             reset_interval=g("reset_interval", 10),
             use_temporal_smoothing=g("use_temporal_smoothing", False),
+            temporal_smoothing_distance=g("temporal_smoothing_distance", 3),
+            temporal_mode=g("temporal_mode", "carried"),
+            warp_mode=g("warp_mode", "auto"),
+            max_warp_y=g("max_warp_y", 32),
+            max_warp_x=g("max_warp_x", 64),
         )
     raise ValueError(f"module type '{mtype}' is not ported yet")
 
 
-def build_pipeline(source_cfg, modules_cfg: list[dict], *, device="cpu",
+def _warn_warp_bound(modules: list[Module]) -> None:
+    """Warn when 'select' warp mode can drop temporal votes: it drops votes
+    whose vertical flow exceeds max_warp_y, and the flow module's static
+    bound says whether that can happen.  ('auto' is 'gather' in the port,
+    which keeps them.)"""
+    flows = [m for m in modules if isinstance(m, models.ImageOpticalFlowModule)]
+    if not flows:
+        return
+    bound = flows[0].flow_bound()
+    for m in modules:
+        if getattr(m, "temporal", False) and m.warp_mode == "select" and m.max_warp_y < bound:
+            logging.getLogger("cart.config").warning(
+                "dense_flow's static vertical bound is %d px but max_warp_y=%d: "
+                "temporal votes with larger vertical flow are dropped in 'select' "
+                "warp mode (raise max_warp_y or set warp_mode='gather' to keep them)",
+                bound, m.max_warp_y,
+            )
+
+
+def build_pipeline(source_cfg, modules_cfg: list[dict], *, device="cuda",
                    grayscale: bool = False) -> tuple[Pipeline, DataSource]:
-    """(Pipeline on `device`, its data source) from config dicts."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but no CUDA device is available")
+    """(Pipeline on `device`, its data source) from config dicts.  The
+    device defaults to the card; without a GPU that raises."""
+    device = checked_device(device)
     source = create_data_source(source_cfg)
     h, w = source.get_image_size()
     st = ConfigState((h, w))
     modules = [build_module(cfg, st) for cfg in modules_cfg]
+    _warn_warp_bound(modules)
     ctx = PipelineContext(
         height=h,
         width=w,
@@ -133,7 +166,7 @@ def build_pipeline(source_cfg, modules_cfg: list[dict], *, device="cpu",
     return Pipeline(ctx, modules), source
 
 
-def read_config(*paths: str, device="cpu") -> tuple[Pipeline, DataSource]:
+def read_config(*paths: str, device="cuda") -> tuple[Pipeline, DataSource]:
     """One combined config, or a (source config, modules config) pair."""
 
     def load(p):

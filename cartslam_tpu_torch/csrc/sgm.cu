@@ -1,11 +1,21 @@
 // Kernel K1: census-Hamming semi-global matching, 4 paths, then WTA + LR.
+// Kernel K6: the same 4 paths, summed into the aggregated cost volume.
 //
-// Replaces the Pallas TPU kernels of cartslam_tpu/ops/pallas/sgm.py
+// K1 replaces the Pallas TPU kernels of cartslam_tpu/ops/pallas/sgm.py
 // (sgm_fused_pallas :654 with _make_hsweep :97, _make_vsweep :172,
 // _make_btwta_kernel :201) and ops/pallas/wta.py:wta_lr_row :66.
 // Bit-identical to the XLA path of ops/stereo.py (sgm_disparity,
 // backend="xla"), which the plain version in cartslam_tpu_torch/ops/stereo.py
 // follows line by line.
+//
+// K6 replaces sgm_aggregate_pallas (ops/pallas/sgm.py:510): census words in,
+// the 4-path aggregated cost out as int16 [H, W, D] with d ascending (the
+// TPU's reversed-d layout, flip=False, is not carried over).  It runs the
+// path kernel below with int16 path storage, so it takes the JAX op's whole
+// P2 range (each path value <= 62 + P2 <= 8062, the 4-path sum < 32767),
+// then sgm_sum4 adds the four volumes.  What bounds it: the path recurrence's
+// serial steps, as for K1, and then the sum's device-memory traffic (four
+// int16 volumes read, one written: 1.2 GB at 376x1248x256).
 //
 // What bounds it on an H100: the path recurrence is serial along each
 // scanline (1248 steps for a KITTI row, 376 for a column), so latency per
@@ -46,9 +56,12 @@ __device__ __forceinline__ int warp_min(int v) {
   return v;
 }
 
+// T: the path value's storage type, uint8_t for K1 (P2 <= 193), int16_t
+// for K6.
+template <typename T>
 __global__ void sgm_paths_kernel(const int* __restrict__ l0, const int* __restrict__ l1,
                                  const int* __restrict__ r0, const int* __restrict__ r1,
-                                 uint8_t* __restrict__ vol, int H, int W, int D,
+                                 T* __restrict__ vol, int H, int W, int D,
                                  int minD, int p1, int p2) {
   const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -63,7 +76,7 @@ __global__ void sgm_paths_kernel(const int* __restrict__ l0, const int* __restri
   }
   const int steps = dir < 2 ? W : H;
   const int nk = (D + 31) / 32;
-  uint8_t* out = vol + (size_t)dir * H * W * D;
+  T* out = vol + (size_t)dir * H * W * D;
 
   int L[kMaxK];
 #pragma unroll
@@ -103,7 +116,7 @@ __global__ void sgm_paths_kernel(const int* __restrict__ l0, const int* __restri
           }
           const int best = min(min(L[k], min(dn, up) + p1), m + p2);
           v = c + best - m;
-          out[(size_t)pix * D + d] = (uint8_t)v;
+          out[(size_t)pix * D + d] = (T)v;
         }
         nl[k] = v;
         lmin = min(lmin, v);
@@ -114,6 +127,33 @@ __global__ void sgm_paths_kernel(const int* __restrict__ l0, const int* __restri
       if (k < nk) L[k] = nl[k];
     m = warp_min(lmin);
   }
+}
+
+// out[i] = v[i] + v[n + i] + v[2n + i] + v[3n + i]; eight values per thread
+// through 16-byte loads (n % 8 == 0), else one.
+__global__ void sgm_sum4_vec_kernel(const int16_t* __restrict__ v, int16_t* __restrict__ out,
+                                    size_t n) {
+  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 8;
+  if (i >= n) return;
+  int4 q[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) q[k] = *reinterpret_cast<const int4*>(v + k * n + i);
+  int4 r;
+  int16_t* pr = reinterpret_cast<int16_t*>(&r);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    int s = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) s += reinterpret_cast<const int16_t*>(&q[k])[j];
+    pr[j] = (int16_t)s;
+  }
+  *reinterpret_cast<int4*>(out + i) = r;
+}
+
+__global__ void sgm_sum4_kernel(const int16_t* __restrict__ v, int16_t* __restrict__ out,
+                                size_t n) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = (int16_t)((int)v[i] + v[n + i] + v[2 * n + i] + v[3 * n + i]);
 }
 
 __device__ __forceinline__ int floor_div(int a, int b) {  // b > 0
@@ -190,9 +230,31 @@ extern "C" int sgm_paths(const void* l0, const void* l1, const void* r0, const v
   const int warps = 2 * H + 2 * W;
   const int threads = 128;
   const int blocks = (warps * 32 + threads - 1) / threads;
-  sgm_paths_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  sgm_paths_kernel<uint8_t><<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const int*)l0, (const int*)l1, (const int*)r0, (const int*)r1, (uint8_t*)vol,
       H, W, D, minD, p1, p2);
+  return (int)cudaGetLastError();
+}
+
+// K6. vol: int16 scratch [4, H, W, D]; out: int16 [H, W, D].
+extern "C" int sgm_aggregate(const void* l0, const void* l1, const void* r0, const void* r1,
+                             void* vol, void* out, int H, int W, int D, int minD, int p1,
+                             int p2, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int warps = 2 * H + 2 * W;
+  const int threads = 128;
+  sgm_paths_kernel<int16_t><<<(warps * 32 + threads - 1) / threads, threads, 0, s>>>(
+      (const int*)l0, (const int*)l1, (const int*)r0, (const int*)r1, (int16_t*)vol,
+      H, W, D, minD, p1, p2);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const size_t n = (size_t)H * W * D;
+  if (n % 8 == 0)
+    sgm_sum4_vec_kernel<<<(unsigned)((n / 8 + 255) / 256), 256, 0, s>>>(
+        (const int16_t*)vol, (int16_t*)out, n);
+  else
+    sgm_sum4_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+        (const int16_t*)vol, (int16_t*)out, n);
   return (int)cudaGetLastError();
 }
 

@@ -1,15 +1,20 @@
-// Kernels K2 (moment tally) and K4 (vote tally): per-label integer sums.
+// Kernels K2 (moment tally), K4 (vote tally) and K7 (label tally): per-label
+// integer sums.
 //
 // K2 replaces the Pallas moment_tally_pallas (cartslam_tpu/ops/pallas/
 // tally.py:231, body :178): the per-label table [1 + 2C, L] of pixel count,
 // per-channel sums and per-channel sums of squares, negative labels dropped.
 // K4 replaces vote_tally_pallas (ops/pallas/tally.py:102, body :61): per-label
 // counts [L, P] of the plane classes.
+// K7 replaces label_tally_pallas (ops/pallas/tally.py:318): per-label column
+// sums [L, C] of an integer matrix [B, C] of any width; init_stats sends its
+// rows [1, d, d^2] here when it has more than 8 channels.
 //
-// On the TPU both are one-hot matmuls over bf16 byte planes, exact while a
-// table entry stays below 2^24.  Here they are integer scatter-adds.
+// On the TPU all three are one-hot matmuls over bf16 byte planes (K7 with a
+// Khatri-Rao decomposition of the label), exact while a table entry stays
+// below 2^24.  Here they are integer scatter-adds.
 //
-// The exact-sum rule (K2): every entry is accumulated as an exact int64
+// The exact-sum rule (K2, K7): every entry is accumulated as an exact int64
 // (atomicAdd on unsigned long long, two's complement) and rounded to float32
 // ONCE at the end.  The JAX CPU path scatter-adds in float32 instead, which
 // is exact only while an entry stays below 2^24; at full KITTI geometry the
@@ -23,7 +28,11 @@
 // warp hold 1-3 labels).  K2 therefore aggregates within the warp first
 // (__match_any_sync groups lanes of equal label, the group leader sums the
 // group's rows and issues one atomic per table row); K4 is the plain
-// one-atomic-per-pixel histogram.
+// one-atomic-per-pixel histogram.  K7 aggregates the same way, one column at
+// a time through a per-warp shared buffer: a per-block copy of the table does
+// not fit (L = 3329 labels x 19 columns x 8 bytes = 506 KB against 227 KB of
+// shared memory), so the atomics go to device memory, one per label group
+// and column.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,6 +66,30 @@ __global__ void moment_tally_kernel(const int* __restrict__ labels,
     }
     atomicAdd(&acc[(size_t)(1 + c) * L + lab], (unsigned long long)s);
     atomicAdd(&acc[(size_t)(1 + C + c) * L + lab], (unsigned long long)ss);
+  }
+}
+
+__global__ void label_tally_kernel(const int* __restrict__ labels,
+                                   const int* __restrict__ values, int B, int C, int L,
+                                   unsigned long long* __restrict__ acc) {
+  __shared__ int buf[kThreads];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int lab = i < B ? labels[i] : -1;
+  const bool keep = lab >= 0 && lab < L;
+  // Every lane takes part (no early exit): dropped lanes group under -1.
+  const unsigned peers = __match_any_sync(0xffffffffu, keep ? lab : -1);
+  const bool leader = keep && lane == __ffs(peers) - 1;
+  const int base = threadIdx.x - lane;
+  for (int c = 0; c < C; ++c) {
+    buf[threadIdx.x] = keep ? values[(size_t)i * C + c] : 0;
+    __syncwarp();
+    if (leader) {
+      long long s = 0;
+      for (unsigned m = peers; m; m &= m - 1) s += buf[base + __ffs(m) - 1];
+      atomicAdd(&acc[(size_t)lab * C + c], (unsigned long long)s);
+    }
+    __syncwarp();
   }
 }
 
@@ -103,5 +136,22 @@ extern "C" int vote_tally(const void* labels, const void* votes, int N, int L, i
   if (N > 0)
     vote_tally_kernel<<<(N + 255) / 256, 256, 0, s>>>(
         (const int*)labels, (const uint8_t*)votes, N, L, P, (int*)out);
+  return (int)cudaGetLastError();
+}
+
+// K7. labels int32 [B], values int32 [B, C], acc int64 scratch [L, C],
+// out float32 [L, C].
+extern "C" int label_tally(const void* labels, const void* values, int B, int C, int L,
+                           void* acc, void* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int n = L * C;
+  cudaError_t e = cudaMemsetAsync(acc, 0, (size_t)n * sizeof(unsigned long long), s);
+  if (e != cudaSuccess) return (int)e;
+  if (B > 0 && C > 0)
+    label_tally_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+        (const int*)labels, (const int*)values, B, C, L, (unsigned long long*)acc);
+  if (n > 0)
+    to_float_kernel<<<(n + 255) / 256, 256, 0, s>>>((const unsigned long long*)acc,
+                                                    (float*)out, n);
   return (int)cudaGetLastError();
 }

@@ -41,7 +41,9 @@ _F = ctypes.c_float
 SIGNATURES = {
     "sgm_paths": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "sgm_wta": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sgm_aggregate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "moment_tally": [_P, _P, _I, _I, _I, _P, _P, _P],
+    "label_tally": [_P, _P, _I, _I, _I, _P, _P, _P],
     "vote_tally": [_P, _P, _I, _I, _I, _P, _P],
     "relax_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                     _P, _P, _P, _P, _P, _F, _F, _P],

@@ -1,10 +1,11 @@
-"""Kernel K1: fused SGM (csrc/sgm.cu) and its plain version.
+"""Kernels K1 (fused SGM) and K6 (4-path aggregated volume), csrc/sgm.cu,
+with their plain versions.
 
-Replaces the Pallas ``sgm_fused_pallas`` (cartslam_tpu/ops/pallas/sgm.py:654,
-with ``wta_lr_row`` of ops/pallas/wta.py:66).  On a CUDA tensor the wrapper
-launches the two CUDA kernels (4-path aggregation, then WTA + LR check) or
-raises; on a CPU tensor it runs the plain version, the XLA path's chain in
-ops/stereo.py.
+K1 replaces the Pallas ``sgm_fused_pallas`` (cartslam_tpu/ops/pallas/
+sgm.py:654, with ``wta_lr_row`` of ops/pallas/wta.py:66); K6 replaces
+``sgm_aggregate_pallas`` (ops/pallas/sgm.py:510).  On a CUDA tensor a wrapper
+launches its CUDA kernels or raises; on a CPU tensor it runs the plain
+version, the XLA path's chain in ops/stereo.py.
 """
 
 from __future__ import annotations
@@ -15,9 +16,17 @@ from ..ops import stereo
 from . import build
 
 COUNTER = build.counter("sgm")
+AGGREGATE_COUNTER = build.counter("sgm_aggregate")
 # Path values are stored as uint8: each is bounded by COST_INVALID + p2.
 MAX_P2 = 255 - stereo.COST_INVALID
 MAX_DISPARITIES = 256
+
+
+def _check_census(cl0, cl1, cr0, cr1) -> tuple[int, int]:
+    h, w = cl0.shape
+    for name, t in (("cl0", cl0), ("cl1", cl1), ("cr0", cr0), ("cr1", cr1)):
+        build.expect(t, name, torch.int32, (h, w), cl0.device)
+    return h, w
 
 
 def sgm_fused(cl0, cl1, cr0, cr1, *, min_disparity: int, num_disparities: int,
@@ -34,9 +43,7 @@ def sgm_fused(cl0, cl1, cr0, cr1, *, min_disparity: int, num_disparities: int,
         raise ValueError(f"sgm kernel stores path values as uint8: needs p2 <= {MAX_P2}")
     if not 1 <= num_disparities <= MAX_DISPARITIES:
         raise ValueError(f"sgm kernel takes 1..{MAX_DISPARITIES} disparities")
-    h, w = cl0.shape
-    for name, t in (("cl0", cl0), ("cl1", cl1), ("cr0", cr0), ("cr1", cr1)):
-        build.expect(t, name, torch.int32, (h, w), cl0.device)
+    h, w = _check_census(cl0, cl1, cr0, cr1)
     lib = build.library()
     vol = torch.empty((4, h, w, num_disparities), dtype=torch.uint8, device=cl0.device)
     out = torch.empty((h, w), dtype=torch.int16, device=cl0.device)
@@ -50,4 +57,36 @@ def sgm_fused(cl0, cl1, cr0, cr1, *, min_disparity: int, num_disparities: int,
                             int(lr_check), s),
                 "sgm_wta")
     COUNTER.launches += 1
+    return out
+
+
+def sgm_aggregate_plain(cl0, cl1, cr0, cr1, *, min_disparity: int, num_disparities: int,
+                        p1: int, p2: int) -> torch.Tensor:
+    """The plain version of K6: cost volume, then the 4-path sum, as int16."""
+    cost = stereo.hamming_cost_volume((cl0, cl1), (cr0, cr1), min_disparity, num_disparities)
+    return stereo.sgm_aggregate(cost, p1, p2).to(torch.int16)
+
+
+def sgm_aggregate(cl0, cl1, cr0, cr1, *, min_disparity: int, num_disparities: int,
+                  p1: int, p2: int) -> torch.Tensor:
+    """Census words (int32 [H, W] x2 per view) -> the 4-path aggregated cost
+    int16 [H, W, D], d ascending: the counterpart of sgm_aggregate_pallas.
+    Takes the JAX op's parameter range (p2 <= 8000): the kernel stores path
+    values as int16."""
+    stereo.check_sgm_params(p1, p2)
+    kw = dict(min_disparity=min_disparity, num_disparities=num_disparities, p1=p1, p2=p2)
+    if cl0.device.type == "cpu":
+        AGGREGATE_COUNTER.plain_calls += 1
+        return sgm_aggregate_plain(cl0, cl1, cr0, cr1, **kw)
+    if not 1 <= num_disparities <= MAX_DISPARITIES:
+        raise ValueError(f"sgm_aggregate kernel takes 1..{MAX_DISPARITIES} disparities")
+    h, w = _check_census(cl0, cl1, cr0, cr1)
+    lib = build.library()
+    vol = torch.empty((4, h, w, num_disparities), dtype=torch.int16, device=cl0.device)
+    out = torch.empty((h, w, num_disparities), dtype=torch.int16, device=cl0.device)
+    build.check(lib.sgm_aggregate(cl0.data_ptr(), cl1.data_ptr(), cr0.data_ptr(),
+                                  cr1.data_ptr(), vol.data_ptr(), out.data_ptr(), h, w,
+                                  num_disparities, min_disparity, p1, p2, build.stream()),
+                "sgm_aggregate")
+    AGGREGATE_COUNTER.launches += 1
     return out

@@ -1,10 +1,11 @@
-"""Kernels K2 (moment tally) and K4 (vote tally), csrc/tally.cu, with their
-plain versions.
+"""Kernels K2 (moment tally), K4 (vote tally) and K7 (label tally),
+csrc/tally.cu, with their plain versions.
 
 K2 replaces the Pallas ``moment_tally_pallas`` (cartslam_tpu/ops/pallas/
-tally.py:231); K4 replaces ``vote_tally_pallas`` (ops/pallas/tally.py:102).
-On a CUDA tensor the wrappers launch the kernel or raise; on a CPU tensor
-they run the plain version.  Both versions compute exact integer sums: K2's
+tally.py:231); K4 replaces ``vote_tally_pallas`` (ops/pallas/tally.py:102);
+K7 replaces ``label_tally_pallas`` (ops/pallas/tally.py:318).  On a CUDA
+tensor the wrappers launch the kernel or raise; on a CPU tensor they run the
+plain version.  Both versions compute exact integer sums: K2's and K7's
 table entries are int64 sums rounded to float32 once (the JAX CPU path adds
 in float32, exact only below 2^24 per entry).
 """
@@ -17,6 +18,7 @@ from . import build
 
 MOMENT_COUNTER = build.counter("moment_tally")
 VOTE_COUNTER = build.counter("vote_tally")
+LABEL_COUNTER = build.counter("label_tally")
 MAX_CHANNELS = 8
 
 
@@ -75,4 +77,30 @@ def vote_tally(labels: torch.Tensor, votes: torch.Tensor, num_labels: int,
                                num_classes, out.data_ptr(), build.stream()),
                 "vote_tally")
     VOTE_COUNTER.launches += 1
+    return out
+
+
+def label_tally_plain(labels: torch.Tensor, values: torch.Tensor, num_labels: int) -> torch.Tensor:
+    """labels int32 [B], values int32 [B, C] -> float32 [L, C] per-label
+    column sums; labels outside [0, L) drop."""
+    keep = (labels >= 0) & (labels < num_labels)
+    acc = torch.zeros((num_labels, values.shape[1]), dtype=torch.int64, device=labels.device)
+    return acc.index_add_(0, labels[keep].to(torch.int64),
+                          values[keep].to(torch.int64)).to(torch.float32)
+
+
+def label_tally(labels: torch.Tensor, values: torch.Tensor, num_labels: int) -> torch.Tensor:
+    if labels.device.type == "cpu":
+        LABEL_COUNTER.plain_calls += 1
+        return label_tally_plain(labels, values, num_labels)
+    b, c = values.shape
+    build.expect(labels, "labels", torch.int32, (b,))
+    build.expect(values, "values", torch.int32, (b, c), labels.device)
+    lib = build.library()
+    acc = torch.empty((num_labels, c), dtype=torch.int64, device=labels.device)
+    out = torch.empty((num_labels, c), dtype=torch.float32, device=labels.device)
+    build.check(lib.label_tally(labels.data_ptr(), values.data_ptr(), b, c, num_labels,
+                                acc.data_ptr(), out.data_ptr(), build.stream()),
+                "label_tally")
+    LABEL_COUNTER.launches += 1
     return out

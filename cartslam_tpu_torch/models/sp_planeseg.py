@@ -1,7 +1,9 @@
-"""SuperPixelDisparityPlaneSegmentationModule, non-temporal branch
-(counterpart of cartslam_tpu/models/sp_planeseg.py).
+"""SuperPixelDisparityPlaneSegmentationModule (counterpart of
+cartslam_tpu/models/sp_planeseg.py).
 
-Pixel classification of the vertical derivative (channel 0), then the
+Pixel classification of the vertical derivative (channel 0), the optional
+temporal vote (the carried flow-warped accumulator of
+``ops/planeseg.temporal_vote_warped``, current-frame weight 2), then the
 per-superpixel majority vote (kernel K4 on the device).  The host step keeps
 the running histogram of channel 0 of the derivative histogram: the first
 contribution is skipped, the total resets at frame ids == 1 (mod
@@ -22,7 +24,9 @@ KEY_SUPERPIXELS = "superpixels"
 KEY_MAX_LABEL = "superpixels_max_label"
 KEY_DERIVATIVE = "disparity_derivative"
 KEY_DERIVATIVE_HISTOGRAM = "disparity_derivative_histogram"
+KEY_OPTFLOW = "optflow"
 KEY_PLANES = "planes"
+KEY_PLANES_UNSMOOTHED = "planes_unsmoothed"
 
 
 class SuperPixelDisparityPlaneSegmentationModule(Module):
@@ -30,31 +34,52 @@ class SuperPixelDisparityPlaneSegmentationModule(Module):
 
     def __init__(self, provider: PlaneParameterProvider, num_labels: int,
                  update_interval: int = 30, reset_interval: int = 10,
-                 use_temporal_smoothing: bool = False):
-        if use_temporal_smoothing:
+                 use_temporal_smoothing: bool = False, temporal_smoothing_distance: int = 3,
+                 temporal_mode: str = "carried", warp_mode: str = "auto",
+                 max_warp_y: int = 32, max_warp_x: int = 64):
+        if temporal_mode != "carried":
             raise ValueError(
-                "superpixel_disparity_planeseg with use_temporal_smoothing is "
-                "not ported yet"
+                f"superpixel_disparity_planeseg with temporal_mode={temporal_mode!r} is "
+                "not ported yet (only 'carried')"
             )
+        if warp_mode not in pops.WARP_MODES:
+            raise ValueError(f"unknown warp_mode {warp_mode!r}; expected one of {pops.WARP_MODES}")
         self.provider = provider
         self.num_labels = num_labels
         self.update_interval = update_interval
         self.reset_interval = reset_interval
+        self.temporal = use_temporal_smoothing
+        self.distance = temporal_smoothing_distance
+        self.warp_mode = warp_mode
+        self.max_warp_y = max_warp_y
+        self.max_warp_x = max_warp_x
         self._running: np.ndarray | None = None
 
     def provides(self):
-        return [KEY_PLANES]
+        return [KEY_PLANES, KEY_PLANES_UNSMOOTHED] if self.temporal else [KEY_PLANES]
 
     def requires(self):
-        return [
+        deps = [
             Dependency(KEY_SUPERPIXELS),
             Dependency(KEY_MAX_LABEL),
             Dependency(KEY_DERIVATIVE),
             Dependency(KEY_DERIVATIVE_HISTOGRAM),
         ]
+        if self.temporal:
+            # The carried warp accumulator replaces deep history reads.
+            deps += [Dependency(KEY_OPTFLOW), Dependency(KEY_PLANES_UNSMOOTHED, offset=-1)]
+        return deps
+
+    def init_state(self, ctx: PipelineContext):
+        if not self.temporal:
+            return {}
+        return {"warp_votes": torch.full((self.distance, ctx.height, ctx.width),
+                                         pops.WARP_INVALID, dtype=torch.uint8,
+                                         device=ctx.device)}
 
     def output_spec(self, ctx: PipelineContext):
-        return {KEY_PLANES: TensorSpec((ctx.height, ctx.width), torch.uint8)}
+        spec = TensorSpec((ctx.height, ctx.width), torch.uint8)
+        return {k: spec for k in self.provides()}
 
     def initial_host_params(self, ctx: PipelineContext):
         return {"ranges": self.provider.get().ranges_array()}
@@ -103,5 +128,19 @@ class SuperPixelDisparityPlaneSegmentationModule(Module):
     def compute(self, ctx, step, deps, state, params, variant):
         ranges = torch.as_tensor(params["ranges"], dtype=torch.int32, device=ctx.device)
         pixel_planes = pops.classify(deps[KEY_DERIVATIVE][..., 0], ranges)
-        planes = pops.superpixel_vote(pixel_planes, deps[KEY_SUPERPIXELS], self.num_labels)
-        return {KEY_PLANES: planes}, {}
+        if not self.temporal:
+            planes = pops.superpixel_vote(pixel_planes, deps[KEY_SUPERPIXELS], self.num_labels)
+            return {KEY_PLANES: planes}, {}
+        prev = step.history(KEY_PLANES_UNSMOOTHED, -1)
+        if step.frame_id <= 1:
+            prev = torch.full_like(prev, pops.WARP_INVALID)
+        voted, warp_votes = pops.temporal_vote_warped(
+            pixel_planes, prev, state["warp_votes"], deps[KEY_OPTFLOW],
+            current_weight=2, compare_unknown=True, warp_mode=self.warp_mode,
+            max_warp_y=self.max_warp_y, max_warp_x=self.max_warp_x,
+        )
+        planes = pops.superpixel_vote(voted, deps[KEY_SUPERPIXELS], self.num_labels)
+        # The unsmoothed output is the raw per-pixel classification; the
+        # temporal vote only feeds the superpixel tally.
+        return ({KEY_PLANES: planes, KEY_PLANES_UNSMOOTHED: pixel_planes},
+                {"warp_votes": warp_votes})

@@ -1,5 +1,6 @@
 """Plane segmentation from disparity derivatives (counterpart of
-ops/planeseg.py: ``classify`` and ``superpixel_vote``).
+ops/planeseg.py: ``classify``, ``temporal_vote_warped`` and
+``superpixel_vote``).
 
 Plane ids: HORIZONTAL=0, VERTICAL=1, UNKNOWN=2.  Classification tests the
 horizontal range first, then the vertical range, both half-open.
@@ -11,6 +12,7 @@ import torch
 
 from ..kernels import tally as ktally
 from .tally import table_gather
+from .warp import separable_warp
 
 DERIVATIVE_INVALID = -32768
 
@@ -29,6 +31,68 @@ def classify(derivative: torch.Tensor, ranges: torch.Tensor) -> torch.Tensor:
     is_v = valid & (d >= ranges[1, 0]) & (d < ranges[1, 1]) & ~is_h
     out = torch.where(is_h, HORIZONTAL, torch.where(is_v, VERTICAL, UNKNOWN))
     return out.to(torch.uint8)
+
+
+WARP_INVALID = 3  # 2-bit sentinel: "no vote" (out of the image or before frame 1)
+WARP_MODES = ("auto", "gather", "select")
+
+
+def temporal_vote_warped(current: torch.Tensor, prev_planes: torch.Tensor,
+                         warp_state: torch.Tensor, flow: torch.Tensor, current_weight: int,
+                         compare_unknown: bool, warp_mode: str = "auto",
+                         max_warp_y: int = 32, max_warp_x: int = 64,
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Temporal majority vote through a carried warp accumulator.
+
+    Instead of re-warping every previous frame's labels, the already-warped
+    vote stack is carried across frames and warped once by the current
+    flow: V_k(t) = warp_{f_t}(V_{k-1}(t-1)), V_0 := planes(t-1).  All K
+    channels pack as 2-bit fields into one int32 image, so one image warps
+    whatever K is.  The integer part of the S10.5 flow is ``>> 5``.
+
+    current: uint8 [H, W]; prev_planes: uint8 [H, W] (the previous frame's
+    unsmoothed planes); warp_state: uint8 [K, H, W], channel c = planes of
+    frame t-1-c warped into frame t-1, WARP_INVALID where no vote exists;
+    flow: int16 [H, W, 2].  current_weight and compare_unknown as in the
+    JAX function (2 and True for the superpixel module).
+    warp_mode: 'gather' warps each pixel by its flow, unbounded; 'select' is
+    the JAX package's TPU route, a separable warp (ops/warp.py) that drops
+    votes moving farther than (max_warp_y, max_warp_x); 'auto' is 'gather',
+    as on every backend of the JAX package but the TPU.
+
+    Returns (voted uint8 [H, W], new warp_state uint8 [K, H, W]).
+    """
+    k, h, w = warp_state.shape
+    if 2 * (k + 1) > 32:
+        raise ValueError(f"temporal distance {k} exceeds the 2-bit pack limit of 15")
+    if warp_mode not in WARP_MODES:
+        raise ValueError(f"unknown warp_mode {warp_mode!r}; expected one of {WARP_MODES}")
+    stack_in = torch.cat([prev_planes[None], warp_state[:-1]], dim=0).to(torch.int32)
+    packed = torch.zeros((h, w), dtype=torch.int32, device=current.device)
+    all_invalid = 0
+    for c in range(k):
+        packed = packed | (stack_in[c] << (2 * c))
+        all_invalid |= WARP_INVALID << (2 * c)
+
+    fx = flow[..., 0].to(torch.int32) >> 5
+    fy = flow[..., 1].to(torch.int32) >> 5
+    if warp_mode == "select":
+        warped, _ = separable_warp(packed, fy, fx, max_warp_y, max_warp_x, fill=all_invalid)
+    else:
+        ys = torch.arange(h, dtype=torch.int32, device=current.device)[:, None] - fy
+        xs = torch.arange(w, dtype=torch.int32, device=current.device)[None, :] - fx
+        inb = (xs >= 0) & (ys >= 0) & (xs < w) & (ys < h)
+        idx = ys.clamp(0, h - 1).to(torch.int64) * w + xs.clamp(0, w - 1)
+        warped = torch.where(inb, packed.reshape(-1)[idx], all_invalid)
+
+    new_state = torch.stack([((warped >> (2 * c)) & 3).to(torch.uint8) for c in range(k)])
+    votes = [(new_state == plane).sum(dim=0, dtype=torch.int32)
+             + torch.where(current == plane, current_weight, 0)
+             for plane in range(PLANE_COUNT)]
+    winner = torch.where(votes[HORIZONTAL] > votes[VERTICAL], HORIZONTAL, VERTICAL)
+    wv = torch.where(winner == HORIZONTAL, votes[HORIZONTAL], votes[VERTICAL])
+    unknown = wv < votes[UNKNOWN] if compare_unknown else wv == 0
+    return torch.where(unknown, UNKNOWN, winner).to(torch.uint8), new_state
 
 
 def superpixel_vote(pixel_planes: torch.Tensor, labels: torch.Tensor,

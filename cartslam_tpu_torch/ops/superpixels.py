@@ -21,7 +21,7 @@ import torch
 
 from ..kernels import relax as krelax
 from ..kernels import tally as ktally
-from .tally import table_gather
+from .tally import label_tally, table_gather
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,13 +44,16 @@ def block_init_labels(height: int, width: int, block_w: int, block_h: int, devic
 def init_stats(labels: torch.Tensor, data: torch.Tensor, num_labels: int) -> torch.Tensor:
     """Stat table float32 [1 + 2C, L] (count | sums | sums of squares) from
     integer-valued channel planes data [C, H, W]; negative labels drop.
-    Each entry is the exact integer sum, rounded to float32 once (kernel K2)."""
+    Each entry is the exact integer sum, rounded to float32 once: kernel K2
+    for up to 8 channels, else the column sums of the rows [1, d, d^2]
+    (kernel K7), as the JAX package routes them."""
     c = data.shape[0]
-    return ktally.moment_tally(
-        labels.reshape(-1).contiguous(),
-        data.reshape(c, -1).to(torch.int32).contiguous(),
-        num_labels,
-    )
+    flat = labels.reshape(-1).contiguous()
+    d = data.reshape(c, -1).to(torch.int32)
+    if c <= ktally.MAX_CHANNELS:
+        return ktally.moment_tally(flat, d.contiguous(), num_labels)
+    rows = torch.cat([torch.ones_like(d[:1]), d, d * d]).T
+    return label_tally(flat, rows, num_labels).T.contiguous()
 
 
 def relax(labels: torch.Tensor, feature_data: Sequence[torch.Tensor],

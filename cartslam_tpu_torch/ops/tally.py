@@ -2,13 +2,24 @@
 
 The JAX package builds its per-label sums and table lookups from one-hot
 matmuls, because scatters and gathers cost per index on the TPU.  On the GPU
-the sums are the integer scatter-add kernels K2 and K4 (kernels/tally.py),
-and a table lookup is a plain index.
+the sums are the integer scatter-add kernels K2, K4 and K7
+(kernels/tally.py), and a table lookup is a plain index.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..kernels import tally as ktally
+
+
+def label_tally(labels: torch.Tensor, values: torch.Tensor, num_labels: int) -> torch.Tensor:
+    """Per-label sums out[l, c] = sum of values[b, c] over labels[b] == l:
+    float32 [L, C] from labels int [B] and integer values [B, C] (kernel
+    K7).  Each entry is the exact integer sum, rounded to float32 once;
+    labels outside [0, L) drop."""
+    return ktally.label_tally(labels.reshape(-1).to(torch.int32).contiguous(),
+                              values.to(torch.int32).contiguous(), num_labels)
 
 
 def table_gather(table: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -33,15 +33,28 @@ class TensorSpec:
     dtype: torch.dtype
 
 
+def checked_device(device) -> torch.device:
+    """`device` as a torch.device; a CUDA device without a GPU raises (the
+    port never falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but no CUDA device is available")
+    return device
+
+
 @dataclasses.dataclass(frozen=True)
 class PipelineContext:
-    """Static facts about the pipeline shared by all modules."""
+    """Static facts about the pipeline shared by all modules.  The device
+    defaults to the card; CPU callers pass ``device="cpu"``."""
 
     height: int
     width: int
     q: np.ndarray  # 4x4 float32 disparity->3D reprojection matrix
-    device: torch.device = torch.device("cpu")
+    device: torch.device = torch.device("cuda")
     grayscale: bool = False
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", checked_device(self.device))
 
 
 class StepContext:

@@ -5,7 +5,9 @@ The JAX pipeline's state is a tree ``{"modules": {name: {key: array}},
 are ``{name: {key: array}}``.  These two functions map such trees to the
 port's tensors and back, keys, shapes and dtypes unchanged, so both packages
 can start from the same state.  This system has no weights: its state (the
-superpixel labels, the history rings, the provider ranges) takes their place.
+superpixel labels, the flow's previous gray frame, the temporal vote's
+carried ``warp_votes``, the history rings, the provider ranges) takes their
+place.
 """
 
 from __future__ import annotations

@@ -1,22 +1,35 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one GPU: ``python3 chip_smoke.py``.
 
-Phases (each raises on failure):
-  1. device  - require CUDA; print the card's name and power limit.
-  2. build   - compile the CUDA kernels from csrc/ with nvcc (sm_90a).
-  3. kernels - each kernel against its plain PyTorch version on the card, at
-               the flagship slice's shapes (376x1248, 256 disparities).
-  4. slice   - the non-temporal kitti-planeseg flagship (disparity ->
-               derivative -> depth -> superpixels -> superpixel plane
-               segmentation) for 65 synthetic frames through the config
-               registry and the run loop, with every kernel's launch count
-               checked; a small-input run on the card against the same run
-               on the CPU; disparity against the synthetic ground truth;
-               then a profiled run of frames 3..12 (per-module CUDA-event
-               spans, device busy time and idle share, device time by
-               kernel name, all from that one run).
-  5. cli     - configs/synthetic-planeseg.json through the CLI entry point.
-  6. times   - per-frame ms and each kernel's ms beside its plain version's.
+Phases (each raises on failure; none is caught):
+  1. device   - require CUDA; print the card's name and power limit.
+  2. build    - compile the CUDA kernels from csrc/ with nvcc (sm_90a).
+  3. kernels  - each kernel against its plain PyTorch version on the card, at
+                the flagship's shapes (376x1248, 256 disparities, 3329
+                labels), with its time, the plain version's, the time of one
+                PyTorch library call computing the same function where there
+                is one, and the least time the card could take (bound).  The
+                SGM stages (census, K6 aggregate, K1 fused) are timed side by
+                side.
+  4. paths    - each path driven with the launch counts set to 0 just before
+                it and read just after:
+                  * K6's entry point (kernels/sgm.sgm_aggregate) once;
+                  * K7's entry point (ops/superpixels.init_stats with 9
+                    channels) once;
+                  * the temporal flagship: configs/kitti-planeseg.json's
+                    modules minus the host visualizations, unedited, for 65
+                    synthetic frames through the registry and the run loop
+                    (K1 x65, K2 x65, K3 x552, K4 x65, no plain call);
+                  * the non-temporal slice (no optflow, no temporal vote) for
+                    10 frames.
+  5. parity   - the small temporal slice (64x128, 6 frames) on the card and on
+                the CPU, every output and the final state equal; the
+                full-size flow of one frame pair, card against CPU.
+  6. profile  - one fresh temporal flagship over frames 3..12 under
+                torch.profiler: per-module CUDA-event spans, device busy time
+                and idle share, device time by kernel name.
+  7. cli      - configs/synthetic-planeseg.json through the CLI entry point.
+  8. times    - per-frame ms and each kernel's numbers.
 The last two lines of standard output are the kernels JSON line and the
 result line ``{"ok": true, "device": {...}}``.
 """
@@ -30,10 +43,12 @@ import sys
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 H, W, D = 376, 1248, 256
 FRAMES = 65
+NONTEMPORAL_FRAMES = 10
 # K3 labels could differ from the plain version's only where torch's CUDA log
 # and the kernel's logf round one value differently and so flip a strict-<
 # tie.  Both call the same logf, and every run so far showed 0, so the bound
@@ -41,13 +56,59 @@ FRAMES = 65
 RELAX_LABEL_BOUND = 0
 # Frames of the profiled run (normal variant, no provider update, no reset).
 PROFILE_FRAMES = (3, 12)
+# Widths of the label tally: the rows [1, d, d^2] of a 9-channel init_stats
+# (its path), and the 50 columns of the JAX package's byte-plane moment tally.
+LABEL_TALLY_WIDTHS = (19, 50)
 
+# The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): device
+# memory 3.35 TB/s; 67 T float32 operations/s outside the tensor cores.  The
+# data sheet gives no integer CUDA-core rate; the int32 rate is at most the
+# float32 one, so using it for integer work keeps the bound a lower bound.
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
+# Operations per (pixel, disparity) cell of the SGM kernels: the census cost
+# (2 xor, 2 popc, 1 add), 7 per path step (3 adds, 3 mins, 1 subtract) for 4
+# paths, 3 adds for the 4-path sum; K1 adds 6 for its winner searches (keyed
+# minimum, second minimum, right-view minimum).
+SGM_AGGREGATE_OPS_PER_CELL = 5 + 4 * 7 + 3
+SGM_FUSED_OPS_PER_CELL = SGM_AGGREGATE_OPS_PER_CELL + 6
+# Operations per candidate and channel of a relax sweep: 4 cost terms of
+# about 10 operations (a divide, a log, the variance) each.
+RELAX_OPS_PER_CANDIDATE_CHANNEL = 4 * 10
+
+# name -> (source, the TPU kernel it replaces (file:line), the path that runs it)
 KERNELS = {
-    "sgm": ("cartslam_tpu_torch/csrc/sgm.cu", "cartslam_tpu/ops/pallas/sgm.py:654"),
-    "moment_tally": ("cartslam_tpu_torch/csrc/tally.cu", "cartslam_tpu/ops/pallas/tally.py:231"),
-    "relax": ("cartslam_tpu_torch/csrc/relax.cu", "cartslam_tpu/ops/pallas/relax.py:240"),
-    "vote_tally": ("cartslam_tpu_torch/csrc/tally.cu", "cartslam_tpu/ops/pallas/tally.py:102"),
+    "sgm": ("cartslam_tpu_torch/csrc/sgm.cu", "cartslam_tpu/ops/pallas/sgm.py:654",
+            "flagship"),
+    "moment_tally": ("cartslam_tpu_torch/csrc/tally.cu", "cartslam_tpu/ops/pallas/tally.py:231",
+                     "flagship"),
+    "relax": ("cartslam_tpu_torch/csrc/relax.cu", "cartslam_tpu/ops/pallas/relax.py:240",
+              "flagship"),
+    "vote_tally": ("cartslam_tpu_torch/csrc/tally.cu", "cartslam_tpu/ops/pallas/tally.py:102",
+                   "flagship"),
+    "sgm_aggregate": ("cartslam_tpu_torch/csrc/sgm.cu", "cartslam_tpu/ops/pallas/sgm.py:510",
+                      "sgm_aggregate entry point"),
+    "label_tally": ("cartslam_tpu_torch/csrc/tally.cu", "cartslam_tpu/ops/pallas/tally.py:318",
+                    "init_stats entry point, 9 channels"),
 }
+FLAGSHIP_LAUNCHES = {"sgm": FRAMES, "moment_tally": FRAMES,
+                     "relax": 24 + (FRAMES - 2) * 8 + 24, "vote_tally": FRAMES}
+NONTEMPORAL_LAUNCHES = {"sgm": NONTEMPORAL_FRAMES, "moment_tally": NONTEMPORAL_FRAMES,
+                        "relax": 24 + (NONTEMPORAL_FRAMES - 1) * 8,
+                        "vote_tally": NONTEMPORAL_FRAMES}
+
+
+class OpCount(TorchDispatchMode):
+    """Counts the ATen ops a block dispatches (views included): the host
+    work of an eager, launch-bound function."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
 
 
 def log(msg: str) -> None:
@@ -67,13 +128,26 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def slice_modules() -> list[dict]:
-    """configs/kitti-planeseg.json's modules, cut to the non-temporal slice."""
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the bytes over
+    the memory rate and the operations over the peak rate."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / SCALAR_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def flagship_modules() -> list[dict]:
+    """configs/kitti-planeseg.json's modules, minus the host visualizations,
+    as written (optflow, use_temporal_smoothing: true)."""
     with open(os.path.join(REPO, "configs", "kitti-planeseg.json")) as f:
         mods = json.load(f)["modules"]
+    return [m for m in mods if not m["type"].endswith("_visualization")]
+
+
+def nontemporal_modules() -> list[dict]:
+    """The flagship without its temporal branch (the first slice's path)."""
     out = []
-    for m in mods:
-        if m["type"] == "optflow" or m["type"].endswith("_visualization"):
+    for m in flagship_modules():
+        if m["type"] == "optflow":
             continue
         if m["type"] == "superpixel_disparity_planeseg":
             m = {**m, "use_temporal_smoothing": False}
@@ -82,7 +156,9 @@ def slice_modules() -> list[dict]:
 
 
 def kernel_phase(dev, tag):
-    """Each kernel vs its plain version at the slice's shapes."""
+    """Each kernel vs its plain version at the flagship's shapes.  Returns
+    {name: dict(max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by)}
+    and the inputs the path phase reuses."""
     from cartslam_tpu_torch.kernels import relax as krelax
     from cartslam_tpu_torch.kernels import sgm as ksgm
     from cartslam_tpu_torch.kernels import tally as ktally
@@ -97,9 +173,15 @@ def kernel_phase(dev, tag):
     right = torch.from_numpy(f["right"]).to(dev)
     results = {}
 
+    def record(name, err, ms, pms, lms, nbytes, ops):
+        bms, by = bound(nbytes, ops)
+        results[name] = dict(max_abs_err=float(err), ms=ms, plain_ms=pms, library_ms=lms,
+                             bound_ms=bms, bound_by=by)
+
     # K1
-    cl = stereo.census_transform(color.bgr_to_gray(left))
-    cr = stereo.census_transform(color.bgr_to_gray(right))
+    gl, gr = color.bgr_to_gray(left), color.bgr_to_gray(right)
+    cl = stereo.census_transform(gl)
+    cr = stereo.census_transform(gr)
     kw = dict(min_disparity=4, num_disparities=D, p1=10, p2=120, uniqueness=12,
               subpixel=True, lr_check=True)
     out_k = ksgm.sgm_fused(*cl, *cr, **kw)
@@ -107,13 +189,49 @@ def kernel_phase(dev, tag):
     if not torch.equal(out_k, out_p):
         n = int((out_k != out_p).sum())
         raise AssertionError(f"K1 sgm: {n} pixels differ from the plain version")
-    err = float((out_k.int() - out_p.int()).abs().max())
     ms = cuda_ms(lambda: ksgm.sgm_fused(*cl, *cr, **kw), 20)
     pms = cuda_ms(lambda: stereo.sgm_from_census_plain(*cl, *cr, **kw), 2)
-    results["sgm"] = (err, ms, pms)
+    record("sgm", (out_k.int() - out_p.int()).abs().max(), ms, pms, None,
+           4 * H * W * 4 + H * W * 2, H * W * D * SGM_FUSED_OPS_PER_CELL)
     log(f"K1 sgm: array_equal at [{H},{W}] D={D}; kernel {ms:.3f} ms, plain {pms:.3f} ms  [{tag}]")
 
-    # Inputs of K2..K4 as the slice builds them.
+    # K6, then the SGM stages side by side.
+    akw = dict(min_disparity=4, num_disparities=D, p1=10, p2=120)
+    agg_k = ksgm.sgm_aggregate(*cl, *cr, **akw)
+    agg_p = ksgm.sgm_aggregate_plain(*cl, *cr, **akw)
+    if agg_k.shape != (H, W, D) or not torch.equal(agg_k, agg_p):
+        n = int((agg_k != agg_p).sum())
+        raise AssertionError(f"K6 sgm_aggregate: {n} of {agg_p.numel()} cells differ")
+    err = (agg_k.int() - agg_p.int()).abs().max()
+    del agg_p
+    ms = cuda_ms(lambda: ksgm.sgm_aggregate(*cl, *cr, **akw), 10)
+    pms = cuda_ms(lambda: ksgm.sgm_aggregate_plain(*cl, *cr, **akw), 1)
+    record("sgm_aggregate", err, ms, pms, None, 4 * H * W * 4 + H * W * D * 2,
+           H * W * D * SGM_AGGREGATE_OPS_PER_CELL)
+    log(f"K6 sgm_aggregate: array_equal int16 [{H},{W},{D}] (p1 10, p2 120, min 4); "
+        f"kernel {ms:.3f} ms, plain {pms:.3f} ms  [{tag}]")
+    del agg_k
+    # The JAX op's whole p2 range (int16 path storage; K1 stops at 193), on
+    # the first 64 rows.
+    crop = [x[:64].contiguous() for x in (*cl, *cr)]
+    big = dict(akw, p2=8000)
+    hk, hp = ksgm.sgm_aggregate(*crop, **big), ksgm.sgm_aggregate_plain(*crop, **big)
+    if not torch.equal(hk, hp) or int(hp.max()) <= 255:
+        raise AssertionError("K6 sgm_aggregate at p2=8000 differs from its plain version")
+    log(f"K6 sgm_aggregate at p2=8000: array_equal on [64,{W},{D}], max {int(hp.max())}")
+    # H*W*D odd: the summing kernel's one-value-per-thread form.
+    odd = [x[:37, :61].contiguous() for x in (*cl, *cr)]
+    okw = dict(min_disparity=3, num_disparities=15, p1=7, p2=86)
+    if not torch.equal(ksgm.sgm_aggregate(*odd, **okw), ksgm.sgm_aggregate_plain(*odd, **okw)):
+        raise AssertionError("K6 sgm_aggregate at [37,61] D=15 differs from its plain version")
+    log("K6 sgm_aggregate at [37,61] D=15 (odd volume): array_equal")
+    census_ms = cuda_ms(lambda: (stereo.census_transform(gl), stereo.census_transform(gr)), 10)
+    log(f"SGM stages at [{H},{W}] D={D}: census x2 {census_ms:.3f} ms, "
+        f"K6 aggregate {results['sgm_aggregate']['ms']:.3f} ms, "
+        f"K1 fused aggregate+WTA {results['sgm']['ms']:.3f} ms  [{tag}]")
+    torch.cuda.empty_cache()
+
+    # Inputs of K2..K4 and K7 as the flagship builds them.
     disp = disparity.interpolate(out_k, radius=2, iterations=1, min_disparity=64, max_disparity=W)
     deriv, _ = derivative.directional_derivatives(disp)
     img = color.bgr_to_ycrcb(left).to(torch.float32)
@@ -123,6 +241,7 @@ def kernel_phase(dev, tag):
     labels, max_label = sp.block_init_labels(H, W, 12, 12, dev)
     num_labels = max_label + 1
     flat = labels.reshape(-1).contiguous()
+    n = flat.numel()
     data_i = data.reshape(7, -1).to(torch.int32).contiguous()
 
     # K2
@@ -132,9 +251,15 @@ def kernel_phase(dev, tag):
         raise AssertionError(f"K2 moment tally: {int((tk != tp).sum())} entries differ")
     ms = cuda_ms(lambda: ktally.moment_tally(flat, data_i, num_labels), 50)
     pms = cuda_ms(lambda: ktally.moment_tally_plain(flat, data_i, num_labels), 10)
-    results["moment_tally"] = (float((tk - tp).abs().max()), ms, pms)
-    log(f"K2 moment_tally: array_equal [{tk.shape[0]},{num_labels}] from N={flat.numel()}; "
-        f"kernel {ms:.3f} ms, plain {pms:.3f} ms  [{tag}]")
+    idx64 = flat.long()
+    rows64 = torch.cat([torch.ones_like(data_i[:1]), data_i, data_i * data_i]).long()
+    acc = torch.zeros((rows64.shape[0], num_labels), dtype=torch.int64, device=dev)
+    lms = cuda_ms(lambda: acc.index_add_(1, idx64, rows64), 50)
+    c = data_i.shape[0]
+    record("moment_tally", (tk - tp).abs().max(), ms, pms, lms,
+           4 * n + 4 * c * n + 4 * (1 + 2 * c) * num_labels, n * (3 * c + 1))
+    log(f"K2 moment_tally: array_equal [{tk.shape[0]},{num_labels}] from N={n}; "
+        f"kernel {ms:.3f} ms, plain {pms:.3f} ms, index_add_ int64 {lms:.3f} ms  [{tag}]")
 
     # K3: one sweep from identical inputs.
     feats = [krelax.RelaxFeature("gaussian", 0, 2, 1.0), krelax.RelaxFeature("gaussian", 2, 3, 1.5),
@@ -155,8 +280,16 @@ def kernel_phase(dev, tag):
         raise AssertionError("K3 relax: stat rows differ where labels agree")
     ms = cuda_ms(lambda: krelax.relax_sweep(*args), 50)
     pms = cuda_ms(lambda: krelax.relax_sweep_plain(*args), 3)
-    results["relax"] = (float((lk - lp).abs().max()), ms, pms)
-    log(f"K3 relax: kernel {ms:.3f} ms, plain {pms:.3f} ms per sweep  [{tag}]")
+    # Work: every boundary pixel (a 3x3 neighbour of another label) scores
+    # its 9 candidates over the 7 channels; the others copy their rows.
+    lpad = torch.nn.functional.pad(labels[None, None].float(), (1, 1, 1, 1), mode="replicate")
+    boundary = int((torch.nn.functional.max_pool2d(lpad, 3, 1) != -torch.nn.functional.max_pool2d(
+        -lpad, 3, 1)).sum())
+    nstat = stat_img.shape[0]
+    record("relax", (lk - lp).abs().max(), ms, pms, None,
+           2 * 4 * n + 3 * 4 * nstat * n, boundary * 9 * 7 * RELAX_OPS_PER_CANDIDATE_CHANNEL)
+    log(f"K3 relax: kernel {ms:.3f} ms, plain {pms:.3f} ms per sweep; {boundary} boundary "
+        f"pixels  [{tag}]")
 
     # K4
     ranges = torch.tensor([[3, 40], [-6, 3]], dtype=torch.int32, device=dev)
@@ -168,53 +301,224 @@ def kernel_phase(dev, tag):
         raise AssertionError("K4 vote tally differs from the plain version")
     ms = cuda_ms(lambda: ktally.vote_tally(vlabels, votes, num_labels, 3), 50)
     pms = cuda_ms(lambda: ktally.vote_tally_plain(vlabels, votes, num_labels, 3), 10)
-    results["vote_tally"] = (float((ck - cp).abs().max()), ms, pms)
-    log(f"K4 vote_tally: array_equal [{num_labels},3]; kernel {ms:.3f} ms, plain {pms:.3f} ms  [{tag}]")
-    return results
+    key = vlabels.long() * 3 + votes.long()
+    lms = cuda_ms(lambda: torch.bincount(key, minlength=num_labels * 3), 50)
+    record("vote_tally", (ck - cp).abs().max(), ms, pms, lms, 5 * n + 4 * 3 * num_labels, n)
+    log(f"K4 vote_tally: array_equal [{num_labels},3]; kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+        f"bincount {lms:.3f} ms  [{tag}]")
+
+    # K7: the rows [1, d, d^2] of a 9-channel init_stats (the 7 flagship
+    # channels, gray and disparity), then 50 random int16-range columns.
+    data9 = torch.cat([data, gl[None].float(), (disp.float() / 16).round()[None]])
+    d9 = data9.reshape(9, -1).to(torch.int32)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    inputs = {19: torch.cat([torch.ones_like(d9[:1]), d9, d9 * d9]).T.contiguous(),
+              50: torch.randint(-32768, 32768, (n, 50), generator=gen, device=dev,
+                                dtype=torch.int32)}
+    for width in LABEL_TALLY_WIDTHS:
+        vals = inputs[width]
+        lk7 = ktally.label_tally(flat, vals, num_labels)
+        lp7 = ktally.label_tally_plain(flat, vals, num_labels)
+        if not torch.equal(lk7, lp7):
+            raise AssertionError(f"K7 label_tally C={width}: {int((lk7 != lp7).sum())} differ")
+        ms = cuda_ms(lambda: ktally.label_tally(flat, vals, num_labels), 50)
+        pms = cuda_ms(lambda: ktally.label_tally_plain(flat, vals, num_labels), 10)
+        vals64 = vals.long()
+        acc = torch.zeros((num_labels, width), dtype=torch.int64, device=dev)
+        lms = cuda_ms(lambda: acc.index_add_(0, idx64, vals64), 50)
+        bms, by = bound(4 * n + 4 * n * width + 4 * num_labels * width, n * width)
+        log(f"K7 label_tally C={width}: array_equal [{num_labels},{width}] from B={n}; kernel "
+            f"{ms:.3f} ms, plain {pms:.3f} ms, index_add_ int64 {lms:.3f} ms, bound "
+            f"{bms:.4f} ms ({by})  [{tag}]")
+        if width == LABEL_TALLY_WIDTHS[0]:
+            record("label_tally", (lk7 - lp7).abs().max(), ms, pms, lms,
+                   4 * n + 4 * n * width + 4 * num_labels * width, n * width)
+    paths = dict(census=(cl, cr), labels=labels, data9=data9, num_labels=num_labels)
+    return results, paths
 
 
-def small_slice_check(dev):
-    """A 64x128 slice for 6 frames on the card and on the CPU: kernels vs
-    plain versions end to end, every output equal (depth within ~3 ulp).
-    48 disparities from 0, as in configs/synthetic-planeseg.json, so K1's
-    last lane chunk is partial."""
+def entry_point_paths(paths) -> dict:
+    """K6 and K7 through their own entry points, counts from 0 each."""
+    from cartslam_tpu_torch.kernels import build
+    from cartslam_tpu_torch.kernels import sgm as ksgm
+    from cartslam_tpu_torch.ops import superpixels as sp
+
+    counts = {}
+    cl, cr = paths["census"]
+    build.reset_counts()
+    vol = ksgm.sgm_aggregate(*cl, *cr, min_disparity=4, num_disparities=D, p1=10, p2=120)
+    torch.cuda.synchronize()
+    counts["sgm_aggregate"] = build.COUNTERS["sgm_aggregate"].launches
+    if vol.shape != (H, W, D) or build.COUNTERS["sgm_aggregate"].plain_calls:
+        raise AssertionError("sgm_aggregate entry point did not run its kernel")
+    del vol
+    torch.cuda.empty_cache()
+    build.reset_counts()
+    stats = sp.init_stats(paths["labels"], paths["data9"], paths["num_labels"])
+    torch.cuda.synchronize()
+    counts["label_tally"] = build.COUNTERS["label_tally"].launches
+    if (stats.shape != (19, paths["num_labels"]) or build.COUNTERS["moment_tally"].launches
+            or build.COUNTERS["label_tally"].plain_calls):
+        raise AssertionError("init_stats with 9 channels did not go through K7")
+    if int(stats[0].sum()) != H * W:
+        raise AssertionError("init_stats: the counts do not add up to the pixels")
+    log(f"entry points: sgm_aggregate launched K6 {counts['sgm_aggregate']}x; 9-channel "
+        f"init_stats launched K7 {counts['label_tally']}x, K2 0x")
+    return counts
+
+
+def drive(modules, source, dev, expected):
+    """One run of `modules` over `source` with the counts set to 0 just
+    before it and read just after.  Returns (result, per-frame ms, last
+    outputs, launch counts)."""
+    from cartslam_tpu_torch.config import build_pipeline
+    from cartslam_tpu_torch.kernels import build
+    from cartslam_tpu_torch.runtime import run
+
+    pipe, source = build_pipeline(source, modules, device=dev)
+    events, last = [], {}
+
+    def on_frame(fid, outputs):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        for k, v in outputs.items():
+            if v.device.type != "cuda":
+                raise AssertionError(f"frame {fid}: output {k} is on {v.device}")
+        last.update(outputs)
+
+    build.reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = run(pipe, source, on_frame=on_frame)
+    torch.cuda.synchronize()
+    counts = {c.name: (c.launches, c.plain_calls) for c in build.COUNTERS.values()}
+    for name, n in expected.items():
+        if counts[name] != (n, 0):
+            raise AssertionError(f"kernel {name}: (launches, plain calls) {counts[name]}, "
+                                 f"expected ({n}, 0)")
+    if any(plain for _, plain in counts.values()):
+        raise AssertionError(f"a plain version ran on the card: {counts}")
+    frame_ms = [start.elapsed_time(events[0])]
+    frame_ms += [events[i - 1].elapsed_time(events[i]) for i in range(1, len(events))]
+    return pipe, res, frame_ms, last, {k: v[0] for k, v in counts.items()}
+
+
+def check_flagship_outputs(res, last, gen):
+    planes = last["planes"]
+    vals = set(torch.unique(planes).tolist())
+    if planes.shape != (H, W) or planes.dtype != torch.uint8 or not vals <= {0, 1, 2}:
+        raise AssertionError(f"planes: shape {tuple(planes.shape)}, values {vals}")
+    ranges = res.host_params["SPPlaneSegmentation"]["ranges"].tolist()
+    hist = np.bincount(planes.cpu().numpy().ravel(), minlength=3).tolist()
+    changed = float((last["planes_unsmoothed"] != planes).float().mean())
+    log(f"planes classes {hist} (H, V, U); provider ranges {ranges}; {changed:.4f} of pixels "
+        "differ from the unsmoothed classification")
+    # The synthetic camera pans 2 px per frame: cur[x] = prev[x + 2], so the
+    # flow (current -> previous) is (-2, 0) px, (-64, 0) in S10.5.
+    flow = last["optflow"].cpu().numpy()
+    if flow.shape != (H, W, 2) or flow.dtype != np.int16:
+        raise AssertionError(f"optflow: shape {flow.shape}, dtype {flow.dtype}")
+    pan = float(((flow[..., 0] == -64) & (flow[..., 1] == 0)).mean())
+    log(f"optflow frame {FRAMES}: {pan:.4f} of pixels at the camera pan (-2, 0) px")
+    if pan < 0.8:
+        raise AssertionError("optflow does not follow the synthetic camera pan")
+    # Disparity against the synthetic ground truth, where the slice can
+    # report one: above minD and below the smoothing's validity bound (the
+    # image width in x16 units, i.e. 78 px here; sky and the near wall fall
+    # outside it).
+    disp = last["disparity"].cpu().numpy()
+    gt = gen.ground_truth_disparity(FRAMES - 1)
+    region = (gt > 5) & (gt < (W - 16) / 16)
+    valid = (disp != -32768) & region
+    err = np.abs(disp[valid] / 16.0 - gt[valid])
+    cover, within = float(valid.sum() / region.sum()), float((err <= 1.0).mean())
+    log(f"disparity vs ground truth (frame {FRAMES}): {region.mean():.4f} of pixels in range, "
+        f"valid on {cover:.4f} of them, |err| <= 1 px on {within:.4f} of valid")
+    depth = last["depth"].cpu().numpy()
+    if cover < 0.5 or within < 0.8 or not np.isfinite(depth[valid]).all():
+        raise AssertionError("flagship disparity/depth out of bounds")
+
+
+def _assert_equal_trees(a, b, where):
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"{where}: keys differ")
+        for k in a:
+            _assert_equal_trees(a[k], b[k], f"{where}/{k}")
+        return
+    if where.endswith("/depth"):
+        # Elementwise IEEE ops in the same order on both devices; the
+        # relative bound (~3 ulp) only guards against a reordering.
+        fin = np.isfinite(a)
+        if not (np.array_equal(np.isfinite(b), fin)
+                and np.allclose(a[fin], b[fin], rtol=4e-7, atol=0)):
+            raise AssertionError(f"{where}: depth differs card vs CPU")
+    elif not np.array_equal(a, b):
+        n = int((np.asarray(a) != np.asarray(b)).sum())
+        raise AssertionError(f"{where}: differs card vs CPU on {n} of {np.size(a)} values")
+
+
+def small_temporal_check(dev):
+    """A 64x128 temporal slice for 6 frames on the card and on the CPU:
+    kernels vs plain versions end to end, every output and the final state
+    equal (depth within ~3 ulp).  48 disparities from 0, as in
+    configs/synthetic-planeseg.json, so K1's last lane chunk is partial."""
     from cartslam_tpu_torch.config import build_pipeline
     from cartslam_tpu_torch.runtime import run, state_to_numpy
     from cartslam_tpu_torch.sources import SyntheticDataSource
 
     mods = [
+        {"type": "superpixels", "initial_iterations": 3, "iterations": 2, "block_size": 8,
+         "reset_iterations": 4},
+        {"type": "optflow"},
         {"type": "disparity", "num_disparities": 48, "min_disparity": 0,
          "smoothing_radius": 2, "smoothing_iterations": 1},
         {"type": "disparity_derivative"},
         {"type": "depth"},
-        {"type": "superpixels", "initial_iterations": 3, "iterations": 2, "block_size": 8,
-         "reset_iterations": 4},
         {"type": "superpixel_disparity_planeseg", "parameter_provider": {"type": "histogram_peak"},
-         "update_interval": 3},
+         "update_interval": 3, "use_temporal_smoothing": True},
     ]
-    outs = {}
+    runs = {}
     for device in ("cpu", dev):
         src = SyntheticDataSource(image_size=(64, 128), num_frames=6, seed=0,
                                   max_disparity=22.4, baseline=20.0)
         pipe, src = build_pipeline(src, mods, device=device)
         frames = []
-        run(pipe, src, on_frame=lambda fid, o: frames.append(state_to_numpy(o)))
-        outs[str(device)] = frames
-    for fid, (a, b) in enumerate(zip(outs["cpu"], outs[str(dev)]), start=1):
-        for k in a:
-            if k == "depth":
-                # Elementwise IEEE ops in the same order on both devices; the
-                # relative bound (~3 ulp) only guards against a reordering.
-                fin = np.isfinite(a[k])
-                if not (np.array_equal(np.isfinite(b[k]), fin)
-                        and np.allclose(a[k][fin], b[k][fin], rtol=4e-7, atol=0)):
-                    raise AssertionError(f"small slice frame {fid}: depth differs")
-            elif not np.array_equal(a[k], b[k]):
-                n = int((a[k] != b[k]).sum())
-                raise AssertionError(f"small slice frame {fid}: {k} differs card vs CPU "
-                                     f"on {n} of {a[k].size} values")
-    log("small slice (64x128, D=48, 6 frames): card == CPU on every output "
-        "(superpixels and planes exact, depth within ~3 ulp)")
+        res = run(pipe, src, on_frame=lambda fid, o: frames.append(state_to_numpy(o)))
+        runs[str(device)] = (frames, state_to_numpy(res.state))
+    (cpu_frames, cpu_state), (dev_frames, dev_state) = runs["cpu"], runs[str(dev)]
+    for fid, (a, b) in enumerate(zip(cpu_frames, dev_frames), start=1):
+        _assert_equal_trees(a, b, f"small temporal slice frame {fid}")
+    _assert_equal_trees(cpu_state, dev_state, "small temporal slice final state")
+    if not (cpu_frames[-1]["optflow"] != 0).any():
+        raise AssertionError("small temporal slice: zero flow")
+    log("small temporal slice (64x128, D=48, 6 frames): card == CPU on every output and the "
+        "final state (flow, planes, warp_votes exact; depth within ~3 ulp)")
+
+
+def full_flow_check(frames, dev, tag) -> float:
+    """dense_flow at 376x1248 on one frame pair, card against CPU; returns
+    its ms on the card."""
+    from cartslam_tpu_torch.ops import color
+    from cartslam_tpu_torch.ops import optflow as fops
+
+    grays = {}
+    for device in ("cpu", dev):
+        g = [color.bgr_to_gray(torch.from_numpy(frames[i]["left"]).to(device)) for i in (1, 0)]
+        grays[str(device)] = g
+    on_cpu = fops.dense_flow(*grays["cpu"])
+    on_dev = fops.dense_flow(*grays[str(dev)])
+    if not torch.equal(on_cpu, on_dev.cpu()):
+        n = int((on_cpu != on_dev.cpu()).sum())
+        raise AssertionError(f"full-size flow: {n} values differ card vs CPU")
+    ms = cuda_ms(lambda: fops.dense_flow(*grays[str(dev)]), 10)
+    with OpCount() as ops:
+        fops.dense_flow(*grays[str(dev)])
+    log(f"full-size flow [{H},{W}] frames 1->2: card == CPU (float32 flow, all "
+        f"{on_cpu.numel()} values); dense_flow {ms:.3f} ms on the card, {ops.n} ATen ops "
+        f"dispatched per call  [{tag}]")
+    return ms
 
 
 def _union_ms(intervals) -> float:
@@ -233,7 +537,7 @@ def _union_ms(intervals) -> float:
 
 
 def profile_phase(frames, intrinsics, dev, tag):
-    """Where the time goes, all from ONE run of a fresh slice pipeline:
+    """Where the time goes, all from ONE run of a fresh temporal flagship:
     frames PROFILE_FRAMES under torch.profiler, with CUDA events around each
     module's compute.  The device's busy time is the union of the profiler's
     device intervals (kernels, copies, memsets) in the window; its idle share
@@ -249,7 +553,7 @@ def profile_phase(frames, intrinsics, dev, tag):
 
     first, last = PROFILE_FRAMES
     pipe, source = build_pipeline(PreloadedSource(frames[:last], intrinsics=intrinsics),
-                                  slice_modules(), device=dev)
+                                  flagship_modules(), device=dev)
     spans = {m.name: [] for m in pipe.modules}
 
     def timed(m):
@@ -297,11 +601,11 @@ def profile_phase(frames, intrinsics, dev, tag):
     busy = _union_ms((e.time_range.start, e.time_range.end) for e in dev_events) / n
     log(f"profile frames {first}..{last}: wall {wall:.3f} ms/frame (profiler on), device "
         f"busy {busy:.3f} ms/frame, idle share {1 - busy / wall:.4f} "
-        f"({len(dev_events)} device events)  [{tag}]")
+        f"({len(dev_events) / n:.0f} device events/frame)  [{tag}]")
     by_name: dict[str, list] = {}
     for e in dev_events:
         by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
-    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:10]
     log(f"profile frames {first}..{last}: device ms per frame by name: "
         + "; ".join(f"{k[:60]} {sum(v) / 1e3 / n:.3f} ({len(v) / n:g}/frame)" for k, v in top))
 
@@ -312,9 +616,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from cartslam_tpu_torch.config import build_pipeline
     from cartslam_tpu_torch.kernels import build
-    from cartslam_tpu_torch.runtime import run
     from cartslam_tpu_torch.sources import PreloadedSource, SyntheticDataSource
 
     # 1. device
@@ -334,67 +636,43 @@ def main() -> int:
         f"({sources}) in {info.seconds:.2f} s")
 
     # 3. kernels vs plain versions
-    results = kernel_phase(dev, tag)
+    results, paths = kernel_phase(dev, tag)
 
-    # 4. the slice
+    # 4. paths, each with its own counts
+    launches = entry_point_paths(paths)
+    del paths
+    torch.cuda.empty_cache()
     gen = SyntheticDataSource(image_size=(H, W), num_frames=FRAMES, seed=0,
                               max_disparity=80.0, baseline=20.0)
     source = PreloadedSource.wrap(gen)
-    pipe, source = build_pipeline(source, slice_modules(), device=dev)
-    log("slice modules: " + " -> ".join(m.name for m in pipe.modules))
-    events, last = [], {}
-
-    def on_frame(fid, outputs):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        events.append(ev)
-        for k, v in outputs.items():
-            if v.device.type != "cuda":
-                raise AssertionError(f"frame {fid}: output {k} is on {v.device}")
-        last.update(outputs)
-
-    build.reset_counts()
-    start = torch.cuda.Event(enable_timing=True)
-    start.record()
-    res = run(pipe, source, on_frame=on_frame)
-    torch.cuda.synchronize()
-    counts = {c.name: (c.launches, c.plain_calls) for c in build.COUNTERS.values()}
-    log(f"slice: {res.frames} frames at {H}x{W}, D={D}; launches/plain calls {counts}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    pipe, res, frame_ms, last, counts = drive(flagship_modules(), source, dev, FLAGSHIP_LAUNCHES)
+    peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
+    log("flagship modules: " + " -> ".join(m.name for m in pipe.modules))
+    log(f"flagship: {res.frames} frames at {H}x{W}, D={D}; launches {counts}; "
+        f"peak device memory {peak_mb:.1f} MiB")
     if res.frames != FRAMES:
         raise AssertionError(f"ran {res.frames} frames, expected {FRAMES}")
-    for name in KERNELS:
-        launches, plain = counts[name]
-        if launches == 0 or plain != 0:
-            raise AssertionError(f"kernel {name}: {launches} launches, {plain} plain calls")
-    planes = last["planes"]
-    vals = set(torch.unique(planes).tolist())
-    if planes.shape != (H, W) or planes.dtype != torch.uint8 or not vals <= {0, 1, 2}:
-        raise AssertionError(f"planes: shape {tuple(planes.shape)}, values {vals}")
-    ranges = res.host_params["SPPlaneSegmentation"]["ranges"].tolist()
-    hist = np.bincount(planes.cpu().numpy().ravel(), minlength=3).tolist()
-    log(f"planes classes {hist} (H, V, U); provider ranges {ranges}")
-    # Disparity against the synthetic ground truth, where the slice can
-    # report one: above minD and below the smoothing's validity bound (the
-    # image width in x16 units, i.e. 78 px here; sky and the near wall fall
-    # outside it).
-    disp = last["disparity"].cpu().numpy()
-    gt = gen.ground_truth_disparity(FRAMES - 1)
-    region = (gt > 5) & (gt < (W - 16) / 16)
-    valid = (disp != -32768) & region
-    err = np.abs(disp[valid] / 16.0 - gt[valid])
-    cover, within = float(valid.sum() / region.sum()), float((err <= 1.0).mean())
-    log(f"disparity vs ground truth (frame {FRAMES}): {region.mean():.4f} of pixels in range, "
-        f"valid on {cover:.4f} of them, |err| <= 1 px on {within:.4f} of valid")
-    depth = last["depth"].cpu().numpy()
-    if cover < 0.5 or within < 0.8 or not np.isfinite(depth[valid]).all():
-        raise AssertionError("slice disparity/depth out of bounds")
-    frame_ms = [start.elapsed_time(events[0])]
-    frame_ms += [events[i - 1].elapsed_time(events[i]) for i in range(1, len(events))]
+    check_flagship_outputs(res, last, gen)
+    for name in FLAGSHIP_LAUNCHES:
+        launches[name] = counts[name]
+    del pipe, res, last
 
-    small_slice_check(dev)
+    nt_source = PreloadedSource(source.frames[:NONTEMPORAL_FRAMES],
+                                intrinsics=source.get_camera_intrinsics())
+    _, nt_res, nt_ms, _, nt_counts = drive(nontemporal_modules(), nt_source, dev,
+                                           NONTEMPORAL_LAUNCHES)
+    log(f"non-temporal slice: {nt_res.frames} frames; launches {nt_counts}; per-frame median "
+        f"{float(np.median(nt_ms[2:])):.3f} ms over frames 3..{NONTEMPORAL_FRAMES}  [{tag}]")
+
+    # 5. card against CPU
+    small_temporal_check(dev)
+    flow_ms = full_flow_check(source.frames, dev, tag)
+
+    # 6. profile
     profile_phase(source.frames, source.get_camera_intrinsics(), dev, tag)
 
-    # 5. the CLI path
+    # 7. the CLI path
     from cartslam_tpu_torch.__main__ import main as cli_main
 
     cfg = os.path.join(REPO, "configs", "synthetic-planeseg.json")
@@ -402,20 +680,21 @@ def main() -> int:
         raise AssertionError("CLI run failed")
     log("cli: configs/synthetic-planeseg.json --device cuda --max-frames 5 OK")
 
-    # 6. times
+    # 8. times
     steady = frame_ms[2:]
-    log(f"slice per-frame ms: median {float(np.median(steady)):.3f} over frames 3..{FRAMES} "
+    log(f"flagship per-frame ms: median {float(np.median(steady)):.3f} over frames 3..{FRAMES} "
         f"(min {min(steady):.3f}, max {max(steady):.3f}); frame 1 {frame_ms[0]:.3f}, "
-        f"frame 64 (reset) {frame_ms[63]:.3f}  [{tag}]")
-    for name, (err_, ms, pms) in results.items():
-        log(f"{name}: kernel {ms:.4f} ms, plain {pms:.4f} ms  [{tag}]")
+        f"frame 64 (reset) {frame_ms[63]:.3f}; dense_flow alone {flow_ms:.3f}  [{tag}]")
+    for name, r in results.items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        log(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {lib} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), launches {launches[name]} "
+            f"({KERNELS[name][2]})  [{tag}]")
 
     kernels = []
-    for name, (src, replaces) in KERNELS.items():
-        err_, ms, pms = results[name]
+    for name, (src, replaces, _) in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": counts[name][0], "max_abs_err": err_,
-                        "ms": ms, "plain_ms": pms})
+                        "launches": launches[name], **results[name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -19,19 +19,25 @@ sys.path.insert(0, {repo!r})
 from cartslam_tpu_torch.config import build_pipeline
 from cartslam_tpu_torch.runtime import run
 
-src = {{"type": "synthetic", "image_size": [32, 64], "num_frames": 1}}
+src = {{"type": "synthetic", "image_size": [32, 64], "num_frames": 2}}
 mods = [
     {{"type": "disparity", "num_disparities": 16, "min_disparity": 0}},
     {{"type": "disparity_derivative"}},
     {{"type": "depth"}},
     {{"type": "superpixels", "block_size": 8, "initial_iterations": 2}},
+    {{"type": "optflow"}},
     {{"type": "superpixel_disparity_planeseg",
-      "parameter_provider": {{"type": "histogram_peak"}}}},
+      "parameter_provider": {{"type": "histogram_peak"}}, "use_temporal_smoothing": True}},
 ]
 pipeline, source = build_pipeline(src, mods, device="cpu")
 seen = {{}}
 result = run(pipeline, source, on_frame=lambda fid, out: seen.update(out))
-assert result.frames == 1 and seen["planes"].shape == (32, 64)
+assert result.frames == 2 and seen["planes"].shape == (32, 64)
+assert seen["optflow"].shape == (32, 64, 2)
+# The wrappers of the op-level kernels K6 and K7 import without JAX too.
+from cartslam_tpu_torch.kernels.sgm import sgm_aggregate
+from cartslam_tpu_torch.ops.tally import label_tally
+from cartslam_tpu_torch.ops.warp import separable_warp
 bad = [m for m in sys.modules if m == "jax" and sys.modules[m] is not None
        or m.startswith("jax.") or m == "cartslam_tpu" or m.startswith("cartslam_tpu.")]
 assert not bad, bad

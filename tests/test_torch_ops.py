@@ -18,6 +18,8 @@ from cartslam_tpu.ops import disparity as jdisp
 from cartslam_tpu.ops import planeseg as jplane
 from cartslam_tpu.ops import stereo as jstereo
 from cartslam_tpu.ops import superpixels as jsp
+from cartslam_tpu.ops import tally as jtally
+from cartslam_tpu.ops import warp as jwarp
 from cartslam_tpu_torch.kernels import build
 from cartslam_tpu_torch.kernels import relax as krelax
 from cartslam_tpu_torch.kernels import sgm as ksgm
@@ -29,6 +31,8 @@ from cartslam_tpu_torch.ops import disparity as tdisp
 from cartslam_tpu_torch.ops import planeseg as tplane
 from cartslam_tpu_torch.ops import stereo as tstereo
 from cartslam_tpu_torch.ops import superpixels as tsp
+from cartslam_tpu_torch.ops import tally as ttally
+from cartslam_tpu_torch.ops import warp as twarp
 
 
 def t(a):
@@ -110,6 +114,22 @@ def test_sgm_aggregate_matches_jax():
     tl, tr = tstereo.census_transform(t(left)), tstereo.census_transform(t(right))
     out = tstereo.sgm_aggregate(tstereo.hamming_cost_volume(tl, tr, 1, 8), 10, 120)
     np.testing.assert_array_equal(out.numpy(), ref.astype(np.int32))
+
+
+def test_sgm_aggregate_plain_matches_jax_volume():
+    """K6's plain version (and its wrapper on CPU tensors) equals JAX's
+    sgm_aggregate(hamming_cost_volume(...)) as int16, at 16x32 and D=16."""
+    left, right = stereo_pair(16, 32, 5, seed=3)
+    jl, jr = jstereo.census_transform(jnp.asarray(left)), jstereo.census_transform(jnp.asarray(right))
+    ref = np.asarray(jstereo.sgm_aggregate(jstereo.hamming_cost_volume(jl, jr, 4, 16), 10, 120))
+    cl, cr = tstereo.census_transform(t(left)), tstereo.census_transform(t(right))
+    before = ksgm.AGGREGATE_COUNTER.plain_calls
+    out = ksgm.sgm_aggregate(*cl, *cr, min_disparity=4, num_disparities=16, p1=10, p2=120)
+    assert ksgm.AGGREGATE_COUNTER.plain_calls == before + 1
+    assert out.dtype == torch.int16 and out.shape == (16, 32, 16)
+    np.testing.assert_array_equal(out.numpy(), ref)
+    with pytest.raises(ValueError, match="p2"):
+        ksgm.sgm_aggregate(*cl, *cr, min_disparity=4, num_disparities=16, p1=10, p2=8001)
 
 
 def test_sgm_param_limits_raise():
@@ -206,6 +226,47 @@ def test_init_stats_exact_sums():
     assert not small.all()  # the case the rule is about is exercised
 
 
+@pytest.mark.parametrize("channels", [9, 10])
+def test_init_stats_wide_matches_jax(channels):
+    """More than 8 channels route to the label tally (K7's plain version);
+    the table equals JAX's f32 scatter, exact here (every entry < 2^24)."""
+    rng = np.random.RandomState(channels)
+    h, w, num_labels = 20, 31, 12
+    labels = rng.randint(-1, num_labels, (h, w)).astype(np.int32)
+    data = rng.randint(-60, 256, (channels, h, w)).astype(np.float32)
+    ref = np.asarray(jsp.init_stats(jnp.asarray(labels), jnp.asarray(data), num_labels,
+                                    use_matmul=False))
+    before = (ktally.LABEL_COUNTER.plain_calls, ktally.MOMENT_COUNTER.plain_calls)
+    out = tsp.init_stats(t(labels), t(data), num_labels)
+    assert (ktally.LABEL_COUNTER.plain_calls, ktally.MOMENT_COUNTER.plain_calls) == (
+        before[0] + 1, before[1])
+    assert out.shape == (1 + 2 * channels, num_labels) and out.is_contiguous()
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("c", [3, 16, 50])
+def test_label_tally_matches_jax(c):
+    """Per-label column sums of bf16-exact integers (the JAX function's
+    contract), labels in range; equal to JAX's f32 result."""
+    rng = np.random.RandomState(c)
+    b, num_labels = 1500, 37
+    labels = rng.randint(0, num_labels, b).astype(np.int32)
+    values = rng.randint(-256, 257, (b, c)).astype(np.int32)
+    ref = np.asarray(jtally.label_tally(jnp.asarray(labels), jnp.asarray(values), num_labels))
+    out = ttally.label_tally(t(labels), t(values), num_labels)
+    assert out.dtype == torch.float32 and out.shape == (num_labels, c)
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+def test_label_tally_drops_out_of_range_labels_and_sums_exactly():
+    labels = torch.tensor([0, -1, 2, 3, 2], dtype=torch.int32)
+    values = torch.tensor([[1, 2**30], [5, 1], [2, 2**30], [9, 9], [4, 1]], dtype=torch.int32)
+    out = ttally.label_tally(labels, values, 3)
+    # 2^30 + 1 is not a float32: the exact sum is rounded once.
+    np.testing.assert_array_equal(out.numpy(), np.array(
+        [[1, 2**30], [0, 0], [6, 2**30 + 1]], np.float64).astype(np.float32))
+
+
 def test_moment_tally_drops_out_of_range_labels():
     labels = torch.tensor([0, -1, 2, 3, 1], dtype=torch.int32)
     data = torch.tensor([[1, 5, 2, 9, 4]], dtype=torch.int32)
@@ -300,6 +361,64 @@ def test_superpixel_vote_matches_jax():
     np.testing.assert_array_equal(out, ref)
 
 
+def _vote_inputs(h, w, seed):
+    rng = np.random.RandomState(seed)
+    current = rng.randint(0, 3, (h, w)).astype(np.uint8)
+    prev = rng.randint(0, 3, (h, w)).astype(np.uint8)
+    state = rng.randint(0, 4, (3, h, w)).astype(np.uint8)
+    # S10.5 flow with integer parts up to +-50 px: beyond max_warp (6, 9)
+    # below, and sources outside the frame.
+    flow = rng.randint(-50 * 32, 50 * 32, (h, w, 2)).astype(np.int16)
+    flow[: h // 2] //= 8  # half the frame moves within the bound
+    return current, prev, state, flow
+
+
+@pytest.mark.parametrize("mode", ["gather", "select"])
+def test_temporal_vote_warped_matches_jax(mode):
+    """Both warp modes against JAX called with the same explicit mode; the
+    votes and the carried stack equal."""
+    h, w = 23, 37
+    current, prev, state, flow = _vote_inputs(h, w, seed=len(mode))
+    kw = dict(current_weight=2, compare_unknown=True, warp_mode=mode, max_warp_y=6,
+              max_warp_x=9)
+    rv, rs = jplane.temporal_vote_warped(jnp.asarray(current), jnp.asarray(prev),
+                                         jnp.asarray(state), jnp.asarray(flow), **kw)
+    ov, os_ = tplane.temporal_vote_warped(t(current), t(prev), t(state), t(flow), **kw)
+    assert ov.dtype == torch.uint8 and os_.dtype == torch.uint8
+    np.testing.assert_array_equal(ov.numpy(), np.asarray(rv))
+    np.testing.assert_array_equal(os_.numpy(), np.asarray(rs))
+    # Some votes were dropped (out of the frame, or beyond the bound).
+    assert (np.asarray(rs)[0] == tplane.WARP_INVALID).any()
+
+
+def test_temporal_vote_auto_is_gather_and_pixel_rule_matches_jax():
+    h, w = 17, 29
+    current, prev, state, flow = _vote_inputs(h, w, seed=11)
+    args = (t(current), t(prev), t(state), t(flow))
+    auto = tplane.temporal_vote_warped(*args, 1, False)
+    gather = tplane.temporal_vote_warped(*args, 1, False, warp_mode="gather")
+    ref = jplane.temporal_vote_warped(jnp.asarray(current), jnp.asarray(prev),
+                                      jnp.asarray(state), jnp.asarray(flow), 1, False,
+                                      warp_mode="gather")
+    for a, g, r in zip(auto, gather, ref):
+        np.testing.assert_array_equal(a.numpy(), g.numpy())
+        np.testing.assert_array_equal(a.numpy(), np.asarray(r))
+    with pytest.raises(ValueError, match="warp_mode"):
+        tplane.temporal_vote_warped(*args, 1, False, warp_mode="nearest")
+
+
+def test_separable_warp_matches_jax():
+    rng = np.random.RandomState(12)
+    img = rng.randint(0, 1 << 20, (19, 26)).astype(np.int32)
+    fy = rng.randint(-8, 9, (19, 26)).astype(np.int32)
+    fx = rng.randint(-12, 13, (19, 26)).astype(np.int32)
+    rw, rv = jwarp.separable_warp(jnp.asarray(img), jnp.asarray(fy), jnp.asarray(fx), 5, 10,
+                                  fill=-1)
+    ow, ov = twarp.separable_warp(t(img), t(fy), t(fx), 5, 10, fill=-1)
+    np.testing.assert_array_equal(ow.numpy(), np.asarray(rw))
+    np.testing.assert_array_equal(ov.numpy(), np.asarray(rv))
+
+
 def test_vote_tally_plain_counts():
     labels = torch.tensor([0, 0, 1, 2, -1, 2], dtype=torch.int32)
     votes = torch.tensor([1, 1, 2, 0, 1, 0], dtype=torch.uint8)
@@ -321,4 +440,5 @@ def test_counters_reset():
     ksgm.COUNTER.launches, ksgm.COUNTER.plain_calls = 3, 2
     build.reset_counts()
     assert all(c.launches == 0 and c.plain_calls == 0 for c in build.COUNTERS.values())
-    assert {"sgm", "moment_tally", "relax", "vote_tally"} <= set(build.COUNTERS)
+    assert {"sgm", "sgm_aggregate", "moment_tally", "relax", "vote_tally",
+            "label_tally"} <= set(build.COUNTERS)

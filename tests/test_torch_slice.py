@@ -24,7 +24,7 @@ from cartslam_tpu.sources.synthetic import SyntheticDataSource
 from cartslam_tpu.utils.plane_params import HistogramPeakPlaneParameterProvider as JProvider
 from cartslam_tpu_torch import models as tm
 from cartslam_tpu_torch.__main__ import main as torch_main
-from cartslam_tpu_torch.config import build_pipeline
+from cartslam_tpu_torch.config import build_pipeline, read_config
 from cartslam_tpu_torch.kernels import build as kbuild
 from cartslam_tpu_torch.runtime import (
     Pipeline,
@@ -61,7 +61,8 @@ def _modules(M, provider):
 
 
 def _torch_pipeline(q):
-    return Pipeline(PipelineContext(height=H, width=W, q=q), _modules(tm, TProvider()))
+    return Pipeline(PipelineContext(height=H, width=W, q=q, device="cpu"),
+                    _modules(tm, TProvider()))
 
 
 @pytest.fixture(scope="module")
@@ -132,9 +133,11 @@ def test_slice_matches_jax_every_frame(reference):
     # The provider has refreshed the ranges and the planes carry all classes.
     assert np.asarray(record[-1][2]["SPPlaneSegmentation"]["ranges"]).any()
     assert len(np.unique(out["planes"].numpy())) == 3
-    # On CPU tensors every kernel wrapper ran its plain version, never a kernel.
+    # On CPU tensors every kernel wrapper ran its plain version, never a
+    # kernel; the slice's kernels are K1-K4 (K6 and K7 sit off its path).
     counts = {c.name: (c.launches, c.plain_calls) for c in kbuild.COUNTERS.values()}
-    assert all(launches == 0 and plain > 0 for launches, plain in counts.values()), counts
+    assert all(launches == 0 for launches, _ in counts.values()), counts
+    assert all(counts[k][1] > 0 for k in ("sgm", "moment_tally", "relax", "vote_tally")), counts
 
 
 def test_slice_resumes_from_jax_state(reference):
@@ -162,15 +165,21 @@ def test_cli_runs_synthetic_config_on_cpu():
     assert torch_main([str(cfg), "--device", "cpu", "--max-frames", "2"]) == 0
 
 
-def test_registry_rejects_unported_types():
+def test_registry_rejects_unported_types(tmp_path):
     src = {"type": "synthetic", "image_size": [16, 32], "num_frames": 1}
-    with pytest.raises(ValueError, match="module type 'optflow' is not ported yet"):
-        build_pipeline(src, [{"type": "optflow"}])
-    with pytest.raises(ValueError, match="not ported yet"):
+    with pytest.raises(ValueError, match="module type 'zed_disparity' is not ported yet"):
+        build_pipeline(src, [{"type": "zed_disparity"}], device="cpu")
+    with pytest.raises(ValueError, match="temporal_mode='faithful' is not ported yet"):
         build_pipeline(src, [{"type": "superpixels"},
                              {"type": "superpixel_disparity_planeseg",
                               "parameter_provider": {"type": "histogram_peak"},
-                              "use_temporal_smoothing": True}])
+                              "use_temporal_smoothing": True, "temporal_mode": "faithful"}],
+                       device="cpu")
+    cfg = tmp_path / "spatial.json"
+    cfg.write_text('{"data_source": {"type": "synthetic"}, "modules": [], '
+                   '"parallel": {"mode": "spatial", "devices": 8}}')
+    with pytest.raises(ValueError, match="parallel configs are not ported yet"):
+        read_config(str(cfg), device="cpu")
 
 
 def test_cuda_device_without_gpu_raises():
@@ -180,8 +189,22 @@ def test_cuda_device_without_gpu_raises():
         build_pipeline({"type": "synthetic", "image_size": [16, 32]}, [], device="cuda")
 
 
+def test_entry_points_default_to_the_card():
+    """build_pipeline, read_config and PipelineContext target CUDA unless the
+    caller asks for the CPU; with no GPU that raises, with no fallback."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_pipeline({"type": "synthetic", "image_size": [16, 32]}, [])
+    cfg = pathlib.Path(__file__).resolve().parent.parent / "configs" / "synthetic-planeseg.json"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        read_config(str(cfg))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PipelineContext(height=8, width=8, q=np.eye(4, dtype=np.float32))
+
+
 def test_pipeline_errors_match_jax_messages():
-    ctx = PipelineContext(height=8, width=8, q=np.eye(4, dtype=np.float32))
+    ctx = PipelineContext(height=8, width=8, q=np.eye(4, dtype=np.float32), device="cpu")
     with pytest.raises(PipelineError, match="requires 'disparity' which no module provides"):
         Pipeline(ctx, [tm.ImageDisparityDerivativeModule()])
     with pytest.raises(PipelineError, match="provided by both"):
