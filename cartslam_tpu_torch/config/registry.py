@@ -2,7 +2,9 @@
 
 Same schema ({"data_source": {...}, "modules": [...]}, or a source file and
 a modules file) and the same per-type defaults.  The flagship's device
-module types are built; any other type raises.
+module types are built; any other type raises.  A ``parallel`` block with
+``"mode": "spatial"`` builds the height-sharded SpatialPipeline over the
+same modules; the multi-sequence modes raise "not ported yet".
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 
 from .. import models
 from ..runtime.module import Module, PipelineContext, checked_device
+from ..parallel.spatial_flagship import SpatialPipeline
 from ..runtime.pipeline import Pipeline
 from ..sources import DataSource, KITTIDataSource, SyntheticDataSource
 from ..utils.plane_params import (
@@ -127,17 +130,18 @@ def build_module(cfg: dict, st: ConfigState) -> Module:
     raise ValueError(f"module type '{mtype}' is not ported yet")
 
 
-def _warn_warp_bound(modules: list[Module]) -> None:
+def _warn_warp_bound(modules: list[Module], spatial: bool) -> None:
     """Warn when 'select' warp mode can drop temporal votes: it drops votes
     whose vertical flow exceeds max_warp_y, and the flow module's static
     bound says whether that can happen.  ('auto' is 'gather' in the port,
-    which keeps them.)"""
+    which keeps them; the spatial mode always takes 'select'.)"""
     flows = [m for m in modules if isinstance(m, models.ImageOpticalFlowModule)]
     if not flows:
         return
     bound = flows[0].flow_bound()
     for m in modules:
-        if getattr(m, "temporal", False) and m.warp_mode == "select" and m.max_warp_y < bound:
+        if (getattr(m, "temporal", False) and (spatial or m.warp_mode == "select")
+                and m.max_warp_y < bound):
             logging.getLogger("cart.config").warning(
                 "dense_flow's static vertical bound is %d px but max_warp_y=%d: "
                 "temporal votes with larger vertical flow are dropped in 'select' "
@@ -146,16 +150,45 @@ def _warn_warp_bound(modules: list[Module]) -> None:
             )
 
 
+def _build_spatial_pipeline(parallel: dict, ctx: PipelineContext, modules) -> SpatialPipeline:
+    """Height-shard the configured module list: `parallel.devices` is the
+    shard count (default 1), all shards on ctx.device in this version.
+    The flow's seam knobs live under `parallel` (they describe the
+    sharding, not the flow math)."""
+    n = int(parallel.get("devices", 1))
+    h_local = ctx.height // n if n > 0 and ctx.height % n == 0 else 0
+    for m in modules:
+        if isinstance(m, models.ImageOpticalFlowModule):
+            if "flow_mode" in parallel:
+                m.spatial_mode = str(parallel["flow_mode"])
+            if "flow_halo" in parallel:
+                m.spatial_halo = int(parallel["flow_halo"])
+            elif h_local and m.spatial_mode == "sharded":
+                # The apron cannot exceed one shard's rows.
+                m.spatial_halo = min(m.spatial_halo, h_local)
+    return SpatialPipeline(ctx, modules, n)
+
+
 def build_pipeline(source_cfg, modules_cfg: list[dict], *, device="cuda",
-                   grayscale: bool = False) -> tuple[Pipeline, DataSource]:
+                   grayscale: bool = False,
+                   parallel: dict | None = None) -> tuple[Pipeline | SpatialPipeline, DataSource]:
     """(Pipeline on `device`, its data source) from config dicts.  The
-    device defaults to the card; without a GPU that raises."""
+    device defaults to the card; without a GPU that raises.  `parallel`:
+    a config's parallel block (only ``"mode": "spatial"`` is ported)."""
     device = checked_device(device)
+    if parallel is not None:
+        mode = parallel.get("mode", "multiseq")
+        if mode not in ("multiseq", "spatial"):
+            raise ValueError(f"unknown parallel mode '{mode}'")
+        if mode == "multiseq":
+            raise ValueError("parallel mode 'multiseq' is not ported yet")
+        if int(parallel.get("sequences", 1)) > 1:
+            raise ValueError("parallel 'sequences' > 1 (sequences x spatial) is not ported yet")
     source = create_data_source(source_cfg)
     h, w = source.get_image_size()
     st = ConfigState((h, w))
     modules = [build_module(cfg, st) for cfg in modules_cfg]
-    _warn_warp_bound(modules)
+    _warn_warp_bound(modules, spatial=parallel is not None)
     ctx = PipelineContext(
         height=h,
         width=w,
@@ -163,11 +196,16 @@ def build_pipeline(source_cfg, modules_cfg: list[dict], *, device="cuda",
         device=device,
         grayscale=grayscale,
     )
+    if parallel is not None:
+        return _build_spatial_pipeline(parallel, ctx, modules), source
     return Pipeline(ctx, modules), source
 
 
-def read_config(*paths: str, device="cuda") -> tuple[Pipeline, DataSource]:
-    """One combined config, or a (source config, modules config) pair."""
+def read_config(*paths: str, device="cuda",
+                source: DataSource | None = None) -> tuple[Pipeline | SpatialPipeline, DataSource]:
+    """One combined config, or a (source config, modules config) pair.
+    source: a DataSource that replaces the config's data_source (e.g.
+    preloaded frames standing in for a dataset that is not on disk)."""
 
     def load(p):
         with open(os.path.expanduser(p)) as f:
@@ -177,10 +215,11 @@ def read_config(*paths: str, device="cuda") -> tuple[Pipeline, DataSource]:
         data = load(paths[0])
         if "data_source" not in data or "modules" not in data:
             raise ValueError("config must contain data_source and modules")
-        if "parallel" in data:
-            raise ValueError("parallel configs are not ported yet")
-        return build_pipeline(data["data_source"], data["modules"], device=device,
-                              grayscale=bool(data.get("grayscale", False)))
+        src = data["data_source"] if source is None else source
+        return build_pipeline(src, data["modules"], device=device,
+                              grayscale=bool(data.get("grayscale", False)),
+                              parallel=data.get("parallel"))
     if len(paths) == 2:
-        return build_pipeline(load(paths[0]), load(paths[1]), device=device)
+        src = load(paths[0]) if source is None else source
+        return build_pipeline(src, load(paths[1]), device=device)
     raise ValueError("expected 1 or 2 config paths")

@@ -17,6 +17,24 @@
 // serial steps, as for K1, and then the sum's device-memory traffic (four
 // int16 volumes read, one written: 1.2 GB at 376x1248x256).
 //
+// K5 replaces sgm_fused_pallas_sharded (ops/pallas/sgm.py:320, with
+// _make_vcarry :241, _make_vsweep_cin :267, _make_btwta_cin_kernel :288): K1
+// on one row shard of a height-sharded frame, the two vertical paths seeded
+// with the predecessor shard's final carry (the split-scan chain of
+// parallel/sgm_sharded.py).  It is K1's path kernel with three options:
+// carry-in pointers for the vertical directions (int32 [W, D]; null is a zero
+// carry), carry-out pointers, and no volume pointer for the settle sweeps
+// (sgm_vcarry: the two vertical directions only, emitting just the final
+// carries).  sgm_sharded_paths runs all four directions with the settled
+// carries, then sgm_wta runs as it is.  The TPU's transposed [W, h] census,
+// VMEM W tiles and 1-row blocks are not carried over.  A carry-in must set
+// the first step's path minimum m to the carry's minimum over d (lanes with
+// d >= D hold kBig and load nothing), as _recurrence does; K1's zero carry
+// has m = 0.  The uint8 storage still holds: every step's value is at most
+// COST + P2 <= 62 + P2, whatever the carry.  What bounds it: the chain's
+// n-1 settle rounds, each sweeping every shard's rows serially (on one card
+// the shards' launches queue on one stream), on top of K1's own bound.
+//
 // What bounds it on an H100: the path recurrence is serial along each
 // scanline (1248 steps for a KITTI row, 376 for a column), so latency per
 // step, not bandwidth, bounds the path kernel; the four uint8 path volumes
@@ -56,14 +74,19 @@ __device__ __forceinline__ int warp_min(int v) {
   return v;
 }
 
-// T: the path value's storage type, uint8_t for K1 (P2 <= 193), int16_t
-// for K6.
+// T: the path value's storage type, uint8_t for K1 and K5 (P2 <= 193),
+// int16_t for K6.  first_warp: 0 runs all four directions, 2H only the two
+// vertical ones.  cin/cout (K5): per-column carries [W, D] of the vertical
+// directions, or null (zero carry in; no carry out).  vol null: no volume
+// writes (the settle sweeps).
 template <typename T>
 __global__ void sgm_paths_kernel(const int* __restrict__ l0, const int* __restrict__ l1,
                                  const int* __restrict__ r0, const int* __restrict__ r1,
-                                 T* __restrict__ vol, int H, int W, int D,
-                                 int minD, int p1, int p2) {
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+                                 T* __restrict__ vol, const int* __restrict__ cin_tb,
+                                 const int* __restrict__ cin_bt, int* __restrict__ cout_tb,
+                                 int* __restrict__ cout_bt, int H, int W, int D,
+                                 int minD, int p1, int p2, int first_warp) {
+  const int warp = first_warp + ((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
   const int lane = threadIdx.x & 31;
   if (warp >= 2 * H + 2 * W) return;  // warp-uniform
   int dir, line;
@@ -76,12 +99,25 @@ __global__ void sgm_paths_kernel(const int* __restrict__ l0, const int* __restri
   }
   const int steps = dir < 2 ? W : H;
   const int nk = (D + 31) / 32;
-  T* out = vol + (size_t)dir * H * W * D;
+  T* out = vol != nullptr ? vol + (size_t)dir * H * W * D : nullptr;
+  const int* cin = dir == 2 ? cin_tb : (dir == 3 ? cin_bt : nullptr);
+  int* cout = dir == 2 ? cout_tb : (dir == 3 ? cout_bt : nullptr);
 
   int L[kMaxK];
-#pragma unroll
-  for (int k = 0; k < kMaxK; ++k) L[k] = (k * 32 + lane < D) ? 0 : kBig;
   int m = 0;  // min over d of the carry
+  if (cin != nullptr) {  // warp-uniform
+    int cmin = kBig;
+#pragma unroll
+    for (int k = 0; k < kMaxK; ++k) {
+      const int d = k * 32 + lane;
+      L[k] = d < D ? cin[(size_t)line * D + d] : kBig;
+      cmin = min(cmin, L[k]);
+    }
+    m = warp_min(cmin);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kMaxK; ++k) L[k] = (k * 32 + lane < D) ? 0 : kBig;
+  }
 
   for (int s = 0; s < steps; ++s) {
     int y, x;
@@ -116,7 +152,7 @@ __global__ void sgm_paths_kernel(const int* __restrict__ l0, const int* __restri
           }
           const int best = min(min(L[k], min(dn, up) + p1), m + p2);
           v = c + best - m;
-          out[(size_t)pix * D + d] = (T)v;
+          if (out != nullptr) out[(size_t)pix * D + d] = (T)v;
         }
         nl[k] = v;
         lmin = min(lmin, v);
@@ -126,6 +162,13 @@ __global__ void sgm_paths_kernel(const int* __restrict__ l0, const int* __restri
     for (int k = 0; k < kMaxK; ++k)
       if (k < nk) L[k] = nl[k];
     m = warp_min(lmin);
+  }
+  if (cout != nullptr) {
+#pragma unroll
+    for (int k = 0; k < kMaxK; ++k) {
+      const int d = k * 32 + lane;
+      if (d < D) cout[(size_t)line * D + d] = L[k];
+    }
   }
 }
 
@@ -222,18 +265,51 @@ __global__ void sgm_wta_kernel(const uint8_t* __restrict__ vol, int16_t* __restr
   }
 }
 
+constexpr int kPathThreads = 128;
+
+// Launches the uint8 path kernel over warps [first_warp, 2H + 2W).
+int launch_paths_u8(const void* l0, const void* l1, const void* r0, const void* r1,
+                    void* vol, const void* cin_tb, const void* cin_bt, void* cout_tb,
+                    void* cout_bt, int H, int W, int D, int minD, int p1, int p2,
+                    int first_warp, void* stream) {
+  const int warps = 2 * H + 2 * W - first_warp;
+  const int blocks = (warps * 32 + kPathThreads - 1) / kPathThreads;
+  sgm_paths_kernel<uint8_t><<<blocks, kPathThreads, 0, (cudaStream_t)stream>>>(
+      (const int*)l0, (const int*)l1, (const int*)r0, (const int*)r1, (uint8_t*)vol,
+      (const int*)cin_tb, (const int*)cin_bt, (int*)cout_tb, (int*)cout_bt, H, W, D, minD,
+      p1, p2, first_warp);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int sgm_paths(const void* l0, const void* l1, const void* r0, const void* r1,
                          void* vol, int H, int W, int D, int minD, int p1, int p2,
                          void* stream) {
-  const int warps = 2 * H + 2 * W;
-  const int threads = 128;
-  const int blocks = (warps * 32 + threads - 1) / threads;
-  sgm_paths_kernel<uint8_t><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int*)l0, (const int*)l1, (const int*)r0, (const int*)r1, (uint8_t*)vol,
-      H, W, D, minD, p1, p2);
-  return (int)cudaGetLastError();
+  return launch_paths_u8(l0, l1, r0, r1, vol, nullptr, nullptr, nullptr, nullptr, H, W, D,
+                         minD, p1, p2, 0, stream);
+}
+
+// K5, the output sweeps: the four paths of one row shard into vol (uint8
+// [4, H, W, D]), the vertical ones seeded with cin_tb / cin_bt (int32 [W, D],
+// or null for a zero carry).  sgm_wta follows.
+extern "C" int sgm_sharded_paths(const void* l0, const void* l1, const void* r0,
+                                 const void* r1, void* vol, const void* cin_tb,
+                                 const void* cin_bt, int H, int W, int D, int minD, int p1,
+                                 int p2, void* stream) {
+  return launch_paths_u8(l0, l1, r0, r1, vol, cin_tb, cin_bt, nullptr, nullptr, H, W, D,
+                         minD, p1, p2, 0, stream);
+}
+
+// K5, one settle round: both vertical paths of one row shard from cin_tb /
+// cin_bt (or zero), writing only their final carries cout_tb / cout_bt
+// (int32 [W, D]).
+extern "C" int sgm_vcarry(const void* l0, const void* l1, const void* r0, const void* r1,
+                          const void* cin_tb, const void* cin_bt, void* cout_tb,
+                          void* cout_bt, int H, int W, int D, int minD, int p1, int p2,
+                          void* stream) {
+  return launch_paths_u8(l0, l1, r0, r1, nullptr, cin_tb, cin_bt, cout_tb, cout_bt, H, W, D,
+                         minD, p1, p2, 2 * H, stream);
 }
 
 // K6. vol: int16 scratch [4, H, W, D]; out: int16 [H, W, D].
@@ -242,10 +318,10 @@ extern "C" int sgm_aggregate(const void* l0, const void* l1, const void* r0, con
                              int p2, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int warps = 2 * H + 2 * W;
-  const int threads = 128;
-  sgm_paths_kernel<int16_t><<<(warps * 32 + threads - 1) / threads, threads, 0, s>>>(
-      (const int*)l0, (const int*)l1, (const int*)r0, (const int*)r1, (int16_t*)vol,
-      H, W, D, minD, p1, p2);
+  sgm_paths_kernel<int16_t>
+      <<<(warps * 32 + kPathThreads - 1) / kPathThreads, kPathThreads, 0, s>>>(
+          (const int*)l0, (const int*)l1, (const int*)r0, (const int*)r1, (int16_t*)vol,
+          nullptr, nullptr, nullptr, nullptr, H, W, D, minD, p1, p2, 0);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const size_t n = (size_t)H * W * D;

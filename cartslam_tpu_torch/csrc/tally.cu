@@ -112,7 +112,7 @@ __global__ void vote_tally_kernel(const int* __restrict__ labels,
 }  // namespace
 
 // labels int32 [N], data int32 [C, N] (C <= 8), acc int64 scratch [1 + 2C, L],
-// out float32 [1 + 2C, L].
+// out float32 [1 + 2C, L], or null to leave the exact int64 sums in acc.
 extern "C" int moment_tally(const void* labels, const void* data, int N, int C, int L,
                             void* acc, void* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -122,8 +122,9 @@ extern "C" int moment_tally(const void* labels, const void* data, int N, int C, 
   if (N > 0)
     moment_tally_kernel<<<(N + kThreads - 1) / kThreads, kThreads, 0, s>>>(
         (const int*)labels, (const int*)data, N, C, L, (unsigned long long*)acc);
-  to_float_kernel<<<(n + 255) / 256, 256, 0, s>>>((const unsigned long long*)acc,
-                                                  (float*)out, n);
+  if (out != nullptr)
+    to_float_kernel<<<(n + 255) / 256, 256, 0, s>>>((const unsigned long long*)acc,
+                                                    (float*)out, n);
   return (int)cudaGetLastError();
 }
 
@@ -140,7 +141,7 @@ extern "C" int vote_tally(const void* labels, const void* votes, int N, int L, i
 }
 
 // K7. labels int32 [B], values int32 [B, C], acc int64 scratch [L, C],
-// out float32 [L, C].
+// out float32 [L, C], or null to leave the exact int64 sums in acc.
 extern "C" int label_tally(const void* labels, const void* values, int B, int C, int L,
                            void* acc, void* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -150,8 +151,18 @@ extern "C" int label_tally(const void* labels, const void* values, int B, int C,
   if (B > 0 && C > 0)
     label_tally_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0, s>>>(
         (const int*)labels, (const int*)values, B, C, L, (unsigned long long*)acc);
-  if (n > 0)
+  if (n > 0 && out != nullptr)
     to_float_kernel<<<(n + 255) / 256, 256, 0, s>>>((const unsigned long long*)acc,
                                                     (float*)out, n);
+  return (int)cudaGetLastError();
+}
+
+// The rounding step of K2 and K7 on its own: out[i] = float32(acc[i]), n
+// entries.  The height-sharded mode sums the shards' int64 tables first, so
+// the psum'd table is rounded once, as the full frame's is.
+extern "C" int tally_to_float(const void* acc, void* out, int n, void* stream) {
+  if (n > 0)
+    to_float_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+        (const unsigned long long*)acc, (float*)out, n);
   return (int)cudaGetLastError();
 }

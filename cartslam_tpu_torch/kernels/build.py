@@ -42,8 +42,11 @@ SIGNATURES = {
     "sgm_paths": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "sgm_wta": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "sgm_aggregate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "sgm_sharded_paths": [_P] * 7 + [_I] * 6 + [_P],
+    "sgm_vcarry": [_P] * 8 + [_I] * 6 + [_P],
     "moment_tally": [_P, _P, _I, _I, _I, _P, _P, _P],
     "label_tally": [_P, _P, _I, _I, _I, _P, _P, _P],
+    "tally_to_float": [_P, _P, _I, _P],
     "vote_tally": [_P, _P, _I, _I, _I, _P, _P],
     "relax_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                     _P, _P, _P, _P, _P, _F, _F, _P],
@@ -129,6 +132,11 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    """A tensor's device pointer, or None (a null pointer) for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def check(err: int, name: str) -> None:

@@ -1,11 +1,15 @@
-"""Kernels K1 (fused SGM) and K6 (4-path aggregated volume), csrc/sgm.cu,
-with their plain versions.
+"""Kernels K1 (fused SGM), K5 (K1 on a row shard, with carries handed
+between shards) and K6 (4-path aggregated volume), csrc/sgm.cu, with their
+plain versions.
 
 K1 replaces the Pallas ``sgm_fused_pallas`` (cartslam_tpu/ops/pallas/
-sgm.py:654, with ``wta_lr_row`` of ops/pallas/wta.py:66); K6 replaces
+sgm.py:654, with ``wta_lr_row`` of ops/pallas/wta.py:66); K5 replaces
+``sgm_fused_pallas_sharded`` (ops/pallas/sgm.py:320); K6 replaces
 ``sgm_aggregate_pallas`` (ops/pallas/sgm.py:510).  On a CUDA tensor a wrapper
 launches its CUDA kernels or raises; on a CPU tensor it runs the plain
-version, the XLA path's chain in ops/stereo.py.
+version, the XLA path's chain in ops/stereo.py.  K5's wrappers work on one
+row shard from given carries; the split-scan chain that settles the carries
+across shards is parallel/sgm_sharded.py's.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from ..ops import stereo
 from . import build
 
 COUNTER = build.counter("sgm")
+SHARDED_COUNTER = build.counter("sgm_sharded")
 AGGREGATE_COUNTER = build.counter("sgm_aggregate")
 # Path values are stored as uint8: each is bounded by COST_INVALID + p2.
 MAX_P2 = 255 - stereo.COST_INVALID
@@ -39,10 +44,7 @@ def sgm_fused(cl0, cl1, cr0, cr1, *, min_disparity: int, num_disparities: int,
     if cl0.device.type == "cpu":
         COUNTER.plain_calls += 1
         return stereo.sgm_from_census_plain(cl0, cl1, cr0, cr1, **kw)
-    if p2 > MAX_P2:
-        raise ValueError(f"sgm kernel stores path values as uint8: needs p2 <= {MAX_P2}")
-    if not 1 <= num_disparities <= MAX_DISPARITIES:
-        raise ValueError(f"sgm kernel takes 1..{MAX_DISPARITIES} disparities")
+    _check_k1_params(p2, num_disparities)
     h, w = _check_census(cl0, cl1, cr0, cr1)
     lib = build.library()
     vol = torch.empty((4, h, w, num_disparities), dtype=torch.uint8, device=cl0.device)
@@ -57,6 +59,103 @@ def sgm_fused(cl0, cl1, cr0, cr1, *, min_disparity: int, num_disparities: int,
                             int(lr_check), s),
                 "sgm_wta")
     COUNTER.launches += 1
+    return out
+
+
+def _check_k1_params(p2: int, num_disparities: int) -> None:
+    if p2 > MAX_P2:
+        raise ValueError(f"sgm kernel stores path values as uint8: needs p2 <= {MAX_P2}")
+    if not 1 <= num_disparities <= MAX_DISPARITIES:
+        raise ValueError(f"sgm kernel takes 1..{MAX_DISPARITIES} disparities")
+
+
+def sgm_vcarry_plain(cl0, cl1, cr0, cr1, tb, bt, *, min_disparity: int,
+                     num_disparities: int, p1: int, p2: int):
+    """One settle round, plain: the final carries int32 [W, D] of the
+    shard's top-down and bottom-up sweeps from carries tb and bt (None is
+    a zero carry)."""
+    cost = stereo.hamming_cost_volume((cl0, cl1), (cr0, cr1), min_disparity, num_disparities)
+    chwd = cost.permute(1, 2, 0)
+    return (stereo._aggregate_scan(chwd, p1, p2, tb)[-1],
+            stereo._aggregate_scan(chwd.flip(0), p1, p2, bt)[-1])
+
+
+def sgm_vcarry(cl0, cl1, cr0, cr1, tb, bt, *, min_disparity: int, num_disparities: int,
+               p1: int, p2: int):
+    """One settle round of K5 (sgm_vcarry in csrc/sgm.cu): the vertical
+    sweeps of one row shard from carries tb and bt (None is a zero carry),
+    no volume written, only the final carries.  A step of K5 (see
+    parallel/sgm_sharded.py); it counts no launch of its own."""
+    ckw = dict(min_disparity=min_disparity, num_disparities=num_disparities, p1=p1, p2=p2)
+    if cl0.device.type == "cpu":
+        return sgm_vcarry_plain(cl0, cl1, cr0, cr1, tb, bt, **ckw)
+    _check_k1_params(p2, num_disparities)
+    h, w = _check_census(cl0, cl1, cr0, cr1)
+    for name, t in (("tb", tb), ("bt", bt)):
+        if t is not None:
+            build.expect(t, name, torch.int32, (w, num_disparities), cl0.device)
+    tb_fin = torch.empty((w, num_disparities), dtype=torch.int32, device=cl0.device)
+    bt_fin = torch.empty_like(tb_fin)
+    build.check(build.library().sgm_vcarry(
+        cl0.data_ptr(), cl1.data_ptr(), cr0.data_ptr(), cr1.data_ptr(), build.ptr(tb),
+        build.ptr(bt), tb_fin.data_ptr(), bt_fin.data_ptr(), h, w, num_disparities,
+        min_disparity, p1, p2, build.stream()), "sgm_vcarry")
+    return tb_fin, bt_fin
+
+
+def sgm_fused_sharded_plain(cl0, cl1, cr0, cr1, tb, bt, *, min_disparity: int,
+                            num_disparities: int, p1: int, p2: int, uniqueness: int,
+                            subpixel: bool, lr_check: bool) -> torch.Tensor:
+    """The plain version of K5's output pass: the cost volume and horizontal
+    paths of the shard, the vertical paths seeded with the settled carries
+    tb and bt (None is a zero carry), then WTA and LR."""
+    h, w = cl0.shape
+    cost = stereo.hamming_cost_volume((cl0, cl1), (cr0, cr1), min_disparity, num_disparities)
+    chwd = cost.permute(1, 2, 0)  # [h, W, D]
+    cw = chwd.permute(1, 0, 2)  # [W, h, D]
+    s = (stereo._aggregate_scan(cw, p1, p2)
+         + stereo._aggregate_scan(cw.flip(0), p1, p2).flip(0)).permute(1, 0, 2)
+    s = s + stereo._aggregate_scan(chwd, p1, p2, tb)
+    s = s + stereo._aggregate_scan(chwd.flip(0), p1, p2, bt).flip(0)
+    disp16, best, valid = stereo._wta(s, min_disparity, uniqueness, subpixel)
+    cols = torch.arange(w, device=cl0.device)[None, :]
+    valid = valid & (cols >= best + min_disparity)
+    if lr_check:
+        valid = valid & stereo._lr_agreement(s, best, min_disparity)
+    return torch.where(valid, disp16, stereo.DISPARITY_INVALID).to(torch.int16)
+
+
+def sgm_fused_sharded(cl0, cl1, cr0, cr1, tb, bt, *, min_disparity: int, num_disparities: int,
+                      p1: int, p2: int, uniqueness: int, subpixel: bool,
+                      lr_check: bool) -> torch.Tensor:
+    """K5's output pass on one row shard: census words (int32 [h, W] x2 per
+    view) and the settled vertical carries tb, bt (int32 [W, D]; None is a
+    zero carry) -> int16 x16 disparity [h, W], the counterpart of
+    sgm_fused_pallas_sharded's output sweeps and WTA.  With the carries of
+    parallel/sgm_sharded.settled_carries it equals the full frame's rows."""
+    kw = dict(min_disparity=min_disparity, num_disparities=num_disparities,
+              p1=p1, p2=p2, uniqueness=uniqueness, subpixel=subpixel,
+              lr_check=lr_check)
+    if cl0.device.type == "cpu":
+        SHARDED_COUNTER.plain_calls += 1
+        return sgm_fused_sharded_plain(cl0, cl1, cr0, cr1, tb, bt, **kw)
+    _check_k1_params(p2, num_disparities)
+    h, w = _check_census(cl0, cl1, cr0, cr1)
+    for name, t in (("tb", tb), ("bt", bt)):
+        if t is not None:
+            build.expect(t, name, torch.int32, (w, num_disparities), cl0.device)
+    lib = build.library()
+    vol = torch.empty((4, h, w, num_disparities), dtype=torch.uint8, device=cl0.device)
+    out = torch.empty((h, w), dtype=torch.int16, device=cl0.device)
+    s = build.stream()
+    build.check(lib.sgm_sharded_paths(cl0.data_ptr(), cl1.data_ptr(), cr0.data_ptr(),
+                                      cr1.data_ptr(), vol.data_ptr(), build.ptr(tb),
+                                      build.ptr(bt), h, w, num_disparities, min_disparity,
+                                      p1, p2, s), "sgm_sharded_paths")
+    build.check(lib.sgm_wta(vol.data_ptr(), out.data_ptr(), h, w, num_disparities,
+                            min_disparity, uniqueness, int(subpixel), int(lr_check), s),
+                "sgm_wta")
+    SHARDED_COUNTER.launches += 1
     return out
 
 

@@ -25,3 +25,9 @@ class DepthModule(Module):
 
     def compute(self, ctx, step, deps, state, params, variant):
         return {KEY_DEPTH: dops.reproject_to_3d(deps[KEY_DISPARITY], ctx.q)}, {}
+
+    def compute_spatial(self, ctx, step, deps, state, params, variant, sp):
+        # Pointwise in the disparity; only the reprojection's y needs the
+        # shard's global row offset.
+        return {KEY_DEPTH: dops.reproject_to_3d(deps[KEY_DISPARITY], ctx.q,
+                                                row_offset=sp.row0)}, {}

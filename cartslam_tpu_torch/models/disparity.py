@@ -1,8 +1,9 @@
 """ImageDisparityModule (counterpart of cartslam_tpu/models/disparity.py).
 
-Gray conversion, census + SGM (kernel K1 on the device), and the optional
-iterative interpolation smoothing.  `block_size` is accepted for config
-parity; the census window plays that role.
+Gray conversion, census + SGM (kernel K1 on the device; K5 on a row shard
+in the spatial mode), and the optional iterative interpolation smoothing.
+`block_size` is accepted for config parity; the census window plays that
+role.
 """
 
 from __future__ import annotations
@@ -58,3 +59,43 @@ class ImageDisparityModule(Module):
                 min_disparity=self.min_disparity * 16, max_disparity=ctx.width,
             )
         return {KEY_DISPARITY: disp}, {}
+
+    def spatial_validate(self, ctx, n, h_local):
+        if h_local < 3:
+            raise ValueError(f"SGM census needs a 3-row halo; shards have {h_local} rows")
+
+    def compute_spatial(self, ctx, step, deps, state, params, variant, sp):
+        """Row-shard SGM, bit-exact for any shard count: horizontal sweeps
+        are row-local and the vertical sweeps run the split-scan carry
+        chain (parallel/sgm_sharded.py)."""
+        from ..parallel.sgm_sharded import sgm_disparity_sharded
+
+        left, right = step.frame["left"], step.frame["right"]
+        if not ctx.grayscale:
+            left = color.bgr_to_gray(left)
+            right = color.bgr_to_gray(right)
+        disp = sgm_disparity_sharded(
+            left, right, sp, min_disparity=self.min_disparity,
+            num_disparities=self.num_disparities, p1=self.p1, p2=self.p2,
+            uniqueness=self.uniqueness,
+        )
+        disp = _spatial_smooth(
+            disp, sp, radius=self.smoothing_radius, iterations=self.smoothing_iterations,
+            min_disparity=self.min_disparity * 16, max_disparity=ctx.width,
+        )
+        return {KEY_DISPARITY: disp}, {}
+
+
+def _spatial_smooth(disp, sp, *, radius, iterations, min_disparity, max_disparity):
+    """Sharded interpolation smoothing (exact): one halo exchange per
+    iteration, since the full-frame op re-clamps its edge padding to the
+    current border row every iteration.  Reach per iteration: radius-1 rows."""
+    if radius <= 0:
+        return disp
+    hr = radius - 1
+    for _ in range(iterations):
+        d_ext = sp.exchange(disp, hr, hr)
+        d_ext = dops.interpolate(d_ext, radius=radius, iterations=1,
+                                 min_disparity=min_disparity, max_disparity=max_disparity)
+        disp = d_ext[hr:-hr] if hr else d_ext
+    return disp

@@ -4,8 +4,8 @@ Flow between the current and the previous left image.  The previous gray
 frame lives in module state; frame 1 emits zero flow.  Output: int16
 [H, W, 2] in S10.5 fixed point, current -> previous.
 
-The JAX module's height-sharded knobs (``spatial_mode``, ``spatial_halo``)
-belong to the spatial mode, which is not ported yet.
+The height-sharded knobs (``spatial_mode``, ``spatial_halo``) are set from
+a config's ``parallel`` block (config/registry.py).
 """
 
 from __future__ import annotations
@@ -23,7 +23,8 @@ class ImageOpticalFlowModule(Module):
     name = "ImageOpticalFlow"
 
     def __init__(self, image_size, levels: int = 4, search: int = 4, refine: int = 2,
-                 base_level: int = 1, fine_refine: int = 1, med_passes: int = 2):
+                 base_level: int = 1, fine_refine: int = 1, med_passes: int = 2,
+                 spatial_mode: str = "global", spatial_halo: int = 46):
         self.image_size = image_size
         self.levels = levels
         self.search = search
@@ -31,6 +32,14 @@ class ImageOpticalFlowModule(Module):
         self.base_level = base_level
         self.fine_refine = fine_refine
         self.med_passes = med_passes
+        # Height-sharded mode only.  'global' (default): gather the gray
+        # pair and run one full-image pyramid on every shard, bit-exact for
+        # any shard count.  'sharded': per-shard apron pyramids of
+        # spatial_halo rows, ~1/n of the flow work per shard, approximate
+        # (the decimation grids shift at shard offsets that are not
+        # multiples of the pyramid's scale).
+        self.spatial_mode = spatial_mode
+        self.spatial_halo = spatial_halo
 
     def provides(self):
         return [KEY_OPTFLOW]
@@ -46,16 +55,43 @@ class ImageOpticalFlowModule(Module):
         return fops.flow_bound(self.levels, self.search, self.refine, self.base_level,
                                self.fine_refine)
 
+    def _flow(self, cur, prev):
+        return fops.dense_flow(
+            cur, prev, levels=self.levels, search=self.search, refine=self.refine,
+            base_level=self.base_level, fine_refine=self.fine_refine,
+            med_passes=self.med_passes,
+        )
+
     def compute(self, ctx, step, deps, state, params, variant):
         left = step.frame["left"]
         gray = left if ctx.grayscale else color.bgr_to_gray(left)
         if step.frame_id > 1:
-            flow = fops.dense_flow(
-                gray, state["prev_gray"], levels=self.levels, search=self.search,
-                refine=self.refine, base_level=self.base_level,
-                fine_refine=self.fine_refine, med_passes=self.med_passes,
-            )
-            out = fops.to_s10_5(flow)
+            out = fops.to_s10_5(self._flow(gray, state["prev_gray"]))
         else:  # no previous frame yet
             out = torch.zeros((ctx.height, ctx.width, 2), dtype=torch.int16, device=gray.device)
+        return {KEY_OPTFLOW: out}, {"prev_gray": gray}
+
+    def spatial_validate(self, ctx, n, h_local):
+        if self.spatial_mode not in ("global", "sharded"):
+            raise ValueError(f"unknown optflow spatial_mode {self.spatial_mode!r}")
+        if self.spatial_mode == "sharded" and self.spatial_halo > h_local:
+            raise ValueError(
+                f"optflow spatial_halo={self.spatial_halo} exceeds the {h_local}-row shard"
+            )
+
+    def compute_spatial(self, ctx, step, deps, state, params, variant, sp):
+        """prev_gray lives as row shards; the pyramid runs on the gathered
+        full pair (bit-exact) or on a per-shard apron (spatial_mode)."""
+        left = step.frame["left"]
+        gray = left if ctx.grayscale else color.bgr_to_gray(left)
+        if step.frame_id <= 1:  # the same on every shard: no collective skipped
+            out = torch.zeros((sp.h_local, ctx.width, 2), dtype=torch.int16, device=gray.device)
+        elif self.spatial_mode == "global":
+            full = self._flow(sp.all_gather_rows(gray), sp.all_gather_rows(state["prev_gray"]))
+            out = fops.to_s10_5(sp.slice_rows(full))
+        else:
+            fh = self.spatial_halo
+            flow_ext = self._flow(sp.exchange(gray, fh, fh),
+                                  sp.exchange(state["prev_gray"], fh, fh))
+            out = fops.to_s10_5(flow_ext[fh : fh + sp.h_local])
         return {KEY_OPTFLOW: out}, {"prev_gray": gray}

@@ -13,6 +13,8 @@ ranges at frame ids == 1 (mod update_interval).
 
 from __future__ import annotations
 
+import logging
+
 import numpy as np
 import torch
 
@@ -144,3 +146,49 @@ class SuperPixelDisparityPlaneSegmentationModule(Module):
         # temporal vote only feeds the superpixel tally.
         return ({KEY_PLANES: planes, KEY_PLANES_UNSMOOTHED: pixel_planes},
                 {"warp_votes": warp_votes})
+
+    # ------------------------------------------------------ spatial (sharded)
+
+    def spatial_row_dims(self, ctx):
+        # warp_votes stacks the temporal distance ahead of the row axis.
+        return {"warp_votes": 1}
+
+    def spatial_validate(self, ctx, n, h_local):
+        if self.temporal and self.max_warp_y > h_local:
+            logging.getLogger("cart.spatial").warning(
+                "spatial mode clamps max_warp_y %d -> %d (the halo cannot exceed one "
+                "%d-row shard)", self.max_warp_y, h_local, h_local,
+            )
+
+    def compute_spatial(self, ctx, step, deps, state, params, variant, sp):
+        """Sharded vote chain: `max_warp_y`-row halos of the vote inputs,
+        WARP_INVALID at the global borders, and always the 'select' warp,
+        whose displacement bound equals the halo depth, so every in-bound
+        source row is present locally and the result is the full frame's
+        (with warp_mode='select' there) for any shard count.  The per-label
+        tally counts core rows once, psum'd."""
+        ranges = torch.as_tensor(params["ranges"], dtype=torch.int32, device=ctx.device)
+        pixel_planes = pops.classify(deps[KEY_DERIVATIVE][..., 0], ranges)
+        if not self.temporal:
+            planes = pops.superpixel_vote(pixel_planes, deps[KEY_SUPERPIXELS], self.num_labels,
+                                          psum=sp.psum)
+            return {KEY_PLANES: planes}, {}
+        ry = min(self.max_warp_y, sp.h_local)
+        prev = step.history(KEY_PLANES_UNSMOOTHED, -1)
+        if step.frame_id <= 1:
+            prev = torch.full_like(prev, pops.WARP_INVALID)
+        inv = pops.WARP_INVALID
+        votes_ext = sp.exchange(state["warp_votes"].transpose(0, 1), ry, ry, fill=inv)
+        voted_ext, warp_ext = pops.temporal_vote_warped(
+            sp.exchange(pixel_planes, ry, ry, fill=pops.UNKNOWN),
+            sp.exchange(prev, ry, ry, fill=inv),
+            votes_ext.transpose(0, 1),
+            sp.exchange(deps[KEY_OPTFLOW], ry, ry, fill=0),
+            current_weight=2, compare_unknown=True, warp_mode="select",
+            max_warp_y=ry, max_warp_x=self.max_warp_x,
+        )
+        voted = voted_ext[ry : ry + sp.h_local]
+        planes = pops.superpixel_vote(voted, deps[KEY_SUPERPIXELS], self.num_labels,
+                                      psum=sp.psum)
+        return ({KEY_PLANES: planes, KEY_PLANES_UNSMOOTHED: pixel_planes},
+                {"warp_votes": warp_ext[:, ry : ry + sp.h_local].contiguous()})

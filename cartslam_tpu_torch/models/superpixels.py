@@ -90,7 +90,10 @@ class SuperPixelModule(Module):
             return "reset"
         return "normal"
 
-    def compute(self, ctx, step, deps, state, params, variant):
+    def _features(self, ctx, step, deps, extend=lambda x: x):
+        """(feature_data, specs): gaussian specs align positionally with
+        feature_data; compactness goes last (its data is the implicit pixel
+        coordinates).  `extend` adds the spatial mode's halo rows."""
         left = step.frame["left"]
         if ctx.grayscale:
             img = left[..., None].to(torch.float32)
@@ -98,30 +101,61 @@ class SuperPixelModule(Module):
         else:
             img = color.bgr_to_ycrcb(left).to(torch.float32)
             img_channels = 3
-
-        # Gaussian specs align positionally with feature_data; compactness
-        # goes last (its data is the implicit pixel coordinates).
         feature_data = []
         specs = []
         if self.disparity_weight > 0:
-            feature_data.append(deps[KEY_DERIVATIVE].to(torch.float32))
+            feature_data.append(extend(deps[KEY_DERIVATIVE].to(torch.float32)))
             specs.append(spops.FeatureSpec("gaussian", self.disparity_weight, 2))
-        feature_data.append(img)
+        feature_data.append(extend(img))
         specs.append(spops.FeatureSpec("gaussian", self.image_weight, img_channels))
         specs.append(spops.FeatureSpec(
             "compactness", self.compactness_weight, 2, self.progressive_compactness_cost
         ))
+        return feature_data, specs
 
-        labels = self._grid(ctx) if variant == "reset" else state["labels"]
-        iters = (
-            self.initial_iterations if variant in ("initial", "reset") else self.iterations
-        )
-        labels = spops.relax(
-            labels, feature_data, specs, self.num_labels, iters,
-            self.direct_clique_cost, self.diagonal_clique_cost,
-        )
-        outputs = {
+    def _iterations(self, variant) -> int:
+        return self.initial_iterations if variant in ("initial", "reset") else self.iterations
+
+    def _outputs(self, ctx, labels):
+        return {
             KEY_SUPERPIXELS: labels,
             KEY_MAX_LABEL: torch.tensor(self.max_label_id, dtype=torch.int32, device=ctx.device),
-        }
-        return outputs, {"labels": labels}
+        }, {"labels": labels}
+
+    def compute(self, ctx, step, deps, state, params, variant):
+        feature_data, specs = self._features(ctx, step, deps)
+        labels = self._grid(ctx) if variant == "reset" else state["labels"]
+        labels = spops.relax(
+            labels, feature_data, specs, self.num_labels, self._iterations(variant),
+            self.direct_clique_cost, self.diagonal_clique_cost,
+        )
+        return self._outputs(ctx, labels)
+
+    # ------------------------------------------------------ spatial (sharded)
+
+    def spatial_validate(self, ctx, n, h_local):
+        for it, name in ((self.iterations, "iterations"),
+                         (self.initial_iterations, "initial_iterations")):
+            if it > h_local:
+                raise ValueError(
+                    f"superpixels {name}={it} exceeds the {h_local}-row shard"
+                )
+
+    def compute_spatial(self, ctx, step, deps, state, params, variant, sp):
+        """Sharded contour relaxation: `iterations`-row halos (a label moves
+        at most one row per sweep) and psum'd label moments, exact.  Halo
+        labels at the global edges are -1, which relax treats as the image
+        edge."""
+        iters = self._iterations(variant)
+        halo = iters
+        feature_data, specs = self._features(
+            ctx, step, deps, extend=lambda x: sp.exchange(x, halo, halo))
+        # On a reset frame, the global block grid restricted to this shard.
+        labels = sp.slice_rows(self._grid(ctx)) if variant == "reset" else state["labels"]
+        labels_ext = spops.relax(
+            sp.exchange(labels, halo, halo, fill=-1), feature_data, specs, self.num_labels,
+            iters, self.direct_clique_cost, self.diagonal_clique_cost,
+            row_offset=sp.row0 - halo, global_h=ctx.height, halo_rows=(halo, halo),
+            psum=sp.psum,
+        )
+        return self._outputs(ctx, labels_ext[halo : halo + sp.h_local])

@@ -96,16 +96,20 @@ def temporal_vote_warped(current: torch.Tensor, prev_planes: torch.Tensor,
 
 
 def superpixel_vote(pixel_planes: torch.Tensor, labels: torch.Tensor,
-                    num_labels: int) -> torch.Tensor:
+                    num_labels: int, psum=None) -> torch.Tensor:
     """Per-label class counts (kernel K4), winner per label (UNKNOWN, then
     VERTICAL on strictly more votes, then HORIZONTAL on strictly more than
-    the running max), painted back to the pixels as uint8."""
+    the running max), painted back to the pixels as uint8.  psum (spatial
+    mode): the shards' counts are summed before the winner pass, exact
+    integers, so equal to the full frame's for any shard count."""
     counts = ktally.vote_tally(
         labels.reshape(-1).to(torch.int32).contiguous(),
         pixel_planes.reshape(-1).contiguous(),
         num_labels,
         PLANE_COUNT,
     )
+    if psum is not None:
+        counts = psum(counts)
     best = torch.full((num_labels,), UNKNOWN, dtype=torch.int32, device=labels.device)
     best_votes = counts[:, UNKNOWN]
     take_v = counts[:, VERTICAL] > best_votes

@@ -86,14 +86,20 @@ def hamming_cost_volume(left_census, right_census, min_disparity: int,
     return torch.stack(out, dim=0)
 
 
-def _aggregate_scan(cost_srd: torch.Tensor, p1: int, p2: int) -> torch.Tensor:
-    """Path recurrence along axis 0 of [S, R, D] with a zero initial carry:
+def _aggregate_scan(cost_srd: torch.Tensor, p1: int, p2: int,
+                    carry: torch.Tensor | None = None) -> torch.Tensor:
+    """Path recurrence along axis 0 of [S, R, D], from `carry` (int32
+    [R, D]; None is a zero carry), returning every step's int32 values:
 
     L(p,d) = C(p,d) + min(L(p-1,d), L(p-1,d+-1)+P1, min_d' L(p-1,d')+P2)
            - min_d' L(p-1,d')
+
+    With the true final carry of a preceding segment, the scan continues
+    that segment's recurrence exactly (the height-sharded SGM's split scan).
     """
     big = torch.full_like(cost_srd[0, :, :1], 1 << 20, dtype=torch.int32)
-    carry = torch.zeros_like(cost_srd[0], dtype=torch.int32)
+    if carry is None:
+        carry = torch.zeros_like(cost_srd[0], dtype=torch.int32)
     out = torch.empty_like(cost_srd, dtype=torch.int32)
     for s in range(cost_srd.shape[0]):
         m = carry.min(dim=-1, keepdim=True).values

@@ -41,29 +41,40 @@ def block_init_labels(height: int, width: int, block_w: int, block_h: int, devic
     return (ys * bx + xs).to(torch.int32), bx * by
 
 
-def init_stats(labels: torch.Tensor, data: torch.Tensor, num_labels: int) -> torch.Tensor:
+def init_stats(labels: torch.Tensor, data: torch.Tensor, num_labels: int,
+               psum=None) -> torch.Tensor:
     """Stat table float32 [1 + 2C, L] (count | sums | sums of squares) from
     integer-valued channel planes data [C, H, W]; negative labels drop.
     Each entry is the exact integer sum, rounded to float32 once: kernel K2
     for up to 8 channels, else the column sums of the rows [1, d, d^2]
-    (kernel K7), as the JAX package routes them."""
+    (kernel K7), as the JAX package routes them.  psum (spatial mode) sums
+    the shards' exact int64 tables before that one rounding."""
     c = data.shape[0]
     flat = labels.reshape(-1).contiguous()
     d = data.reshape(c, -1).to(torch.int32)
     if c <= ktally.MAX_CHANNELS:
-        return ktally.moment_tally(flat, d.contiguous(), num_labels)
+        return ktally.moment_tally(flat, d.contiguous(), num_labels, psum)
     rows = torch.cat([torch.ones_like(d[:1]), d, d * d]).T
-    return label_tally(flat, rows, num_labels).T.contiguous()
+    return label_tally(flat, rows, num_labels, psum).T.contiguous()
 
 
 def relax(labels: torch.Tensor, feature_data: Sequence[torch.Tensor],
           feature_specs: Sequence[FeatureSpec], num_labels: int, iterations: int,
           direct_cost: float, diagonal_cost: float, phases: int = 1,
-          stats_refresh: str = "frame") -> torch.Tensor:
+          stats_refresh: str = "frame", row_offset: int = 0, global_h: int | None = None,
+          halo_rows: tuple[int, int] = (0, 0), psum=None) -> torch.Tensor:
     """Run `iterations` relaxation sweeps; returns the new label image.
 
     feature_data[i]: [H, W, C_i] aligned with the gaussian entries of
     feature_specs; compactness uses implicit (x, y) pixel coordinates.
+
+    Height-sharded mode (parallel/spatial_flagship.py): `row_offset` is the
+    global row of the first row (compactness coordinates and the
+    progressive factor are global), `global_h` the full image height,
+    `halo_rows` the (top, bottom) rows owned by neighbour shards, which take
+    part in the sweeps but drop out of the tally, and `psum` makes the
+    per-label statistics global.  Halo labels of -1 behave like the image
+    edge (candidate masking).
     """
     if phases != 1 or stats_refresh != "frame":
         raise ValueError(
@@ -72,9 +83,9 @@ def relax(labels: torch.Tensor, feature_data: Sequence[torch.Tensor],
         )
     h, w = labels.shape
     dev = labels.device
+    rows = torch.arange(row_offset, row_offset + h, dtype=torch.float32, device=dev)
     xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
-    ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
-    coords = torch.stack([xs, ys], dim=0)
+    coords = torch.stack([xs, rows[:, None].expand(h, w)], dim=0)
 
     data_list, features = [], []
     it = iter(feature_data)
@@ -97,11 +108,16 @@ def relax(labels: torch.Tensor, feature_data: Sequence[torch.Tensor],
 
     prog = None
     if prog_value > 0.0:
-        gh = torch.tensor(float(h), dtype=torch.float32, device=dev)
-        rows = torch.arange(h, dtype=torch.float32, device=dev)
+        gh = torch.tensor(float(global_h or h), dtype=torch.float32, device=dev)
         prog = (1.0 + prog_value * (gh - rows) / gh).contiguous()
 
-    stats0 = init_stats(labels, data_all, num_labels)
+    top, bottom = halo_rows
+    tally_labels = labels
+    if top or bottom:
+        core = torch.zeros(h, dtype=torch.bool, device=dev)
+        core[top : h - bottom] = True
+        tally_labels = torch.where(core[:, None], labels, krelax.OOB)
+    stats0 = init_stats(tally_labels, data_all, num_labels, psum)
     stat_img = table_gather(stats0, labels).contiguous()
     pixel_rows = torch.cat(
         [torch.ones((1, h, w), dtype=torch.float32, device=dev), data_all, data_all * data_all]

@@ -13,16 +13,23 @@ import torch
 from ..kernels import tally as ktally
 
 
-def label_tally(labels: torch.Tensor, values: torch.Tensor, num_labels: int) -> torch.Tensor:
+def label_tally(labels: torch.Tensor, values: torch.Tensor, num_labels: int,
+                reduce=None) -> torch.Tensor:
     """Per-label sums out[l, c] = sum of values[b, c] over labels[b] == l:
     float32 [L, C] from labels int [B] and integer values [B, C] (kernel
     K7).  Each entry is the exact integer sum, rounded to float32 once;
-    labels outside [0, L) drop."""
+    labels outside [0, L) drop.  reduce: applied to the int64 sums before
+    the rounding (the spatial mode's psum)."""
     return ktally.label_tally(labels.reshape(-1).to(torch.int32).contiguous(),
-                              values.to(torch.int32).contiguous(), num_labels)
+                              values.to(torch.int32).contiguous(), num_labels, reduce)
 
 
 def table_gather(table: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """out[..., p] = table[..., labels[p]]: shape table.shape[:-1] + labels.shape."""
-    out = table[..., labels.reshape(-1).to(torch.int64)]
+    """out[..., p] = table[..., labels[p]]: shape table.shape[:-1] + labels.shape.
+    Labels outside [0, L) (the spatial mode's -1 halo fill) read zeros, not
+    a wrapped-around entry."""
+    idx = labels.reshape(-1).to(torch.int64)
+    num = table.shape[-1]
+    inb = (idx >= 0) & (idx < num)
+    out = table[..., idx.clamp(0, num - 1)].masked_fill(~inb, 0)
     return out.reshape(*table.shape[:-1], *labels.shape)

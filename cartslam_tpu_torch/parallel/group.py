@@ -1,0 +1,158 @@
+"""A group of row shards: the counterpart of a 1-D mesh axis and of
+``jax.lax.{axis_index, ppermute, psum, all_gather}``.
+
+``ShardGroup(n, devices).run(fn)`` runs ``fn(i)`` for the n shards, each on
+its own thread, and returns their results in shard order.  Inside ``fn``
+the collectives below see the calling shard's index.  Each collective is a
+barrier: every shard deposits its tensor, waits for all the others, then
+reads its peers' tensors.  The port's ``compute_spatial`` methods call
+collectives in the middle of a function, as the JAX ones do inside a
+``shard_map``; with one thread per shard they stay the JAX code line by line.
+
+Ordering on the card: in this version every shard's device is the same
+card, and every shard thread enqueues on the caller's current stream.  A
+producer's kernels are enqueued before it deposits their output, and a
+consumer's kernels after it has passed the barrier, so stream order alone
+orders them: no event or synchronisation is needed, and a deposited tensor
+is handed over without a copy.  A device per shard is part of the interface
+so that a transport across cards can slot in (``_to``).
+
+Turns on the host: one shard runs Python at a time.  A shard holds the
+group's baton from its start to its next collective, where it hands the
+baton on while it waits.  Python runs one thread at a time anyway; with
+eight threads contending for the interpreter at every tensor op, the
+shards' host work took several times its serial time (measured on the
+card).  The card still overlaps: it runs one shard's kernels while the
+next shard enqueues its own.  On the CPU each shard thread runs its ops on
+one intra-op thread: with a pool per shard thread, a 4-shard 48x64 run of
+5 frames took 28.8 s instead of 4.4 on a loaded 8-core host.
+
+Failure: an exception in any shard aborts the barrier, the other shards
+leave their collectives at once, and ``run`` re-raises the first
+exception in the caller.  A barrier that waits longer than ``timeout``
+seconds (a shard that never reaches a collective) breaks too, and ``run``
+raises; it never hangs.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Callable, Sequence
+
+import torch
+
+
+class CollectiveTimeout(RuntimeError):
+    pass
+
+
+class ShardGroup:
+    def __init__(self, n: int, devices: Sequence, timeout: float = 600.0):
+        if n < 1:
+            raise ValueError(f"a shard group needs at least one shard, got {n}")
+        devices = [torch.device(d) for d in devices]
+        if len(devices) != n:
+            raise ValueError(f"{n} shards need {n} devices, got {len(devices)}")
+        if len(set(devices)) != 1:
+            raise ValueError("every shard runs on one device in this version")
+        self.n = n
+        self.devices = devices
+        self.timeout = timeout
+        self._local = threading.local()
+        self._barrier: threading.Barrier | None = None  # one per run
+        self._baton = threading.Lock()
+        self._slots: list[list[Any]] = [[None] * n, [None] * n]
+
+    # ------------------------------------------------------------- running
+
+    def run(self, fn: Callable[[int], Any]) -> list:
+        """fn(i) on shard i's thread for every shard; results in shard order."""
+        self._barrier = threading.Barrier(self.n, timeout=self.timeout)
+        results: list[Any] = [None] * self.n
+        errors: list[BaseException | None] = [None] * self.n
+        dev = self.devices[0]
+        stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+        intra_op = torch.get_num_threads()
+
+        def body(i: int):
+            self._local.index = i
+            self._local.gen = 0
+            with self._baton:
+                try:
+                    if stream is not None:
+                        with torch.cuda.device(dev), torch.cuda.stream(stream):
+                            results[i] = fn(i)
+                    else:
+                        # Each new thread would start its own intra-op pool,
+                        # whose idle workers spin while the other shards run.
+                        torch.set_num_threads(1)
+                        results[i] = fn(i)
+                except BaseException as e:  # noqa: BLE001 - re-raised in the caller
+                    errors[i] = e
+                    self._barrier.abort()
+
+        threads = [threading.Thread(target=body, args=(i,), name=f"shard-{i}", daemon=True)
+                   for i in range(self.n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if stream is None:
+            torch.set_num_threads(intra_op)  # the setting is process-wide: restore it
+        real = [e for e in errors if e is not None
+                and not isinstance(e, threading.BrokenBarrierError)]
+        if real:
+            raise real[0]
+        if any(e is not None for e in errors):
+            raise CollectiveTimeout(
+                f"a shard collective waited more than {self.timeout} s for its peers")
+        return results
+
+    # --------------------------------------------------------- collectives
+
+    def axis_index(self) -> int:
+        """The calling shard's index."""
+        return self._local.index
+
+    def _exchange(self, x) -> list:
+        """Deposit x, wait for every shard, return all shards' deposits.
+
+        Two slot lists alternate: a shard can only deposit into a list again
+        after the next collective's barrier, which every shard reaches only
+        after reading this one."""
+        i = self._local.index
+        slots = self._slots[self._local.gen % 2]
+        self._local.gen += 1
+        slots[i] = x
+        self._baton.release()  # the next shard runs while this one waits
+        try:
+            self._barrier.wait()
+        finally:
+            self._baton.acquire()
+        return list(slots)
+
+    def _to(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(self.devices[self._local.index])
+
+    def ppermute(self, x: torch.Tensor, perm: Sequence[tuple[int, int]]) -> torch.Tensor:
+        """Shard dst receives shard src's x for each (src, dst) in perm;
+        a shard that receives nothing gets zeros, as in JAX."""
+        got = self._exchange(x)
+        i = self._local.index
+        for src, dst in perm:
+            if dst == i:
+                return self._to(got[src])
+        return torch.zeros_like(x)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum of every shard's x, added in shard order (so every shard
+        gets the same bits)."""
+        got = self._exchange(x)
+        total = self._to(got[0])
+        for t in got[1:]:
+            total = total + self._to(t)
+        return total
+
+    def all_gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every shard's x concatenated along axis 0, in shard order."""
+        return torch.cat([self._to(t) for t in self._exchange(x)], dim=0)

@@ -75,6 +75,49 @@ class StepContext:
         return self._history[key][-offset - 1]
 
 
+class SpatialContext:
+    """Row-sharded execution context for ``Module.compute_spatial``.
+
+    The spatial mode (parallel/spatial_flagship.py) runs the same module
+    list as the Pipeline on n row shards of ``h_local`` consecutive rows,
+    one thread per shard (parallel/group.py).  Halo exchanges stand in for
+    the reference's CUDA shared-memory tile aprons and ``psum`` for its
+    global reductions.  One context serves every shard: the shard's index
+    comes from the calling thread.
+    """
+
+    def __init__(self, group, h_local: int):
+        self.group = group
+        self.n = group.n
+        self.h_local = h_local
+
+    @property
+    def index(self) -> int:
+        return self.group.axis_index()
+
+    @property
+    def row0(self) -> int:
+        """Global row index of this shard's first row."""
+        return self.index * self.h_local
+
+    def exchange(self, x: torch.Tensor, up: int, down: int, fill="edge") -> torch.Tensor:
+        """Extend a row shard with `up`/`down` neighbour rows."""
+        from ..parallel.halo import exchange_row_halo
+
+        return exchange_row_halo(x, up, down, self.group, fill=fill)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        return self.group.psum(x)
+
+    def all_gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The full-height tensor (axis 0) on every shard."""
+        return self.group.all_gather_rows(x)
+
+    def slice_rows(self, full: torch.Tensor) -> torch.Tensor:
+        """This shard's rows of a full-height tensor (axis 0)."""
+        return full[self.row0 : self.row0 + self.h_local]
+
+
 class Module:
     """A compute module: function from named tensors to named tensors."""
 
@@ -121,3 +164,28 @@ class Module:
     ) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
         """Returns (outputs keyed by provided names, new state)."""
         raise NotImplementedError
+
+    # ------------------------------------------------------ spatial (sharded)
+
+    def compute_spatial(self, ctx, step, deps, state, params, variant, sp: SpatialContext):
+        """`compute` on a row shard in the spatial mode: every tensor (deps,
+        state leaves, history, frame images, outputs) holds this shard's
+        `sp.h_local` rows; halo rows come from `sp.exchange` and global
+        reductions from `sp.psum`."""
+        raise NotImplementedError(
+            f"module {self.name} does not support the spatial latency "
+            "mode (no compute_spatial); run it in single-chip or multiseq "
+            "mode"
+        )
+
+    def supports_spatial(self) -> bool:
+        return type(self).compute_spatial is not Module.compute_spatial
+
+    def spatial_row_dims(self, ctx: PipelineContext) -> dict[str, int | None]:
+        """Row-axis overrides for state leaves and output keys: the spatial
+        composer splits each at the first dimension of extent ctx.height;
+        None keeps a key whole (e.g. a psum'd histogram)."""
+        return {}
+
+    def spatial_validate(self, ctx: PipelineContext, n: int, h_local: int) -> None:
+        """Raise if this module cannot run at `h_local` rows per shard."""

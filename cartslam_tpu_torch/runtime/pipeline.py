@@ -110,8 +110,11 @@ class Pipeline:
         frame: Mapping[str, Any],
         host_params: Mapping[str, Any],
         variant: tuple,
+        spatial=None,
     ) -> tuple[dict, dict[str, torch.Tensor]]:
-        """One frame: returns (new_state, outputs of every module)."""
+        """One frame: returns (new_state, outputs of every module).  With a
+        SpatialContext, every module runs its ``compute_spatial`` on this
+        shard's rows (parallel/spatial_flagship.py)."""
         step_ctx = StepContext(frame, state["history"])
         available: dict[str, torch.Tensor] = {}
         new_mod_state = {}
@@ -123,14 +126,12 @@ class Pipeline:
                         deps[dep.key] = available[dep.key]
                     elif not dep.optional:
                         raise PipelineError(f"{m.name}: '{dep.key}' not computed yet")
-            outputs, mstate = m.compute(
-                self.ctx,
-                step_ctx,
-                deps,
-                state["modules"].get(m.name, {}),
-                host_params.get(m.name, {}),
-                var,
-            )
+            args = (self.ctx, step_ctx, deps, state["modules"].get(m.name, {}),
+                    host_params.get(m.name, {}), var)
+            if spatial is None:
+                outputs, mstate = m.compute(*args)
+            else:
+                outputs, mstate = m.compute_spatial(*args, spatial)
             new_mod_state[m.name] = mstate
             available.update(outputs)
 

@@ -11,6 +11,14 @@ Phases (each raises on failure; none is caught):
                 is one, and the least time the card could take (bound).  The
                 SGM stages (census, K6 aggregate, K1 fused) are timed side by
                 side.
+                K5 (the height-sharded SGM) runs on 8 shards of 47 rows of
+                the same frame, the shards as threads on this one card: its
+                settle carries and shard outputs against its plain version,
+                and the 8 shards' disparity against K1's full frame.  K2, K3
+                and K4 at the spatial path's shard shapes (47 rows, and 63
+                and 95 rows with the superpixels' halos) against their plain
+                versions, K2's and K4's psum'd tables against the full
+                frame's.
   4. paths    - each path driven with the launch counts set to 0 just before
                 it and read just after:
                   * K6's entry point (kernels/sgm.sgm_aggregate) once;
@@ -21,13 +29,20 @@ Phases (each raises on failure; none is caught):
                     synthetic frames through the registry and the run loop
                     (K1 x65, K2 x65, K3 x552, K4 x65, no plain call);
                   * the non-temporal slice (no optflow, no temporal vote) for
-                    10 frames.
+                    10 frames;
+                  * the spatial mode: configs/kitti-planeseg-spatial.json
+                    through read_config (8 row shards, on this one card) for
+                    10 frames, every output equal frame by frame to the
+                    full-frame pipeline of the same modules with the 'select'
+                    warp (K5 x80, K2 x80, K3 x(24 + 9 x 8) x 8, K4 x80, K1 0,
+                    no plain call).
   5. parity   - the small temporal slice (64x128, 6 frames) on the card and on
                 the CPU, every output and the final state equal; the
                 full-size flow of one frame pair, card against CPU.
   6. profile  - one fresh temporal flagship over frames 3..12 under
                 torch.profiler: per-module CUDA-event spans, device busy time
-                and idle share, device time by kernel name.
+                and idle share, device time by kernel name; the same for a
+                fresh spatial run over frames 3..6.
   7. cli      - configs/synthetic-planeseg.json through the CLI entry point.
   8. times    - per-frame ms and each kernel's numbers.
 The last two lines of standard output are the kernels JSON line and the
@@ -49,6 +64,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 H, W, D = 376, 1248, 256
 FRAMES = 65
 NONTEMPORAL_FRAMES = 10
+SPATIAL_FRAMES = 10
+SHARDS = 8  # configs/kitti-planeseg-spatial.json's parallel.devices
 # K3 labels could differ from the plain version's only where torch's CUDA log
 # and the kernel's logf round one value differently and so flip a strict-<
 # tie.  Both call the same logf, and every run so far showed 0, so the bound
@@ -56,6 +73,7 @@ NONTEMPORAL_FRAMES = 10
 RELAX_LABEL_BOUND = 0
 # Frames of the profiled run (normal variant, no provider update, no reset).
 PROFILE_FRAMES = (3, 12)
+SPATIAL_PROFILE_FRAMES = (3, 6)
 # Widths of the label tally: the rows [1, d, d^2] of a 9-channel init_stats
 # (its path), and the 50 columns of the JAX package's byte-plane moment tally.
 LABEL_TALLY_WIDTHS = (19, 50)
@@ -69,9 +87,13 @@ SCALAR_OPS_PER_S = 67e12
 # Operations per (pixel, disparity) cell of the SGM kernels: the census cost
 # (2 xor, 2 popc, 1 add), 7 per path step (3 adds, 3 mins, 1 subtract) for 4
 # paths, 3 adds for the 4-path sum; K1 adds 6 for its winner searches (keyed
-# minimum, second minimum, right-view minimum).
+# minimum, second minimum, right-view minimum).  K5 adds the settle sweeps
+# the split scan needs: the cost and one path step in each of the 2 vertical
+# directions per cell, on (n-1)/n of the frame (in each round only the shard
+# whose carry in is already exact hands on a carry that is used).
 SGM_AGGREGATE_OPS_PER_CELL = 5 + 4 * 7 + 3
 SGM_FUSED_OPS_PER_CELL = SGM_AGGREGATE_OPS_PER_CELL + 6
+SGM_SETTLE_OPS_PER_CELL = 2 * (5 + 7)
 # Operations per candidate and channel of a relax sweep: 4 cost terms of
 # about 10 operations (a divide, a log, the variance) each.
 RELAX_OPS_PER_CANDIDATE_CHANNEL = 4 * 10
@@ -90,12 +112,23 @@ KERNELS = {
                       "sgm_aggregate entry point"),
     "label_tally": ("cartslam_tpu_torch/csrc/tally.cu", "cartslam_tpu/ops/pallas/tally.py:318",
                     "init_stats entry point, 9 channels"),
+    "sgm_sharded": ("cartslam_tpu_torch/csrc/sgm.cu", "cartslam_tpu/ops/pallas/sgm.py:320",
+                    "spatial mode, 8 shards on one card"),
 }
 FLAGSHIP_LAUNCHES = {"sgm": FRAMES, "moment_tally": FRAMES,
                      "relax": 24 + (FRAMES - 2) * 8 + 24, "vote_tally": FRAMES}
 NONTEMPORAL_LAUNCHES = {"sgm": NONTEMPORAL_FRAMES, "moment_tally": NONTEMPORAL_FRAMES,
                         "relax": 24 + (NONTEMPORAL_FRAMES - 1) * 8,
                         "vote_tally": NONTEMPORAL_FRAMES}
+# Every kernel launch of the spatial mode is per shard.
+FULL_FRAME_SELECT_LAUNCHES = {"sgm": SPATIAL_FRAMES, "sgm_sharded": 0,
+                              "moment_tally": SPATIAL_FRAMES,
+                              "relax": 24 + (SPATIAL_FRAMES - 1) * 8,
+                              "vote_tally": SPATIAL_FRAMES}
+SPATIAL_LAUNCHES = {"sgm": 0, "sgm_sharded": SHARDS * SPATIAL_FRAMES,
+                    "moment_tally": SHARDS * SPATIAL_FRAMES,
+                    "relax": SHARDS * (24 + (SPATIAL_FRAMES - 1) * 8),
+                    "vote_tally": SHARDS * SPATIAL_FRAMES}
 
 
 class OpCount(TorchDispatchMode):
@@ -126,6 +159,16 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_once(fn):
+    """(result, ms) of one call, from CUDA events (no warm-up)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -333,8 +376,147 @@ def kernel_phase(dev, tag):
         if width == LABEL_TALLY_WIDTHS[0]:
             record("label_tally", (lk7 - lp7).abs().max(), ms, pms, lms,
                    4 * n + 4 * n * width + 4 * num_labels * width, n * width)
-    paths = dict(census=(cl, cr), labels=labels, data9=data9, num_labels=num_labels)
+    paths = dict(census=(cl, cr), labels=labels, data9=data9, num_labels=num_labels,
+                 k1_disparity=out_k, votes=votes, feats=feats)
     return results, paths
+
+
+def sharded_sgm_phase(dev, tag, paths, results) -> None:
+    """K5 on SHARDS row shards of the frame's census (the rows a shard's
+    3-row census halo gives it), the shards as threads on this card: the
+    settled carries and every shard's output against the plain version, and
+    the shards' disparity against K1's full frame.  Adds K5's numbers to
+    `results`."""
+    from cartslam_tpu_torch.kernels import sgm as ksgm
+    from cartslam_tpu_torch.parallel.group import ShardGroup
+    from cartslam_tpu_torch.parallel.sgm_sharded import sgm_census_sharded, settled_carries
+    from cartslam_tpu_torch.runtime.module import SpatialContext
+
+    cl, cr = paths["census"]
+    hl = H // SHARDS
+    group = ShardGroup(SHARDS, [dev] * SHARDS)
+    sp = SpatialContext(group, hl)
+    rows = [[c[i * hl:(i + 1) * hl].contiguous() for c in (*cl, *cr)] for i in range(SHARDS)]
+    ckw = dict(min_disparity=4, num_disparities=D, p1=10, p2=120)
+    kw = dict(ckw, uniqueness=12, subpixel=True, lr_check=True)
+
+    def carries(i):
+        k = settled_carries(lambda tb, bt: ksgm.sgm_vcarry(*rows[i], tb, bt, **ckw), sp)
+        p = settled_carries(lambda tb, bt: ksgm.sgm_vcarry_plain(*rows[i], tb, bt, **ckw), sp)
+        return k, p
+
+    checked = 0
+    for i, (k, p) in enumerate(group.run(carries)):
+        for name, a, b in (("top-down", k[0], p[0]), ("bottom-up", k[1], p[1])):
+            if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+                raise AssertionError(f"K5 shard {i}: the settled {name} carry differs from "
+                                     "the plain version's")
+            checked += a is not None
+    kernel = lambda: torch.cat(group.run(lambda i: sgm_census_sharded(*rows[i], sp, **kw)))
+    plain = lambda: torch.cat(group.run(
+        lambda i: sgm_census_sharded(*rows[i], sp, plain=True, **kw)))
+    out_k = kernel()
+    out_p, pms = timed_once(plain)  # the plain chain takes seconds: one timed run
+    if not torch.equal(out_k, out_p):
+        raise AssertionError(f"K5: {int((out_k != out_p).sum())} pixels differ from the plain "
+                             "version")
+    if not torch.equal(out_k, paths["k1_disparity"]):
+        n = int((out_k != paths["k1_disparity"]).sum())
+        raise AssertionError(f"K5: the {SHARDS}-shard disparity differs from K1's full frame "
+                             f"on {n} pixels")
+    ms = cuda_ms(kernel, 10)
+    nbytes = 4 * H * W * 4 + H * W * 2
+    ops = H * W * D * (SGM_FUSED_OPS_PER_CELL + (SHARDS - 1) / SHARDS * SGM_SETTLE_OPS_PER_CELL)
+    bms, by = bound(nbytes, ops)
+    results["sgm_sharded"] = dict(max_abs_err=float((out_k.int() - out_p.int()).abs().max()),
+                                  ms=ms, plain_ms=pms, library_ms=None, bound_ms=bms,
+                                  bound_by=by)
+    log(f"K5 sgm_sharded: {SHARDS} shards of [{hl},{W}] D={D} on one card; {checked} settled "
+        f"carries and every shard's output array_equal to the plain version; the shards' "
+        f"disparity array_equal to K1's full frame; kernel {ms:.3f} ms per frame (all "
+        f"shards, {SHARDS - 1} settle rounds), plain {pms:.3f} ms  [{tag}]")
+
+
+def shard_kernels_phase(dev, paths) -> None:
+    """K2, K3 and K4 at the shapes the spatial path gives them, each against
+    its plain version on the card, on SHARDS row shards of the flagship's
+    block labels and 7 data channels, with the superpixels' label halos of
+    8 and 24 rows (-1 labels beyond the frame, as models/superpixels.py
+    exchanges them):
+      * init_stats(psum=...) on each halo-extended shard (K2 with its
+        int64 table psum'd, then tally_to_float) against moment_tally_plain
+        with the same reduce, and against the full frame's K2 table;
+      * one K3 sweep on the halo-extended rows of shards 0 and 1;
+      * K4 on each shard's rows against its plain version, and the psum of
+        the shards' tables against the full frame's."""
+    from cartslam_tpu_torch.kernels import relax as krelax
+    from cartslam_tpu_torch.kernels import tally as ktally
+    from cartslam_tpu_torch.ops.superpixels import init_stats
+    from cartslam_tpu_torch.ops.tally import table_gather
+    from cartslam_tpu_torch.parallel.group import ShardGroup
+    from cartslam_tpu_torch.runtime.module import SpatialContext
+
+    hl, num = H // SHARDS, paths["num_labels"]
+    labels, votes = paths["labels"], paths["votes"]
+    data = paths["data9"][:7].contiguous()  # deriv x2, YCrCb, x, y
+    group = ShardGroup(SHARDS, [dev] * SHARDS)
+    sp = SpatialContext(group, hl)
+    full_stats = init_stats(labels, data, num)
+    full_votes = ktally.vote_tally(labels.reshape(-1).contiguous(), votes, num, 3)
+    vote_rows = votes.reshape(H, W)
+    xs = torch.arange(W, dtype=torch.float32, device=dev)
+
+    def shard(i, halo):
+        lab = sp.slice_rows(labels)
+        lab_ext = sp.exchange(lab, halo, halo, fill=-1)
+        # The 5 image channels with edge halos, then the global pixel
+        # coordinates of the extended rows (relax's implicit compactness data).
+        img = sp.exchange(sp.slice_rows(data[:5].permute(1, 0, 2)), halo, halo)
+        ys = torch.arange(sp.row0 - halo, sp.row0 + hl + halo, dtype=torch.float32, device=dev)
+        n_ext = hl + 2 * halo
+        data_ext = torch.cat([img.permute(1, 0, 2), xs[None, None].expand(1, n_ext, W),
+                              ys[None, :, None].expand(1, n_ext, W)]).contiguous()
+        core = torch.zeros(n_ext, dtype=torch.bool, device=dev)
+        core[halo:halo + hl] = True
+        tally = torch.where(core[:, None], lab_ext, krelax.OOB)
+        stats_k = init_stats(tally, data_ext, num, psum=sp.psum)
+        stats_p = ktally.moment_tally_plain(tally.reshape(-1), data_ext.reshape(7, -1).to(
+            torch.int32), num, reduce=sp.psum)
+        vl, vv = lab.reshape(-1).contiguous(), sp.slice_rows(vote_rows).reshape(-1).contiguous()
+        votes_k, votes_p = ktally.vote_tally(vl, vv, num, 3), ktally.vote_tally_plain(vl, vv,
+                                                                                       num, 3)
+        return (lab_ext.contiguous(), data_ext, stats_k, stats_p, votes_k, votes_p,
+                sp.psum(votes_k))
+
+    for halo in (8, 24):
+        for i, (lab_ext, data_ext, stats_k, stats_p, votes_k, votes_p, votes_sum) in enumerate(
+                group.run(lambda i: shard(i, halo))):
+            where = f"shard {i} of [{hl + 2 * halo},{W}]"
+            if not (torch.equal(stats_k, stats_p) and torch.equal(stats_k, full_stats)):
+                raise AssertionError(f"K2 {where}: the psum'd stat table differs from the "
+                                     "plain version's or the full frame's")
+            if halo == 8 and not (torch.equal(votes_k, votes_p)
+                                  and torch.equal(votes_sum, full_votes)):
+                raise AssertionError(f"K4 shard {i} of [{hl},{W}]: the vote table differs "
+                                     "from the plain version's or the full frame's")
+            if i > 1:
+                continue
+            stat_img = table_gather(stats_k, lab_ext).contiguous()
+            pix = torch.cat([torch.ones_like(data_ext[:1]), data_ext, data_ext * data_ext])
+            args = (lab_ext, stat_img, pix.contiguous(), paths["feats"], 7, 0.5,
+                    0.5 / np.sqrt(2))
+            lk, sk = krelax.relax_sweep(*args)
+            lp, spl = krelax.relax_sweep_plain(*args)
+            ndiff, moved = int((lk != lp).sum()), int(((lk != lab_ext) & (lab_ext >= 0)).sum())
+            same = (lk == lp)[None].expand_as(sk)
+            if ndiff > RELAX_LABEL_BOUND or moved == 0 or not torch.equal(sk[same], spl[same]):
+                raise AssertionError(f"K3 {where}: {ndiff} labels differ from the plain "
+                                     f"version (bound {RELAX_LABEL_BOUND}), {moved} moved")
+    log(f"shard shapes, {SHARDS} shards: K2 on [{hl + 16},{W}] and [{hl + 48},{W}] halo rows "
+        f"(int64 tables psum'd, then tally_to_float) array_equal to the plain version and to "
+        f"the full frame's table; K3 one sweep on shards 0 and 1 at both halos, 0 labels "
+        f"differ; K4 on [{hl},{W}] array_equal to the plain version, psum'd equal to the full "
+        f"frame's table")
 
 
 def entry_point_paths(paths) -> dict:
@@ -367,15 +549,14 @@ def entry_point_paths(paths) -> dict:
     return counts
 
 
-def drive(modules, source, dev, expected):
-    """One run of `modules` over `source` with the counts set to 0 just
-    before it and read just after.  Returns (result, per-frame ms, last
-    outputs, launch counts)."""
-    from cartslam_tpu_torch.config import build_pipeline
+def drive(pipe, source, expected, keep=None):
+    """One run of the pipeline `pipe` over `source` with the counts set to 0
+    just before it and read just after.  Returns (pipeline, result, per-frame
+    ms, last outputs, launch counts); with a list `keep`, every frame's
+    outputs are appended to it (they stay on the card)."""
     from cartslam_tpu_torch.kernels import build
     from cartslam_tpu_torch.runtime import run
 
-    pipe, source = build_pipeline(source, modules, device=dev)
     events, last = [], {}
 
     def on_frame(fid, outputs):
@@ -386,6 +567,8 @@ def drive(modules, source, dev, expected):
             if v.device.type != "cuda":
                 raise AssertionError(f"frame {fid}: output {k} is on {v.device}")
         last.update(outputs)
+        if keep is not None:
+            keep.append(outputs)
 
     build.reset_counts()
     start = torch.cuda.Event(enable_timing=True)
@@ -402,6 +585,58 @@ def drive(modules, source, dev, expected):
     frame_ms = [start.elapsed_time(events[0])]
     frame_ms += [events[i - 1].elapsed_time(events[i]) for i in range(1, len(events))]
     return pipe, res, frame_ms, last, {k: v[0] for k, v in counts.items()}
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal shape, dtype and values (NaN equal to NaN), on the card."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        return bool(torch.allclose(a, b, rtol=0, atol=0, equal_nan=True))
+    return torch.equal(a, b)
+
+
+def spatial_phase(frames, intrinsics, dev, tag) -> tuple[int, list]:
+    """configs/kitti-planeseg-spatial.json through read_config, the synthetic
+    frames standing in for KITTI, SPATIAL_FRAMES frames on SHARDS row shards
+    of this one card; every output equal frame by frame to the full-frame
+    pipeline of the same modules with warp_mode 'select' (the spatial mode's
+    warp) and the same max_warp_y.  Returns (K5 launches, per-frame ms)."""
+    from cartslam_tpu_torch.config import build_pipeline, read_config
+    from cartslam_tpu_torch.parallel.spatial_flagship import SpatialPipeline
+    from cartslam_tpu_torch.sources import PreloadedSource
+
+    cfg = os.path.join(REPO, "configs", "kitti-planeseg-spatial.json")
+    with open(cfg) as f:
+        mods = json.load(f)["modules"]
+    ref_mods = [{**m, "warp_mode": "select", "max_warp_y": m.get("max_warp_y", 32)}
+                if m["type"] == "superpixel_disparity_planeseg" else m for m in mods]
+    src = lambda: PreloadedSource(frames[:SPATIAL_FRAMES], intrinsics=intrinsics)
+    want, got = [], []
+    drive(*build_pipeline(src(), ref_mods, device=dev), FULL_FRAME_SELECT_LAUNCHES, keep=want)
+    pipe, source = read_config(cfg, device=dev, source=src())
+    if not isinstance(pipe, SpatialPipeline) or pipe.n != SHARDS:
+        raise AssertionError(f"{cfg} did not build a {SHARDS}-shard SpatialPipeline")
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, res, frame_ms, _, counts = drive(pipe, source, SPATIAL_LAUNCHES, keep=got)
+    peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
+    if res.frames != SPATIAL_FRAMES:
+        raise AssertionError(f"spatial: ran {res.frames} frames, expected {SPATIAL_FRAMES}")
+    for fid, (a, b) in enumerate(zip(got, want), start=1):
+        if set(a) != set(b):
+            raise AssertionError(f"spatial frame {fid}: keys {sorted(a)} vs {sorted(b)}")
+        for k in a:
+            if not _same(a[k], b[k]):
+                raise AssertionError(f"spatial frame {fid}: {k} differs from the full frame")
+    log(f"spatial: {cfg[len(REPO) + 1:]} via read_config, {SHARDS} shards of "
+        f"{H // SHARDS} rows on one card, {res.frames} frames: every output "
+        f"({', '.join(sorted(got[0]))}) array_equal frame by frame to the full-frame "
+        f"pipeline with warp_mode 'select', max_warp_y 32; launches {counts}, no plain "
+        f"call; peak device memory {peak_mb:.1f} MiB")
+    log(f"spatial per-frame ms: median {float(np.median(frame_ms[2:])):.3f} over frames "
+        f"3..{SPATIAL_FRAMES} (min {min(frame_ms[2:]):.3f}, max {max(frame_ms[2:]):.3f}); "
+        f"frame 1 {frame_ms[0]:.3f}; {SHARDS} shards on one card, not a latency figure  [{tag}]")
+    return counts["sgm_sharded"], frame_ms
 
 
 def check_flagship_outputs(res, last, gen):
@@ -592,22 +827,62 @@ def profile_phase(frames, intrinsics, dev, tag):
         f"around compute, launch gaps included): "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(med.items(), key=lambda kv: -kv[1]))
         + f"  [{tag}]")
+    _device_report(prof, n, wall, f"profile frames {first}..{last}", tag)
+
+
+def _device_report(prof, n: int, wall: float, label: str, tag: str) -> None:
+    """Device busy ms, idle share and device ms by kernel name per frame,
+    from a profile of n frames that took `wall` ms each on the host."""
     cuda = torch.autograd.DeviceType.CUDA
     dev_events = [e for e in prof.events() if e.device_type == cuda]
     if not dev_events:
-        log(f"profile frames {first}..{last}: wall {wall:.3f} ms/frame (profiler on); "
-            f"device busy and idle share not measured (no device events)  [{tag}]")
+        log(f"{label}: wall {wall:.3f} ms/frame (profiler on); device busy and idle share "
+            f"not measured (no device events)  [{tag}]")
         return
     busy = _union_ms((e.time_range.start, e.time_range.end) for e in dev_events) / n
-    log(f"profile frames {first}..{last}: wall {wall:.3f} ms/frame (profiler on), device "
-        f"busy {busy:.3f} ms/frame, idle share {1 - busy / wall:.4f} "
-        f"({len(dev_events) / n:.0f} device events/frame)  [{tag}]")
+    log(f"{label}: wall {wall:.3f} ms/frame (profiler on), device busy {busy:.3f} ms/frame, "
+        f"idle share {1 - busy / wall:.4f} ({len(dev_events) / n:.0f} device events/frame)"
+        f"  [{tag}]")
     by_name: dict[str, list] = {}
     for e in dev_events:
         by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:10]
-    log(f"profile frames {first}..{last}: device ms per frame by name: "
+    log(f"{label}: device ms per frame by name: "
         + "; ".join(f"{k[:60]} {sum(v) / 1e3 / n:.3f} ({len(v) / n:g}/frame)" for k, v in top))
+
+
+def spatial_profile(frames, intrinsics, dev, tag) -> None:
+    """A fresh spatial run of SPATIAL_PROFILE_FRAMES under torch.profiler:
+    device busy time, idle share and device time by kernel name."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from cartslam_tpu_torch.config import read_config
+    from cartslam_tpu_torch.runtime import run
+    from cartslam_tpu_torch.sources import PreloadedSource
+
+    first, last = SPATIAL_PROFILE_FRAMES
+    pipe, source = read_config(os.path.join(REPO, "configs", "kitti-planeseg-spatial.json"),
+                               device=dev, source=PreloadedSource(frames[:last],
+                                                                  intrinsics=intrinsics))
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = {}
+
+    def on_frame(fid, _):
+        if fid == first - 1:
+            torch.cuda.synchronize()
+            prof.start()
+            window["t0"] = time.perf_counter()
+        elif fid == last:
+            torch.cuda.synchronize()
+            window["wall_ms"] = (time.perf_counter() - window["t0"]) * 1e3
+            prof.stop()
+
+    run(pipe, source, on_frame=on_frame)
+    n = last - first + 1
+    _device_report(prof, n, window["wall_ms"] / n, f"spatial profile frames {first}..{last}",
+                   tag)
 
 
 def main() -> int:
@@ -616,6 +891,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    from cartslam_tpu_torch.config import build_pipeline
     from cartslam_tpu_torch.kernels import build
     from cartslam_tpu_torch.sources import PreloadedSource, SyntheticDataSource
 
@@ -637,6 +913,8 @@ def main() -> int:
 
     # 3. kernels vs plain versions
     results, paths = kernel_phase(dev, tag)
+    sharded_sgm_phase(dev, tag, paths, results)
+    shard_kernels_phase(dev, paths)
 
     # 4. paths, each with its own counts
     launches = entry_point_paths(paths)
@@ -646,7 +924,8 @@ def main() -> int:
                               max_disparity=80.0, baseline=20.0)
     source = PreloadedSource.wrap(gen)
     torch.cuda.reset_peak_memory_stats(dev)
-    pipe, res, frame_ms, last, counts = drive(flagship_modules(), source, dev, FLAGSHIP_LAUNCHES)
+    pipe, res, frame_ms, last, counts = drive(
+        *build_pipeline(source, flagship_modules(), device=dev), FLAGSHIP_LAUNCHES)
     peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
     log("flagship modules: " + " -> ".join(m.name for m in pipe.modules))
     log(f"flagship: {res.frames} frames at {H}x{W}, D={D}; launches {counts}; "
@@ -660,10 +939,12 @@ def main() -> int:
 
     nt_source = PreloadedSource(source.frames[:NONTEMPORAL_FRAMES],
                                 intrinsics=source.get_camera_intrinsics())
-    _, nt_res, nt_ms, _, nt_counts = drive(nontemporal_modules(), nt_source, dev,
-                                           NONTEMPORAL_LAUNCHES)
+    _, nt_res, nt_ms, _, nt_counts = drive(
+        *build_pipeline(nt_source, nontemporal_modules(), device=dev), NONTEMPORAL_LAUNCHES)
     log(f"non-temporal slice: {nt_res.frames} frames; launches {nt_counts}; per-frame median "
         f"{float(np.median(nt_ms[2:])):.3f} ms over frames 3..{NONTEMPORAL_FRAMES}  [{tag}]")
+    launches["sgm_sharded"], _ = spatial_phase(source.frames, source.get_camera_intrinsics(),
+                                               dev, tag)
 
     # 5. card against CPU
     small_temporal_check(dev)
@@ -671,6 +952,7 @@ def main() -> int:
 
     # 6. profile
     profile_phase(source.frames, source.get_camera_intrinsics(), dev, tag)
+    spatial_profile(source.frames, source.get_camera_intrinsics(), dev, tag)
 
     # 7. the CLI path
     from cartslam_tpu_torch.__main__ import main as cli_main

@@ -34,6 +34,13 @@ seen = {{}}
 result = run(pipeline, source, on_frame=lambda fid, out: seen.update(out))
 assert result.frames == 2 and seen["planes"].shape == (32, 64)
 assert seen["optflow"].shape == (32, 64, 2)
+# The spatial mode (the parallel package, K5's route): 2 row shards.
+from cartslam_tpu_torch.parallel.spatial_flagship import SpatialPipeline
+pipeline, source = build_pipeline(src, mods, device="cpu",
+                                  parallel={{"mode": "spatial", "devices": 2}})
+assert isinstance(pipeline, SpatialPipeline)
+result = run(pipeline, source, on_frame=lambda fid, out: seen.update(out))
+assert result.frames == 2 and seen["planes"].shape == (32, 64)
 # The wrappers of the op-level kernels K6 and K7 import without JAX too.
 from cartslam_tpu_torch.kernels.sgm import sgm_aggregate
 from cartslam_tpu_torch.ops.tally import label_tally

@@ -175,10 +175,11 @@ def test_registry_rejects_unported_types(tmp_path):
                               "parameter_provider": {"type": "histogram_peak"},
                               "use_temporal_smoothing": True, "temporal_mode": "faithful"}],
                        device="cpu")
-    cfg = tmp_path / "spatial.json"
+    # The spatial mode is ported; the multi-sequence modes are not.
+    cfg = tmp_path / "multiseq.json"
     cfg.write_text('{"data_source": {"type": "synthetic"}, "modules": [], '
-                   '"parallel": {"mode": "spatial", "devices": 8}}')
-    with pytest.raises(ValueError, match="parallel configs are not ported yet"):
+                   '"parallel": {"mode": "multiseq", "batch": 2}}')
+    with pytest.raises(ValueError, match="'multiseq' is not ported yet"):
         read_config(str(cfg), device="cpu")
 
 
