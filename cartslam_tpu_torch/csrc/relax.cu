@@ -1,36 +1,81 @@
-// Kernel K3: one synchronous contour-relaxation sweep, fixed ('frame') stats.
+// Kernel K3: the contour-relaxation sweeps of one relax() call, fixed
+// ('frame') stats, fused.
 //
 // Replaces the Pallas relax_phase_pallas (cartslam_tpu/ops/pallas/relax.py:240,
-// body _make_phase_kernel :39) in its one-phase form.  Its plain version is
-// relax_sweep_plain in cartslam_tpu_torch/kernels/relax.py, the port of
-// phase_update (cartslam_tpu/ops/superpixels.py:335-417).
+// body _make_phase_kernel :39) in its 'frame' stats, one-phase form, for all
+// of a call's sweeps.  Its plain version is relax_sweeps_plain in
+// cartslam_tpu_torch/kernels/relax.py: table_gather, then one
+// relax_sweep_plain (the port of phase_update,
+// cartslam_tpu/ops/superpixels.py:335-417) per sweep.
 //
-// Per pixel: if it is a label-boundary pixel, score the 9 labels of its 3x3
-// neighbourhood in _OFFSETS order (x outer, y inner) as
+// Per pixel and sweep: if it is a label-boundary pixel, score the labels of
+// its 3x3 neighbourhood in _OFFSETS order (x outer, y inner) as
 //   clique(cand) + sum_f w_f * [c_f(old - pixel) + c_f(cand + pixel)
 //                               - c_f(old) - c_f(cand)]     (0 if cand == old)
-// with the Gaussian-NLL and compactness costs of the per-label moments,
-// keep the first strict-< minimum, and write the winner's label and stat
-// rows.  Out-of-bounds candidates are masked.  The sweep reads only the old
-// labels and stat image, so every pixel is an independent thread and the
-// caller ping-pongs two buffers.
+// with the Gaussian-NLL and compactness costs of the per-label moments, and
+// keep the first strict-< minimum.  Out-of-bounds and -1 candidates are
+// masked; -1 pixels (the spatial mode's halo fill) never change.
 //
-// What bounds it on an H100: nothing heavy -- each boundary pixel reads 9
-// stat vectors (15 floats at the flagship geometry) and evaluates ~50 logf;
-// a full-frame sweep moves ~60 MB (stat image in and out), so it is
-// memory-bound and short.
+// In 'frame' mode a pixel's stat rows are its label's row of the fixed
+// table, so the kernel carries labels only: no per-pixel stat image is read
+// or written (the one-sweep kernel before this one moved the 15-plane stat
+// image in and out on every sweep).
+//
+// What bounds it on an H100: per call, the bytes are the labels in and out
+// (2 x 1.9 MB at 376x1248), the 7 data planes (13 MB) and the table
+// (200 KB), about 7 us at 3.35 TB/s, whatever the sweep count; the work is
+// each sweep's boundary pixels x distinct candidates x channels of
+// divisions and logf.  A launch per sweep costs a pass over the labels and
+// a launch gap each.
+//
+// Design:
+//  * relax_label_rows, once per call: the label-major row table [L + 1, 32]
+//    (the 1 + 2C stats of the label, then each feature's cost of the label,
+//    the same feature_cost in the same order); row L is zeros, the row of a
+//    label outside [0, L) (table_gather reads zeros there).  old_cost and
+//    cand_cost become loads, and a candidate's stats one 128-byte line.
+//  * relax_sweeps_kernel, temporal blocking: a block owns a 32x64 tile of
+//    the output and keeps the tile plus a halo of `sweeps` rows and columns
+//    of labels in shared memory.  Sweep s recomputes the region s cells in
+//    from the buffer's edge from the previous sweep's buffer (ping-pong);
+//    after the last sweep the block writes only its tile.  Out-of-frame
+//    cells are -1, like the plain version's OOB fill.
+//  * Dense scoring: only boundary cells (about a third at the flagship's
+//    superpixel size) do the expensive work.  A sweep first copies the other
+//    cells' labels and appends the boundary cells to a work list in shared
+//    memory, then the block's threads score the list, one cell each.
+//    The wrapper runs a call's sweeps as launches of at most
+//    kernels/relax.SWEEPS_PER_LAUNCH sweeps, chosen by measurement
+//    (chip_smoke.py times 1, 2, 4, 8, 12 and 24 sweeps a launch on the
+//    flagship's 8- and 24-sweep calls): the halo's recomputation grows with
+//    the sweeps per launch, the launches and label passes shrink.
+//  * The total of a candidate depends on its label only, so each distinct
+//    label of the neighbourhood is scored once, at its first occurrence in
+//    _OFFSETS order: a later duplicate ties exactly and cannot win a strict <.
+//    Each lane walks a bit mask of its own first occurrences, so a warp
+//    pays for its busiest pixel's distinct labels, not for the union of the
+//    9 slots its lanes need.
+//  * Registers, not local memory: the flagship's feature layout (gaussian 2,
+//    gaussian 3, compactness 2; C = 7) is a compile-time instantiation, its
+//    pixel values in registers and every feature offset a constant.  The
+//    generic instantiation takes any layout of <= 4 features and <= 8
+//    channels and reads its pixel values from the data planes as it goes.
+//    Both read a label's row from the row table as they go (L1-resident).
 //
 // Rounding: the float operations follow the plain version's order exactly
-// (costs summed over channels then divided by C, variance floor 1/12, logf),
-// and this file is compiled with -fmad=false so that a*b+c is not fused into
-// an FMA: the plain version rounds after every operation.
+// (costs summed over channels then divided by C, variance floor 1/12, logf,
+// the pixel rows [1, x, x*x] built in float32), with IEEE division, and
+// this file is compiled with -fmad=false so that a*b+c is not fused into an
+// FMA: the plain version rounds after every operation.
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
 constexpr int kMaxFeat = 4;
-constexpr int kMaxStat = 17;  // 1 + 2 * 8 channels
+constexpr int kMaxChan = 8;
+constexpr int kRowStride = 32;  // floats per label row: 1 + 2C stats, then the costs
+constexpr int kTileH = 32, kTileW = 64, kThreads = 256;
 constexpr float kVarFloor = (float)(1.0 / 12.0);
 constexpr float kTwoPi = (float)(2.0 * 3.14159265358979323846);
 
@@ -42,146 +87,314 @@ struct Features {
   float weight[kMaxFeat];
 };
 
-__device__ float feature_cost(const float* r, int c_total, int kind, int off, int ch) {
-  const float n = r[0];
+// The flagship's layout: gaussian (2) | gaussian (3) | compactness (2).
+constexpr int kFlagC = 7, kFlagNF = 3;
+__host__ __device__ constexpr int flag_kind(int i) { return i == 2 ? 1 : 0; }
+__host__ __device__ constexpr int flag_off(int i) { return i == 0 ? 0 : (i == 1 ? 2 : 5); }
+__host__ __device__ constexpr int flag_ch(int i) { return i == 1 ? 3 : 2; }
+
+// One feature's cost from the count n and the channel sums s(c), ss(c).
+template <typename SF, typename SSF>
+__device__ __forceinline__ float feature_cost(int kind, int ch, float n, SF s_of, SSF ss_of) {
   const float n_safe = n < 1.0f ? 1.0f : n;
   float acc = 0.0f;
   if (kind == 0) {
     const float half = n / 2.0f;
-    for (int c = 0; c < ch; ++c) {
-      const float s = r[1 + off + c];
-      const float ss = r[1 + c_total + off + c];
-      const float q = s / n_safe;
-      float var = ss / n_safe - q * q;
+#pragma unroll
+    for (int c = 0; c < kMaxChan; ++c) {
+      if (c >= ch) break;
+      const float q = s_of(c) / n_safe;
+      float var = ss_of(c) / n_safe - q * q;
       if (var < kVarFloor) var = kVarFloor;
       const float t = half * logf(kTwoPi * var) + half;
       acc = c == 0 ? t : acc + t;
     }
     acc = acc / (float)ch;
   } else {
-    for (int c = 0; c < ch; ++c) {
-      const float s = r[1 + off + c];
-      const float ss = r[1 + c_total + off + c];
-      const float t = ss - (s * s) / n_safe;
+#pragma unroll
+    for (int c = 0; c < kMaxChan; ++c) {
+      if (c >= ch) break;
+      const float s = s_of(c);
+      const float t = ss_of(c) - (s * s) / n_safe;
       acc = c == 0 ? t : acc + t;
     }
   }
   return n > 0.0f ? acc : 0.0f;
 }
 
-__global__ void relax_sweep_kernel(const int* __restrict__ labels,
-                                   const float* __restrict__ stat,
-                                   const float* __restrict__ pix,
-                                   int* __restrict__ out_labels,
-                                   float* __restrict__ out_stat, int H, int W,
-                                   int c_total, Features f,
-                                   const float* __restrict__ prog, float direct,
-                                   float diagonal) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y;
-  if (x >= W) return;
-  const size_t hw = (size_t)H * W;
-  const int p = y * W + x;
+// Row table [L + 1, kRowStride] from the table [1 + 2C, L].
+__global__ void relax_label_rows_kernel(const float* __restrict__ table, float* __restrict__ rows,
+                                        int L, int c_total, Features f) {
+  const int l = blockIdx.x * blockDim.x + threadIdx.x;
+  if (l > L) return;
   const int nstat = 1 + 2 * c_total;
-  const int lab = labels[p];
+  auto t = [&](int k) { return l < L ? table[(size_t)k * L + l] : 0.0f; };
+  float* r = rows + (size_t)l * kRowStride;
+  for (int k = 0; k < nstat; ++k) r[k] = t(k);
+#pragma unroll
+  for (int i = 0; i < kMaxFeat; ++i) {
+    if (i < f.n) {
+      const int off = f.off[i];
+      r[nstat + i] = feature_cost(
+          f.kind[i], f.ch[i], t(0), [&](int c) { return t(1 + off + c); },
+          [&](int c) { return t(1 + c_total + off + c); });
+    }
+  }
+}
 
-  int nb[9];  // j = (dx + 1) * 3 + (dy + 1): the _OFFSETS order
+// Whether the tile cell `cell` (label lab != -1) has a neighbour with
+// another label (not -1): only such cells can change in a sweep.
+__device__ __forceinline__ bool on_boundary(const int* __restrict__ t, int ew, int cell, int lab) {
   bool boundary = false;
 #pragma unroll
   for (int j = 0; j < 9; ++j) {
-    const int dx = j / 3 - 1, dy = j % 3 - 1;
-    const int yy = y + dy, xx = x + dx;
-    nb[j] = (yy >= 0 && yy < H && xx >= 0 && xx < W) ? labels[yy * W + xx] : -1;
-    if (j != 4) boundary |= nb[j] != -1 && nb[j] != lab;
+    const int nb = t[cell + (j % 3 - 1) * ew + j / 3 - 1];
+    if (j != 4) boundary |= nb != -1 && nb != lab;
   }
-  if (!boundary || lab == -1) {
-    out_labels[p] = lab;
-    for (int k = 0; k < nstat; ++k) out_stat[k * hw + p] = stat[k * hw + p];
-    return;
-  }
+  return boundary;
+}
 
-  float center[kMaxStat], pixr[kMaxStat], tmp[kMaxStat];
+// The new label of the boundary cell `cell` of the previous sweep's tile t
+// (row stride ew), at frame pixel (gy, gx).
+template <bool kFlag>
+__device__ __forceinline__ int relax_score(const int* __restrict__ t, int ew, int cell, int gy,
+                                           int gx, int H, int W, int L, int c_total,
+                                           const Features& f, const float* __restrict__ data,
+                                           const float* __restrict__ rows,
+                                           const float* __restrict__ prog, float direct,
+                                           float diagonal) {
+  const int lab = t[cell];
+  int nb[9];  // j = (dx + 1) * 3 + (dy + 1): the _OFFSETS order
 #pragma unroll
-  for (int k = 0; k < kMaxStat; ++k) {
-    if (k < nstat) {
-      center[k] = stat[k * hw + p];
-      pixr[k] = pix[k * hw + p];
-      tmp[k] = center[k] - pixr[k];
+  for (int j = 0; j < 9; ++j) nb[j] = t[cell + (j % 3 - 1) * ew + j / 3 - 1];
+  const int C = kFlag ? kFlagC : c_total;
+  const int nstat = 1 + 2 * C;
+  const int nf = kFlag ? kFlagNF : f.n;
+  const size_t hw = (size_t)H * W, p = (size_t)gy * W + gx;
+  // The pixel's values stay in registers for the flagship; their squares
+  // are recomputed where used (the same rounded product, as FMA contraction
+  // is off).  With the label rows also read as they go, ptxas keeps this
+  // instantiation free of spills (with both held in registers it spilled).
+  float xv[kFlag ? kFlagC : 1];
+  if constexpr (kFlag) {
+#pragma unroll
+    for (int k = 0; k < kFlagC; ++k) xv[k] = __ldg(data + k * hw + p);
+  }
+  auto xval = [&](int k) -> float {
+    if constexpr (kFlag) return xv[k];
+    else return __ldg(data + k * hw + p);
+  };
+  auto xsq = [&](int k) -> float {
+    const float v = xval(k);
+    return v * v;
+  };
+  // A label's row (L1/L2-resident), read as it goes.
+  auto row_of = [&](int l) {
+    const float* r = rows + (size_t)((unsigned)l < (unsigned)L ? l : L) * kRowStride;
+    return [r](int k) { return __ldg(r + k); };
+  };
+
+  const auto orow = row_of(lab);
+  float old_cost[kMaxFeat], old_minus[kMaxFeat];
+#pragma unroll
+  for (int i = 0; i < kMaxFeat; ++i) {
+    if (i < nf) {
+      const int kind = kFlag ? flag_kind(i) : f.kind[i];
+      const int off = kFlag ? flag_off(i) : f.off[i];
+      const int ch = kFlag ? flag_ch(i) : f.ch[i];
+      old_cost[i] = orow(nstat + i);
+      old_minus[i] = feature_cost(
+          kind, ch, orow(0) - 1.0f, [&](int k) { return orow(1 + off + k) - xval(off + k); },
+          [&](int k) { return orow(1 + C + off + k) - xsq(off + k); });
     }
   }
-  float old_cost[kMaxFeat], old_minus[kMaxFeat];
-  for (int i = 0; i < f.n; ++i) {
-    old_cost[i] = feature_cost(center, c_total, f.kind[i], f.off[i], f.ch[i]);
-    old_minus[i] = feature_cost(tmp, c_total, f.kind[i], f.off[i], f.ch[i]);
-  }
-  const float pf = prog != nullptr ? prog[y] : 1.0f;
+  const float pf = prog != nullptr ? prog[gy] : 1.0f;
 
+  // Bit j: nb[j] is a label (not -1) that does not occur earlier in
+  // _OFFSETS order.  A later duplicate ties its total exactly and cannot
+  // win a strict <, so each lane scores only these, in order: the warp runs
+  // as many rounds as its busiest lane has distinct labels.
+  unsigned firsts = 0;
+#pragma unroll
+  for (int j = 0; j < 9; ++j) {
+    bool seen = nb[j] == -1;
+#pragma unroll
+    for (int j2 = 0; j2 < j; ++j2) seen |= nb[j2] == nb[j];
+    firsts |= seen ? 0u : 1u << j;
+  }
   float best = INFINITY;
   int best_label = lab;
-  int best_p = p;
-  for (int j = 0; j < 9; ++j) {
-    const int cand = nb[j];
-    if (cand == -1) continue;  // total = inf: never taken
+  while (firsts != 0) {
+    const int j = __ffs(firsts) - 1;
+    firsts &= firsts - 1;
+    int cand = nb[0];
+#pragma unroll
+    for (int j2 = 1; j2 < 9; ++j2)
+      if (j2 == j) cand = nb[j2];
     float clique = 0.0f;
 #pragma unroll
     for (int j2 = 0; j2 < 9; ++j2) {
       if (j2 == 4) continue;
-      const int dx2 = j2 / 3 - 1, dy2 = j2 % 3 - 1;
-      const float cc = (dx2 == 0 || dy2 == 0) ? direct : diagonal;
+      const float cc = (j2 / 3 == 1 || j2 % 3 == 1) ? direct : diagonal;
       clique = clique + ((nb[j2] != -1 && nb[j2] != cand) ? cc : 0.0f);
     }
     float total = clique;
-    const int cp = (y + j % 3 - 1) * W + (x + j / 3 - 1);
     if (cand != lab) {  // the old label's feature delta is exactly 0
-      float rows[kMaxStat];
+      const auto crow = row_of(cand);
 #pragma unroll
-      for (int k = 0; k < kMaxStat; ++k) {
-        if (k < nstat) {
-          rows[k] = stat[k * hw + cp];
-          tmp[k] = rows[k] + pixr[k];
+      for (int i = 0; i < kMaxFeat; ++i) {
+        if (i < nf) {
+          const int kind = kFlag ? flag_kind(i) : f.kind[i];
+          const int off = kFlag ? flag_off(i) : f.off[i];
+          const int ch = kFlag ? flag_ch(i) : f.ch[i];
+          const float cand_cost = crow(nstat + i);
+          const float cand_plus = feature_cost(
+              kind, ch, crow(0) + 1.0f, [&](int k) { return crow(1 + off + k) + xval(off + k); },
+              [&](int k) { return crow(1 + C + off + k) + xsq(off + k); });
+          float delta = old_minus[i] + cand_plus - old_cost[i] - cand_cost;
+          if (kind == 1 && prog != nullptr) delta = delta * pf;
+          total = total + f.weight[i] * delta;
         }
-      }
-      for (int i = 0; i < f.n; ++i) {
-        const float cand_cost = feature_cost(rows, c_total, f.kind[i], f.off[i], f.ch[i]);
-        const float cand_plus = feature_cost(tmp, c_total, f.kind[i], f.off[i], f.ch[i]);
-        float delta = old_minus[i] + cand_plus - old_cost[i] - cand_cost;
-        if (f.kind[i] == 1 && prog != nullptr) delta = delta * pf;
-        total = total + f.weight[i] * delta;
       }
     }
     if (total < best) {
       best = total;
       best_label = cand;
-      best_p = cp;
     }
   }
-  out_labels[p] = best_label;
-  for (int k = 0; k < nstat; ++k) out_stat[k * hw + p] = stat[k * hw + best_p];
+  return best_label;
+}
+
+// `sweeps` sweeps from labels into out (int32 [H, W], distinct buffers).
+template <bool kFlag>
+__global__ void __launch_bounds__(kThreads) relax_sweeps_kernel(
+    const int* __restrict__ labels, const float* __restrict__ data,
+    const float* __restrict__ rows, int* __restrict__ out, int H, int W, int L, int c_total,
+    Features f, const float* __restrict__ prog, float direct, float diagonal, int sweeps) {
+  extern __shared__ int tile[];
+  __shared__ int nwork;
+  const int ew = kTileW + 2 * sweeps, eh = kTileH + 2 * sweeps;
+  int* cur = tile;
+  int* nxt = tile + eh * ew;
+  int* work = tile + 2 * eh * ew;  // a sweep's boundary cells, [(eh - 2) * (ew - 2)]
+  const int lane = threadIdx.x & 31;
+  const int gy0 = blockIdx.y * kTileH - sweeps, gx0 = blockIdx.x * kTileW - sweeps;
+  for (int i = threadIdx.x; i < eh * ew; i += kThreads) {
+    const int gy = gy0 + i / ew, gx = gx0 + i % ew;
+    cur[i] = (gy >= 0 && gy < H && gx >= 0 && gx < W) ? labels[(size_t)gy * W + gx] : -1;
+  }
+  for (int s = 1; s <= sweeps; ++s) {
+    if (threadIdx.x == 0) nwork = 0;
+    __syncthreads();
+    // Pass 1: cells off the boundary keep their label; boundary cells go to
+    // the work list (one shared atomic per warp).
+    const int rh = eh - 2 * s, rw = ew - 2 * s, n = rh * rw;
+    for (int base = threadIdx.x - lane; base < n; base += kThreads) {  // warp-uniform
+      const int i = base + lane;
+      bool listed = false;
+      int cell = 0;
+      if (i < n) {
+        cell = (s + i / rw) * ew + s + i % rw;
+        const int lab = cur[cell];
+        listed = lab != -1 && on_boundary(cur, ew, cell, lab);
+        if (!listed) nxt[cell] = lab;
+      }
+      const unsigned mask = __ballot_sync(0xffffffffu, listed);
+      int first = 0;
+      if (lane == 0 && mask != 0) first = atomicAdd(&nwork, __popc(mask));
+      first = __shfl_sync(0xffffffffu, first, 0);
+      if (listed) work[first + __popc(mask & ((1u << lane) - 1u))] = cell;
+    }
+    __syncthreads();
+    // Pass 2: the block's threads score the boundary cells densely.
+    const int count = nwork;
+    for (int w = threadIdx.x; w < count; w += kThreads) {
+      const int cell = work[w];
+      nxt[cell] = relax_score<kFlag>(cur, ew, cell, gy0 + cell / ew, gx0 + cell % ew, H, W, L,
+                                     c_total, f, data, rows, prog, direct, diagonal);
+    }
+    __syncthreads();
+    int* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+  for (int i = threadIdx.x; i < kTileH * kTileW; i += kThreads) {
+    const int r = i / kTileW, c = i % kTileW;
+    const int gy = blockIdx.y * kTileH + r, gx = blockIdx.x * kTileW + c;
+    if (gy < H && gx < W) out[(size_t)gy * W + gx] = cur[(r + sweeps) * ew + c + sweeps];
+  }
+}
+
+bool make_features(int c_total, int nfeat, const int* kinds, const int* offs, const int* chans,
+                   const float* weights, Features* f) {
+  if (nfeat < 1 || nfeat > kMaxFeat || c_total < 1 || c_total > kMaxChan ||
+      1 + 2 * c_total + nfeat > kRowStride)
+    return false;
+  f->n = nfeat;
+  for (int i = 0; i < kMaxFeat; ++i) {
+    const bool on = i < nfeat;
+    f->kind[i] = on ? kinds[i] : 0;
+    f->off[i] = on ? offs[i] : 0;
+    f->ch[i] = on ? chans[i] : 0;
+    f->weight[i] = on ? weights[i] : 0.0f;
+    if (on && (f->ch[i] < 1 || f->off[i] < 0 || f->off[i] + f->ch[i] > c_total)) return false;
+  }
+  return true;
+}
+
+bool is_flagship(int c_total, const Features& f) {
+  if (c_total != kFlagC || f.n != kFlagNF) return false;
+  for (int i = 0; i < kFlagNF; ++i)
+    if (f.kind[i] != flag_kind(i) || f.off[i] != flag_off(i) || f.ch[i] != flag_ch(i))
+      return false;
+  return true;
 }
 
 }  // namespace
 
-// labels int32 [H, W]; stat, pix float32 [1 + 2C, H, W]; outputs alike.
-// kinds/offs/chans/weights: host arrays of nfeat entries; prog: device
-// float32 [H] progressive-compactness row factor, or null.
-extern "C" int relax_sweep(const void* labels, const void* stat, const void* pix,
-                           void* out_labels, void* out_stat, int H, int W, int c_total,
-                           int nfeat, const int* kinds, const int* offs, const int* chans,
-                           const float* weights, const void* prog, float direct,
-                           float diagonal, void* stream) {
-  if (nfeat > kMaxFeat || 1 + 2 * c_total > kMaxStat) return (int)cudaErrorInvalidValue;
+// rows: float32 [L + 1, 32] scratch, from table float32 [1 + 2C, L].
+// kinds/offs/chans/weights: host arrays of nfeat entries.
+extern "C" int relax_label_rows(const void* table, void* rows, int L, int c_total, int nfeat,
+                                const int* kinds, const int* offs, const int* chans,
+                                const float* weights, void* stream) {
   Features f;
-  f.n = nfeat;
-  for (int i = 0; i < nfeat; ++i) {
-    f.kind[i] = kinds[i];
-    f.off[i] = offs[i];
-    f.ch[i] = chans[i];
-    f.weight[i] = weights[i];
+  if (!make_features(c_total, nfeat, kinds, offs, chans, weights, &f))
+    return (int)cudaErrorInvalidValue;
+  relax_label_rows_kernel<<<(L + 1 + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+      (const float*)table, (float*)rows, L, c_total, f);
+  return (int)cudaGetLastError();
+}
+
+// `sweeps` sweeps: labels -> out (int32 [H, W], distinct buffers); data
+// float32 [C, H, W]; rows from relax_label_rows; prog: device float32 [H]
+// progressive-compactness row factor, or null.
+extern "C" int relax_sweeps(const void* labels, const void* data, const void* rows, void* out,
+                            int H, int W, int L, int c_total, int nfeat, const int* kinds,
+                            const int* offs, const int* chans, const float* weights,
+                            const void* prog, float direct, float diagonal, int sweeps,
+                            void* stream) {
+  Features f;
+  if (sweeps < 1 || !make_features(c_total, nfeat, kinds, offs, chans, weights, &f))
+    return (int)cudaErrorInvalidValue;
+  const size_t eh = kTileH + 2 * sweeps, ew = kTileW + 2 * sweeps;
+  const size_t smem = (2 * eh * ew + (eh - 2) * (ew - 2)) * sizeof(int);
+  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH);
+  const bool flag = is_flagship(c_total, f);
+  const void* fn = flag ? (const void*)relax_sweeps_kernel<true>
+                        : (const void*)relax_sweeps_kernel<false>;
+  if (smem > 48 * 1024) {
+    cudaError_t e =
+        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
   }
-  const dim3 block(128);
-  const dim3 grid((W + 127) / 128, H);
-  relax_sweep_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const int*)labels, (const float*)stat, (const float*)pix, (int*)out_labels,
-      (float*)out_stat, H, W, c_total, f, (const float*)prog, direct, diagonal);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (flag)
+    relax_sweeps_kernel<true><<<grid, kThreads, smem, s>>>(
+        (const int*)labels, (const float*)data, (const float*)rows, (int*)out, H, W, L, c_total,
+        f, (const float*)prog, direct, diagonal, sweeps);
+  else
+    relax_sweeps_kernel<false><<<grid, kThreads, smem, s>>>(
+        (const int*)labels, (const float*)data, (const float*)rows, (int*)out, H, W, L, c_total,
+        f, (const float*)prog, direct, diagonal, sweeps);
   return (int)cudaGetLastError();
 }

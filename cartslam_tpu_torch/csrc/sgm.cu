@@ -1,179 +1,501 @@
 // Kernel K1: census-Hamming semi-global matching, 4 paths, then WTA + LR.
 // Kernel K6: the same 4 paths, summed into the aggregated cost volume.
+// Kernel K5: K1 on one row shard, vertical carries handed between shards.
 //
 // K1 replaces the Pallas TPU kernels of cartslam_tpu/ops/pallas/sgm.py
 // (sgm_fused_pallas :654 with _make_hsweep :97, _make_vsweep :172,
 // _make_btwta_kernel :201) and ops/pallas/wta.py:wta_lr_row :66.
 // Bit-identical to the XLA path of ops/stereo.py (sgm_disparity,
 // backend="xla"), which the plain version in cartslam_tpu_torch/ops/stereo.py
-// follows line by line.
+// follows line by line.  Every value is an integer, so any order of the min
+// and sum operations is exact: bit-equality is a matter of indexing.
 //
 // K6 replaces sgm_aggregate_pallas (ops/pallas/sgm.py:510): census words in,
 // the 4-path aggregated cost out as int16 [H, W, D] with d ascending (the
 // TPU's reversed-d layout, flip=False, is not carried over).  It runs the
-// path kernel below with int16 path storage, so it takes the JAX op's whole
+// path kernels below with int16 path storage, so it takes the JAX op's whole
 // P2 range (each path value <= 62 + P2 <= 8062, the 4-path sum < 32767),
-// then sgm_sum4 adds the four volumes.  What bounds it: the path recurrence's
-// serial steps, as for K1, and then the sum's device-memory traffic (four
-// int16 volumes read, one written: 1.2 GB at 376x1248x256).
+// then sgm_sum4 adds the four volumes.
 //
 // K5 replaces sgm_fused_pallas_sharded (ops/pallas/sgm.py:320, with
 // _make_vcarry :241, _make_vsweep_cin :267, _make_btwta_cin_kernel :288): K1
 // on one row shard of a height-sharded frame, the two vertical paths seeded
 // with the predecessor shard's final carry (the split-scan chain of
-// parallel/sgm_sharded.py).  It is K1's path kernel with three options:
-// carry-in pointers for the vertical directions (int32 [W, D]; null is a zero
-// carry), carry-out pointers, and no volume pointer for the settle sweeps
-// (sgm_vcarry: the two vertical directions only, emitting just the final
-// carries).  sgm_sharded_paths runs all four directions with the settled
-// carries, then sgm_wta runs as it is.  The TPU's transposed [W, h] census,
-// VMEM W tiles and 1-row blocks are not carried over.  A carry-in must set
-// the first step's path minimum m to the carry's minimum over d (lanes with
-// d >= D hold kBig and load nothing), as _recurrence does; K1's zero carry
-// has m = 0.  The uint8 storage still holds: every step's value is at most
-// COST + P2 <= 62 + P2, whatever the carry.  What bounds it: the chain's
-// n-1 settle rounds, each sweeping every shard's rows serially (on one card
-// the shards' launches queue on one stream), on top of K1's own bound.
+// parallel/sgm_sharded.py).  The vertical path kernel takes carry-in
+// pointers (int32 [W, D]; null is a zero carry), carry-out pointers, and no
+// volume pointer for the settle sweeps (sgm_vcarry).  A carry-in sets the
+// first step's path minimum m to the carry's minimum over d (d >= D holds
+// kBig and loads nothing), as _recurrence does; a zero carry has m = 0.
+// The uint8 storage holds whatever the carry: every step's value is at most
+// COST + P2 <= 62 + P2.
 //
-// What bounds it on an H100: the path recurrence is serial along each
-// scanline (1248 steps for a KITTI row, 376 for a column), so latency per
-// step, not bandwidth, bounds the path kernel; the four uint8 path volumes
-// (4 x H x W x D bytes, 480 MB at 376x1248x256) are written once and read by
-// the WTA kernel, so device-memory traffic bounds the WTA kernel.
+// What bounds it on an H100.  The four uint8 path volumes (4 x H x W x D
+// bytes, 480 MB at 376x1248x256) are written once by the path kernels and
+// read once by the WTA kernel: 0.143 ms each way at 3.35 TB/s, the floor of
+// both kernels, and what bounds the WTA.  The path kernels are bound by
+// instruction issue: a cell costs each direction about 12 integer
+// instructions, two of them population counts, which issue at a quarter of
+// the rate of the others (16 a clock per SM on compute capability 9.0, CUDA
+// C++ Programming Guide).  The recurrence is serial along each scanline
+// (1248 steps for a KITTI row), and the 2 x 376 row scanlines are 752 warps
+// for the card's 528 warp schedulers: a scheduler that holds two of them
+// issues both, so a row sweep takes about two warps' issue time a step.
 //
 // Design:
-//  * sgm_paths: one warp per scanline and direction (2H + 2W warps, all
-//    resident at once).  Disparities are interleaved over lanes
-//    (d = 32k + lane, k < 8), so d+-1 are the neighbouring lanes (__shfl) and
-//    the path minimum is a warp reduction; no shared memory, no block
-//    barriers.  The Hamming cost is computed on the fly with __popc; a
-//    candidate reading left of the right image costs 62.  Each sweep starts
-//    at the real first column/row with a zero carry, as the XLA scan does.
-//    Path values are bounded by 62 + P2 and stored as uint8.
-//  * sgm_wta: one block per row, one warp per pixel.  A first pass computes
-//    the right-view winner best_r[x'] (S[x' + d + minD, d], 32767 past the
-//    edge) into shared memory; the second pass takes the keyed minimum
-//    (value * D + d: lowest-d tie-break), the OpenCV uniqueness test, the
-//    quadratic subpixel fit with FLOOR division, cols >= best + minD, and
-//    the +-1 left-right agreement.
+//  * Path kernels, one warp per scanline and direction.  Each lane holds KP
+//    consecutive disparities, d = KP * lane + k (KP = 8 at D = 256), so d-1
+//    and d+1 are registers of the same lane except at the lane's two ends:
+//    a step costs 2 shuffles and one __reduce_min_sync for the path minimum.
+//    Each lane writes its KP values with one store of KP bytes (2 KP for
+//    K6's int16), so a warp writes one contiguous run per step.
+//    - Row paths (sgm_hpaths): one block per image row holds both of its
+//      directions.  The row's census words are staged in shared memory once,
+//      the right view as (r0, r1) pairs with one pad pair after every 8
+//      (lanes 8 pairs apart then fall in distinct banks).  Each lane keeps a
+//      sliding window of its KP right pairs, so a step loads one new pair
+//      and the left pair, one step ahead of their use.
+//    - Column paths (sgm_vpaths): one block per 8 neighbouring columns and
+//      direction.  Each step's right-row segment [x0 - minD - 32 KP + 1,
+//      x0 + 7 - minD] and the 8 left pairs are copied into a 4-stage ring in
+//      shared memory with cp.async, 3 steps ahead of the step that uses them;
+//      each thread's copies are fixed once but for the row.  The column
+//      sweeps are many (2W warps) and short, so issue, not a step's latency,
+//      bounds them: a lane keeps its values as 16-bit pairs and runs the
+//      recurrence with Hopper's DPX instructions (__viaddmin_u16x2,
+//      __vimin3_u16x2), two disparities an instruction.  (The row sweeps
+//      keep int32 values: on the same 16-bit pairs they took 13% longer on
+//      an H100, 0.46 ms against 0.41 at 376x1248, D = 256; PERF.md.)
+//    - The row sweeps, then the column sweeps, on the caller's stream.  Both
+//      are issue-bound: run beside the row sweeps on a forked stream, the
+//      column sweeps slowed the row sweeps, the longer of the two, and the
+//      pair took longer than one after the other (0.893 ms against 0.824
+//      for both kernels on an H100; PERF.md).
+//    The recurrence is the XLA scan's: kBig for d >= D, the cost of 62 for a
+//    candidate left of the right image, a zero carry and m = 0 at the first
+//    step (or the carry-in and its minimum).  The volume's d axis is padded
+//    to Dp = D rounded up to 16, for the WTA's 16-byte loads.
+//  * sgm_wta: one block per row, one half-warp per pixel.  Each lane loads
+//    16 consecutive disparities of each of the four volumes with one 16-byte
+//    load and sums them in registers: one coalesced pass over the volumes.
+//    The keyed minimum (value * D + d: lowest-d tie-break), the second
+//    minimum over |d - best| > 1 and the subpixel neighbours S(best +- 1)
+//    come from registers and half-warp reductions.  The right view's winner
+//    best_r[xr] = argmin_d S(xr + d + minD, d) is a shared-memory atomicMin
+//    of the key S(x, d) * D + d into rkey[x - d - minD], each entry seeded
+//    with the least out-of-frame key 32767 * D + d (the least d with
+//    xr + d + minD >= W); a minimum is the same in any order.  After one
+//    barrier, the +-1 left-right agreement, the OpenCV uniqueness test with
+//    integer arithmetic, the subpixel step with FLOOR division and
+//    x >= best + minD decide each pixel, as before.
 #include <cuda_runtime.h>
-#include <stdint.h>
 #include <limits.h>
+#include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kMaxK = 8;  // disparities per lane: D <= 256
 constexpr int kBig = 1 << 20;
 constexpr int kCostInvalid = 62;
 constexpr int kBig16 = 32767;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kVCols = 8;      // columns per block of the column-path kernel
+constexpr int kVStages = 4;    // cp.async ring depth of the column-path kernel
+constexpr int kWtaThreads = 256;
 
-__device__ __forceinline__ int warp_min(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(kFull, v, o));
-  return v;
+// Index of pair i in a staged right-census row: one pad pair after every 8.
+__host__ __device__ constexpr int skew8(int i) { return i + (i >> 3); }
+// Index of entry i of the WTA's right-view key row: one pad after every 16.
+__host__ __device__ constexpr int skew16(int i) { return i + (i >> 4); }
+
+__host__ __device__ constexpr int padded_d(int d) { return (d + 15) & ~15; }
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// T: the path value's storage type, uint8_t for K1 and K5 (P2 <= 193),
-// int16_t for K6.  first_warp: 0 runs all four directions, 2H only the two
-// vertical ones.  cin/cout (K5): per-column carries [W, D] of the vertical
-// directions, or null (zero carry in; no carry out).  vol null: no volume
-// writes (the settle sweeps).
-template <typename T>
-__global__ void sgm_paths_kernel(const int* __restrict__ l0, const int* __restrict__ l1,
-                                 const int* __restrict__ r0, const int* __restrict__ r1,
-                                 T* __restrict__ vol, const int* __restrict__ cin_tb,
-                                 const int* __restrict__ cin_bt, int* __restrict__ cout_tb,
-                                 int* __restrict__ cout_bt, int H, int W, int D,
-                                 int minD, int p1, int p2, int first_warp) {
-  const int warp = first_warp + ((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
+__device__ __forceinline__ unsigned pack4(int a, int b, int c, int d) {
+  return (unsigned)(a & 0xff) | ((unsigned)(b & 0xff) << 8) | ((unsigned)(c & 0xff) << 16) |
+         ((unsigned)(d & 0xff) << 24);
+}
+__device__ __forceinline__ unsigned pack2(int a, int b) {
+  return (unsigned)(a & 0xffff) | ((unsigned)(b & 0xffff) << 16);
+}
+
+// Writes a lane's KP path values to p with one store (T: uint8_t or int16_t).
+template <typename T, int KP>
+__device__ __forceinline__ void store_run(T* p, const int (&v)[KP]) {
+  if constexpr (sizeof(T) == 1) {
+    if constexpr (KP == 8)
+      *reinterpret_cast<uint2*>(p) = make_uint2(pack4(v[0], v[1], v[2], v[3]),
+                                                pack4(v[4], v[5], v[6], v[7]));
+    else if constexpr (KP == 4)
+      *reinterpret_cast<unsigned*>(p) = pack4(v[0], v[1], v[2], v[3]);
+    else if constexpr (KP == 2)
+      *reinterpret_cast<uint16_t*>(p) = (uint16_t)((v[0] & 0xff) | ((v[1] & 0xff) << 8));
+    else
+      *p = (T)v[0];
+  } else {
+    if constexpr (KP == 8)
+      *reinterpret_cast<uint4*>(p) = make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]),
+                                                pack2(v[4], v[5]), pack2(v[6], v[7]));
+    else if constexpr (KP == 4)
+      *reinterpret_cast<uint2*>(p) = make_uint2(pack2(v[0], v[1]), pack2(v[2], v[3]));
+    else if constexpr (KP == 2)
+      *reinterpret_cast<unsigned*>(p) = pack2(v[0], v[1]);
+    else
+      *p = (T)v[0];
+  }
+}
+
+// One step of the recurrence for the lane's disparities dbase..dbase+KP-1:
+//   L(d) <- C(d) + min(L(d), L(d+-1) + P1, m + P2) - m,   kBig for d >= D,
+// returning the new path minimum over d.
+template <int KP>
+__device__ __forceinline__ int path_step(int (&L)[KP], const int (&c)[KP], int m, int p1, int p2,
+                                         int lane, int dbase, int D) {
+  int left = __shfl_up_sync(kFull, L[KP - 1], 1);  // d - 1 of k = 0
+  int right = __shfl_down_sync(kFull, L[0], 1);    // d + 1 of k = KP - 1
+  if (lane == 0) left = kBig;
+  if (lane == 31) right = kBig;
+  int nl[KP];
+  int lmin = INT_MAX;
+#pragma unroll
+  for (int k = 0; k < KP; ++k) {
+    const int dn = k == 0 ? left : L[k - 1];
+    const int up = k == KP - 1 ? right : L[k + 1];
+    const int best = min(min(L[k], min(dn, up) + p1), m + p2);
+    nl[k] = dbase + k < D ? c[k] + best - m : kBig;
+    lmin = min(lmin, nl[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < KP; ++k) L[k] = nl[k];
+  return __reduce_min_sync(kFull, lmin);
+}
+
+__device__ __forceinline__ int hamming(int2 a, int2 r) {
+  return __popc((unsigned)(a.x ^ r.x)) + __popc((unsigned)(a.y ^ r.y));
+}
+
+// Row paths: block y holds image row y, warp 0 sweeps left->right (volume
+// plane 0), warp 1 right->left (plane 1).  vol: [4, H, W, Dp] or null.
+template <typename T, int KP>
+__global__ void __launch_bounds__(64) sgm_hpaths_kernel(
+    const int* __restrict__ l0, const int* __restrict__ l1, const int* __restrict__ r0,
+    const int* __restrict__ r1, T* __restrict__ vol, int H, int W, int D, int minD, int p1,
+    int p2) {
+  extern __shared__ int2 hsm[];
+  int2* rs = hsm;                     // right pairs, skew8 layout
+  int2* ls = hsm + skew8(W - 1) + 1;  // left pairs
+  const int y = blockIdx.x;
+  const size_t row = (size_t)y * W;
+  for (int x = threadIdx.x; x < W; x += blockDim.x) {
+    rs[skew8(x)] = make_int2(r0[row + x], r1[row + x]);
+    ls[x] = make_int2(l0[row + x], l1[row + x]);
+  }
+  __syncthreads();
+
   const int lane = threadIdx.x & 31;
-  if (warp >= 2 * H + 2 * W) return;  // warp-uniform
-  int dir, line;
-  if (warp < 2 * H) {
-    dir = warp / H;  // 0: left->right, 1: right->left
-    line = warp % H;
-  } else {
-    dir = 2 + (warp - 2 * H) / W;  // 2: top->bottom, 3: bottom->top
-    line = (warp - 2 * H) % W;
-  }
-  const int steps = dir < 2 ? W : H;
-  const int nk = (D + 31) / 32;
-  T* out = vol != nullptr ? vol + (size_t)dir * H * W * D : nullptr;
-  const int* cin = dir == 2 ? cin_tb : (dir == 3 ? cin_bt : nullptr);
-  int* cout = dir == 2 ? cout_tb : (dir == 3 ? cout_bt : nullptr);
-
-  int L[kMaxK];
-  int m = 0;  // min over d of the carry
-  if (cin != nullptr) {  // warp-uniform
-    int cmin = kBig;
+  const int dir = threadIdx.x >> 5;  // warp-uniform
+  const int dbase = KP * lane;
+  const int Dp = padded_d(D);
+  T* out = (vol != nullptr && dbase < Dp) ? vol + ((size_t)dir * H * W + row) * Dp + dbase
+                                          : nullptr;
+  int L[KP];  // a zero carry, kBig for d >= D; m = 0
 #pragma unroll
-    for (int k = 0; k < kMaxK; ++k) {
-      const int d = k * 32 + lane;
-      L[k] = d < D ? cin[(size_t)line * D + d] : kBig;
-      cmin = min(cmin, L[k]);
+  for (int k = 0; k < KP; ++k) L[k] = dbase + k < D ? 0 : kBig;
+  int m = 0;
+  const int step = dir == 0 ? 1 : -1;
+  int x = dir == 0 ? 0 : W - 1;
+  // win[k]: the right pair at xr = x - minD - dbase - k (clamped reads;
+  // xr < 0 costs kCostInvalid).
+  int2 win[KP];
+#pragma unroll
+  for (int k = 0; k < KP; ++k) win[k] = rs[skew8(max(x - minD - dbase - k, 0))];
+  int2 a = ls[x];
+  for (int s = 0; s < W; ++s) {
+    const int xn = x + step;
+    int2 an = a, wn = win[0];
+    if (s + 1 < W) {  // the next step's left pair and new window pair
+      an = ls[xn];
+      wn = rs[skew8(max(xn - minD - dbase - (dir == 0 ? 0 : KP - 1), 0))];
     }
-    m = warp_min(cmin);
-  } else {
+    int c[KP];
+    const int xr0 = x - minD - dbase;  // xr of the lane's first disparity
+    if (xr0 - (KP - 1) >= 0) {         // every candidate reads the right image
 #pragma unroll
-    for (int k = 0; k < kMaxK; ++k) L[k] = (k * 32 + lane < D) ? 0 : kBig;
+      for (int k = 0; k < KP; ++k) c[k] = hamming(a, win[k]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < KP; ++k) c[k] = xr0 - k >= 0 ? hamming(a, win[k]) : kCostInvalid;
+    }
+    m = path_step<KP>(L, c, m, p1, p2, lane, dbase, D);
+    if (out != nullptr) store_run<T, KP>(out + (size_t)x * Dp, L);
+    if (dir == 0) {
+#pragma unroll
+      for (int k = KP - 1; k > 0; --k) win[k] = win[k - 1];
+      win[0] = wn;
+    } else {
+#pragma unroll
+      for (int k = 0; k < KP - 1; ++k) win[k] = win[k + 1];
+      win[KP - 1] = wn;
+    }
+    a = an;
+    x = xn;
   }
+}
 
-  for (int s = 0; s < steps; ++s) {
-    int y, x;
-    if (dir == 0) { y = line; x = s; }
-    else if (dir == 1) { y = line; x = W - 1 - s; }
-    else if (dir == 2) { y = s; x = line; }
-    else { y = H - 1 - s; x = line; }
-    const int pix = y * W + x;
-    const unsigned a0 = (unsigned)l0[pix], a1 = (unsigned)l1[pix];
+// --- Column paths, on packed 16-bit pairs -------------------------------
+// The column sweeps are many (2W warps) and short (H steps), so they are
+// bound by issue, not by a step's latency: they keep each lane's path values
+// as NP pairs of 16-bit halves, P[i] = (d = 2 NP lane + 2i, 2i + 1), and run
+// the recurrence with Hopper's DPX min instructions, two disparities each.
+// kBig2 is 16384 in both halves: above any m + P2 (m <= 62 + P2 <= 8062),
+// and kBig2 + P1 fits in 16 bits.
+constexpr unsigned kBig2 = 0x40004000u;
 
-    int nl[kMaxK];
-    int lmin = kBig;
+template <int NP>
+__device__ __forceinline__ int path_step2(unsigned (&P)[NP], const unsigned (&C)[NP],
+                                          const unsigned (&keep)[NP], int m, unsigned p1x2,
+                                          int p2, int lane) {
+  unsigned left = __shfl_up_sync(kFull, P[NP - 1], 1);  // high half: d - 1 of i = 0
+  unsigned right = __shfl_down_sync(kFull, P[0], 1);    // low half: d + 1 of i = NP - 1
+  if (lane == 0) left = kBig2;
+  if (lane == 31) right = kBig2;
+  const unsigned mp2 = (unsigned)(m + p2) * 0x10001u, mm = (unsigned)m * 0x10001u;
+  unsigned nv[NP];
 #pragma unroll
-    for (int k = 0; k < kMaxK; ++k) {
-      if (k < nk) {  // warp-uniform
-        int dn = __shfl_up_sync(kFull, L[k], 1);    // d - 1 (lane - 1)
-        int up = __shfl_down_sync(kFull, L[k], 1);  // d + 1 (lane + 1)
-        int prev_last = kBig, next_first = kBig;
-        if (k > 0) prev_last = __shfl_sync(kFull, L[k > 0 ? k - 1 : 0], 31);
-        if (k + 1 < kMaxK && k + 1 < nk)
-          next_first = __shfl_sync(kFull, L[k + 1 < kMaxK ? k + 1 : k], 0);
-        if (lane == 0) dn = prev_last;
-        if (lane == 31) up = next_first;
-        const int d = k * 32 + lane;
-        int v = kBig;
-        if (d < D) {
-          const int xr = x - minD - d;
-          int c = kCostInvalid;
-          if (xr >= 0) {
-            const int q = y * W + xr;
-            c = __popc(a0 ^ (unsigned)r0[q]) + __popc(a1 ^ (unsigned)r1[q]);
-          }
-          const int best = min(min(L[k], min(dn, up) + p1), m + p2);
-          v = c + best - m;
-          if (out != nullptr) out[(size_t)pix * D + d] = (T)v;
+  for (int i = 0; i < NP; ++i) {
+    const unsigned dn = __byte_perm(i == 0 ? left : P[i - 1], P[i], 0x5432);
+    const unsigned up = __byte_perm(P[i], i == NP - 1 ? right : P[i + 1], 0x5432);
+    const unsigned w = __viaddmin_u16x2(dn, p1x2, up + p1x2);  // min(L(d+-1)) + P1
+    const unsigned best = __vimin3_u16x2(P[i], mp2, w);
+    // best >= m in both halves and best + C < 2^16, so one 32-bit add and
+    // subtract carry nothing between the halves.
+    const unsigned v = best + C[i] - mm;
+    nv[i] = (v & keep[i]) | (kBig2 & ~keep[i]);
+  }
+  unsigned lm = nv[0];
+#pragma unroll
+  for (int i = 1; i < NP; ++i) lm = __vimin3_u16x2(lm, nv[i], nv[i]);
+#pragma unroll
+  for (int i = 0; i < NP; ++i) P[i] = nv[i];
+  return __reduce_min_sync(kFull, min((int)(lm & 0xffffu), (int)(lm >> 16)));
+}
+
+// Writes a lane's 2 NP packed path values to p with one store.
+template <typename T, int NP>
+__device__ __forceinline__ void store_pairs(T* p, const unsigned (&P)[NP]) {
+  if constexpr (sizeof(T) == 1) {
+    if constexpr (NP == 4)
+      *reinterpret_cast<uint2*>(p) =
+          make_uint2(__byte_perm(P[0], P[1], 0x6420), __byte_perm(P[2], P[3], 0x6420));
+    else if constexpr (NP == 2)
+      *reinterpret_cast<unsigned*>(p) = __byte_perm(P[0], P[1], 0x6420);
+    else
+      *reinterpret_cast<uint16_t*>(p) = (uint16_t)__byte_perm(P[0], 0, 0x20);
+  } else {
+    if constexpr (NP == 4)
+      *reinterpret_cast<uint4*>(p) = make_uint4(P[0], P[1], P[2], P[3]);
+    else if constexpr (NP == 2)
+      *reinterpret_cast<uint2*>(p) = make_uint2(P[0], P[1]);
+    else
+      *reinterpret_cast<unsigned*>(p) = P[0];
+  }
+}
+
+// Column paths: block (bx, dir) holds columns [8 bx, 8 bx + 8), warp w
+// column 8 bx + w; dir 0 sweeps top->bottom (volume plane 2, carries
+// cin_tb / cout_tb), dir 1 bottom->top (plane 3, cin_bt / cout_bt).
+template <typename T, int NP>
+__global__ void __launch_bounds__(kVCols * 32) sgm_vpaths_kernel(
+    const int* __restrict__ l0, const int* __restrict__ l1, const int* __restrict__ r0,
+    const int* __restrict__ r1, T* __restrict__ vol, const int* __restrict__ cin_tb,
+    const int* __restrict__ cin_bt, int* __restrict__ cout_tb, int* __restrict__ cout_bt, int H,
+    int W, int D, int minD, int p1, int p2) {
+  constexpr int KP = 2 * NP;
+  constexpr int kSpan = 32 * KP + kVCols - 1;  // right pairs a step needs
+  constexpr int kRight = skew8(kSpan - 1) + 1;
+  constexpr int kStage = kRight + kVCols;      // + the columns' left pairs
+  constexpr int kCopies = 2 * kSpan + 2 * kVCols;
+  constexpr int kItems = (kCopies + kVCols * 32 - 1) / (kVCols * 32);
+  __shared__ int2 ring[kVStages][kStage];
+  const int x0 = blockIdx.x * kVCols;
+  const int dir = blockIdx.y;
+  const int base = x0 - minD - (32 * KP - 1);  // xr of staged pair 0
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int x = x0 + warp;
+
+  // This thread's 4-byte copies of a step, fixed but for the row: the
+  // right words base..base + kSpan - 1 of both planes into the skew8
+  // layout, then the block's left words.
+  unsigned dst[kItems];
+  const int* src[kItems];
+  bool copy[kItems];
+#pragma unroll
+  for (int q = 0; q < kItems; ++q) {
+    const int i = threadIdx.x + q * kVCols * 32;
+    int plane = 0, word = 0, col = -1;
+    if (i < 2 * kSpan) {
+      plane = i >= kSpan;
+      const int j = i - plane * kSpan;
+      word = 2 * skew8(j) + plane;
+      col = base + j;
+    } else if (i < kCopies) {
+      const int t = i - 2 * kSpan;
+      plane = t >= kVCols;
+      const int j = t - plane * kVCols;
+      word = 2 * (kRight + j) + plane;
+      col = x0 + j < W ? x0 + j : -1;
+    }
+    copy[q] = col >= 0 && col < W;
+    dst[q] = (unsigned)__cvta_generic_to_shared(reinterpret_cast<int*>(&ring[0][0]) + word);
+    const int* plane_base = i < 2 * kSpan ? (plane ? r1 : r0) : (plane ? l1 : l0);
+    src[q] = plane_base + (copy[q] ? col : 0);
+  }
+  // Issues the copies of step s (row y) into ring slot s % kVStages.
+  auto stage = [&](int s) {
+    if (s < H) {
+      const size_t row = (size_t)(dir == 0 ? s : H - 1 - s) * W;
+      const unsigned slot = (unsigned)((s % kVStages) * kStage * sizeof(int2));
+#pragma unroll
+      for (int q = 0; q < kItems; ++q)
+        if (copy[q])
+          asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst[q] + slot),
+                       "l"(src[q] + row)
+                       : "memory");
+    }
+    cp_async_commit();  // empty past the last step: keeps the group count uniform
+  };
+#pragma unroll
+  for (int s = 0; s < kVStages - 1; ++s) stage(s);
+
+  const bool live = x < W;  // warp-uniform
+  const int dbase = KP * lane;
+  const int Dp = padded_d(D);
+  const int* cin = dir == 0 ? cin_tb : cin_bt;
+  int* cout = dir == 0 ? cout_tb : cout_bt;
+  T* out = (live && vol != nullptr && dbase < Dp)
+               ? vol + ((size_t)(2 + dir) * H + (dir == 0 ? 0 : H - 1)) * W * Dp +
+                     (size_t)x * Dp + dbase
+               : nullptr;
+  const ptrdiff_t out_step = (dir == 0 ? 1 : -1) * (ptrdiff_t)W * Dp;
+  unsigned P[NP], keep[NP];
+  int cmin = INT_MAX;
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const int d = dbase + 2 * i;
+    keep[i] = (d < D ? 0xffffu : 0u) | (d + 1 < D ? 0xffff0000u : 0u);
+    unsigned v = 0;  // a zero carry
+    if (cin != nullptr && live) {
+      const int lo = d < D ? cin[(size_t)x * D + d] : 0;
+      const int hi = d + 1 < D ? cin[(size_t)x * D + d + 1] : 0;
+      v = (unsigned)lo | ((unsigned)hi << 16);
+      if (d < D) cmin = min(cmin, lo);
+      if (d + 1 < D) cmin = min(cmin, hi);
+    }
+    P[i] = (v & keep[i]) | (kBig2 & ~keep[i]);
+  }
+  // The first step's m: the carry's minimum over d (_recurrence), 0 for a
+  // zero carry.
+  int m = (cin != nullptr && live) ? __reduce_min_sync(kFull, cmin) : 0;
+  const unsigned p1x2 = (unsigned)p1 * 0x10001u;
+  const int xr0 = x - minD - dbase;        // xr of the lane's first disparity
+  const bool in_frame = xr0 - (KP - 1) >= 0;  // every candidate reads the right image
+  const int j0 = warp + 32 * KP - 1 - dbase;  // staged pair of xr0
+  for (int s = 0; s < H; ++s) {
+    cp_async_wait<kVStages - 2>();  // this thread's copies of step s landed
+    __syncthreads();                // everyone's did; slot (s - 1) is free
+    stage(s + kVStages - 1);
+    if (live) {
+      const int2* slot = ring[s % kVStages];
+      const int2 a = slot[kRight + warp];
+      unsigned C[NP];
+      if (in_frame) {
+#pragma unroll
+        for (int i = 0; i < NP; ++i)
+          C[i] = (unsigned)hamming(a, slot[skew8(j0 - 2 * i)]) |
+                 ((unsigned)hamming(a, slot[skew8(j0 - 2 * i - 1)]) << 16);
+      } else {
+#pragma unroll
+        for (int i = 0; i < NP; ++i) {
+          const int c0 = xr0 - 2 * i >= 0 ? hamming(a, slot[skew8(j0 - 2 * i)]) : kCostInvalid;
+          const int c1 =
+              xr0 - 2 * i - 1 >= 0 ? hamming(a, slot[skew8(j0 - 2 * i - 1)]) : kCostInvalid;
+          C[i] = (unsigned)c0 | ((unsigned)c1 << 16);
         }
-        nl[k] = v;
-        lmin = min(lmin, v);
+      }
+      m = path_step2<NP>(P, C, keep, m, p1x2, p2, lane);
+      if (out != nullptr) {
+        store_pairs<T, NP>(out, P);
+        out += out_step;
       }
     }
-#pragma unroll
-    for (int k = 0; k < kMaxK; ++k)
-      if (k < nk) L[k] = nl[k];
-    m = warp_min(lmin);
   }
-  if (cout != nullptr) {
+  cp_async_wait<0>();
+  if (live && cout != nullptr) {
 #pragma unroll
-    for (int k = 0; k < kMaxK; ++k) {
-      const int d = k * 32 + lane;
-      if (d < D) cout[(size_t)line * D + d] = L[k];
+    for (int i = 0; i < NP; ++i) {
+      const int d = dbase + 2 * i;
+      if (d < D) cout[(size_t)x * D + d] = (int)(P[i] & 0xffffu);
+      if (d + 1 < D) cout[(size_t)x * D + d + 1] = (int)(P[i] >> 16);
     }
   }
 }
 
-// out[i] = v[i] + v[n + i] + v[2n + i] + v[3n + i]; eight values per thread
-// through 16-byte loads (n % 8 == 0), else one.
+template <typename T, int KP, int NP>
+int launch_paths_kp(const void* l0, const void* l1, const void* r0, const void* r1, void* vol,
+                    const void* cin_tb, const void* cin_bt, void* cout_tb, void* cout_bt,
+                    int H, int W, int D, int minD, int p1, int p2, bool rows,
+                    cudaStream_t stream) {
+  if (rows) {
+    const size_t smem = (size_t)(skew8(W - 1) + 1 + W) * sizeof(int2);
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          sgm_hpaths_kernel<T, KP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    sgm_hpaths_kernel<T, KP><<<H, 64, smem, stream>>>(
+        (const int*)l0, (const int*)l1, (const int*)r0, (const int*)r1, (T*)vol, H, W, D, minD,
+        p1, p2);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 vgrid((W + kVCols - 1) / kVCols, 2);
+  sgm_vpaths_kernel<T, NP><<<vgrid, kVCols * 32, 0, stream>>>(
+      (const int*)l0, (const int*)l1, (const int*)r0, (const int*)r1, (T*)vol,
+      (const int*)cin_tb, (const int*)cin_bt, (int*)cout_tb, (int*)cout_bt, H, W, D, minD, p1,
+      p2);
+  return (int)cudaGetLastError();
+}
+
+// The path kernels: the row paths with KP = the least of 1, 2, 4, 8 with
+// 32 KP >= D, when `rows`, then the column paths with NP = max(KP / 2, 1)
+// pairs a lane.
+template <typename T>
+int launch_paths(const void* l0, const void* l1, const void* r0, const void* r1, void* vol,
+                 const void* cin_tb, const void* cin_bt, void* cout_tb, void* cout_bt, int H,
+                 int W, int D, int minD, int p1, int p2, bool rows, void* stream) {
+  if (D < 1 || D > 256 || minD < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (D <= 32)
+    return launch_paths_kp<T, 1, 1>(l0, l1, r0, r1, vol, cin_tb, cin_bt, cout_tb, cout_bt, H,
+                                    W, D, minD, p1, p2, rows, s);
+  if (D <= 64)
+    return launch_paths_kp<T, 2, 1>(l0, l1, r0, r1, vol, cin_tb, cin_bt, cout_tb, cout_bt, H,
+                                    W, D, minD, p1, p2, rows, s);
+  if (D <= 128)
+    return launch_paths_kp<T, 4, 2>(l0, l1, r0, r1, vol, cin_tb, cin_bt, cout_tb, cout_bt, H,
+                                    W, D, minD, p1, p2, rows, s);
+  return launch_paths_kp<T, 8, 4>(l0, l1, r0, r1, vol, cin_tb, cin_bt, cout_tb, cout_bt, H, W,
+                                  D, minD, p1, p2, rows, s);
+}
+
+// out[p, d] = sum of the four planes' v[., p, d] (stride Dp) for d < D.
+// Eight values per thread through 16-byte loads when Dp == D, else one.
 __global__ void sgm_sum4_vec_kernel(const int16_t* __restrict__ v, int16_t* __restrict__ out,
                                     size_t n) {
   const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 8;
@@ -194,9 +516,12 @@ __global__ void sgm_sum4_vec_kernel(const int16_t* __restrict__ v, int16_t* __re
 }
 
 __global__ void sgm_sum4_kernel(const int16_t* __restrict__ v, int16_t* __restrict__ out,
-                                size_t n) {
+                                size_t pixels, int D, int Dp) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = (int16_t)((int)v[i] + v[n + i] + v[2 * n + i] + v[3 * n + i]);
+  if (i >= pixels * D) return;
+  const size_t n = pixels * Dp;
+  const size_t j = (i / D) * Dp + i % D;
+  out[i] = (int16_t)((int)v[j] + v[n + j] + v[2 * n + j] + v[3 * n + j]);
 }
 
 __device__ __forceinline__ int floor_div(int a, int b) {  // b > 0
@@ -204,101 +529,136 @@ __device__ __forceinline__ int floor_div(int a, int b) {  // b > 0
   return (a % b != 0 && a < 0) ? q - 1 : q;
 }
 
-__global__ void sgm_wta_kernel(const uint8_t* __restrict__ vol, int16_t* __restrict__ out,
-                               int H, int W, int D, int minD, int uniqueness,
-                               int subpixel, int lr_check) {
-  extern __shared__ int best_r[];  // [W]
-  const int y = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int wid = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  const size_t plane = (size_t)H * W * D;
-  const uint8_t* v0 = vol;
-  const uint8_t* v1 = vol + plane;
-  const uint8_t* v2 = vol + 2 * plane;
-  const uint8_t* v3 = vol + 3 * plane;
-  const size_t row = (size_t)y * W;
-  auto S = [&](int x, int d) -> int {
-    const size_t i = (row + x) * D + d;
-    return (int)v0[i] + (int)v1[i] + (int)v2[i] + (int)v3[i];
-  };
+// Min and sum over the 16 lanes of a half-warp.
+__device__ __forceinline__ int half_min(int v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+__device__ __forceinline__ int half_sum(int v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
 
+// One block per row y; half-warp h of warp w takes pixels x = 2 w + h + 16 i.
+// vol: uint8 [4, H, W, Dp], Dp = D rounded up to 16.
+__global__ void __launch_bounds__(kWtaThreads) sgm_wta_kernel(
+    const uint8_t* __restrict__ vol, int16_t* __restrict__ out, int H, int W, int D, int minD,
+    int uniqueness, int subpixel, int lr_check) {
+  extern __shared__ int wsm[];
+  int* rkey = wsm;                                              // [skew16(W - 1) + 1]
+  int16_t* sbest = reinterpret_cast<int16_t*>(wsm + skew16(W - 1) + 1);  // [W]
+  int16_t* sval = sbest + W;                                    // [W], before the LR test
+  const int y = blockIdx.x;
+  const size_t row = (size_t)y * W;
+  const int Dp = padded_d(D);
   if (lr_check) {
-    for (int xr = wid; xr < W; xr += nw) {
-      int key = INT_MAX;
-      for (int d = lane; d < D; d += 32) {
-        const int xs = xr + d + minD;
-        const int s = xs < W ? S(xs, d) : kBig16;
-        key = min(key, s * D + d);
-      }
-      key = warp_min(key);
-      if (lane == 0) best_r[xr] = key % D;
+    for (int xr = threadIdx.x; xr < W; xr += blockDim.x) {
+      const int d0 = max(0, W - minD - xr);  // the least out-of-frame d
+      rkey[skew16(xr)] = d0 < D ? kBig16 * D + d0 : INT_MAX;
     }
     __syncthreads();
   }
-
-  for (int x = wid; x < W; x += nw) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int half = lane >> 4, dlo = 16 * (lane & 15);
+  const size_t plane = (size_t)H * W * Dp;
+  for (int x0 = 2 * warp; x0 < W; x0 += 2 * (kWtaThreads / 32)) {  // warp-uniform
+    const int x = x0 + half;
+    const bool on = x < W && dlo < D;  // this lane holds disparities of pixel x
+    int S[16];
+    if (on) {
+      const uint8_t* p = vol + (row + x) * Dp + dlo;
+      unsigned e0[4] = {0, 0, 0, 0}, e1[4] = {0, 0, 0, 0};  // bytes 0,2 and 1,3 of each word
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const uint4 q = __ldcs(reinterpret_cast<const uint4*>(p + v * plane));
+        const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          e0[j] += w[j] & 0x00ff00ffu;
+          e1[j] += (w[j] >> 8) & 0x00ff00ffu;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        S[4 * j] = (int)(e0[j] & 0xffffu);
+        S[4 * j + 1] = (int)(e1[j] & 0xffffu);
+        S[4 * j + 2] = (int)(e0[j] >> 16);
+        S[4 * j + 3] = (int)(e1[j] >> 16);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < 16; ++k) S[k] = 0;
+    }
     int key = INT_MAX;
-    for (int d = lane; d < D; d += 32) key = min(key, S(x, d) * D + d);
-    key = warp_min(key);
-    const int best = key % D;
-    const int min_s = key / D;
-    int second = kBig16;
-    for (int d = lane; d < D; d += 32)
-      if (abs(d - best) > 1) second = min(second, S(x, d));
-    second = warp_min(second);
-    if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+      if (on && dlo + k < D) key = min(key, S[k] * D + dlo + k);
+    key = half_min(key);
+    const int best = key % D, min_s = key / D;
+    int second = kBig16, pair = 0;  // pair: S(best - 1) + S(best + 1) << 16
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const int d = dlo + k;
+      if (on && d < D) {
+        if (abs(d - best) > 1) second = min(second, S[k]);
+        if (d == best - 1) pair += S[k];
+        if (d == best + 1) pair += S[k] << 16;
+      }
+    }
+    second = half_min(second);
+    pair = half_sum(pair);
+    if (lr_check && on) {
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        const int d = dlo + k, xr = x - minD - d;
+        if (d < D && xr >= 0) atomicMin(&rkey[skew16(xr)], S[k] * D + d);
+      }
+    }
+    if (x < W && (lane & 15) == 0) {
       bool ok = second * (100 - uniqueness) >= min_s * 100;
       int delta = 0;
       if (subpixel && best > 0 && best < D - 1) {
-        const int sm = S(x, best - 1), sp = S(x, best + 1);
+        const int sm = pair & 0xffff, sp = pair >> 16;
         const int denom2 = max(sm + sp - 2 * min_s, 1);
         delta = floor_div((sm - sp) * 16 + denom2, denom2 * 2);
       }
       ok = ok && x >= best + minD;
-      if (lr_check) {
-        const int xr = x - best - minD;
-        ok = ok && xr >= 0 && abs(best_r[xr] - best) <= 1;
-      }
-      out[row + x] = (int16_t)(ok ? (best + minD) * 16 + delta : -32768);
+      sbest[x] = (int16_t)best;
+      sval[x] = (int16_t)(ok ? (best + minD) * 16 + delta : -32768);
     }
   }
-}
-
-constexpr int kPathThreads = 128;
-
-// Launches the uint8 path kernel over warps [first_warp, 2H + 2W).
-int launch_paths_u8(const void* l0, const void* l1, const void* r0, const void* r1,
-                    void* vol, const void* cin_tb, const void* cin_bt, void* cout_tb,
-                    void* cout_bt, int H, int W, int D, int minD, int p1, int p2,
-                    int first_warp, void* stream) {
-  const int warps = 2 * H + 2 * W - first_warp;
-  const int blocks = (warps * 32 + kPathThreads - 1) / kPathThreads;
-  sgm_paths_kernel<uint8_t><<<blocks, kPathThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)l0, (const int*)l1, (const int*)r0, (const int*)r1, (uint8_t*)vol,
-      (const int*)cin_tb, (const int*)cin_bt, (int*)cout_tb, (int*)cout_bt, H, W, D, minD,
-      p1, p2, first_warp);
-  return (int)cudaGetLastError();
+  __syncthreads();
+  for (int x = threadIdx.x; x < W; x += blockDim.x) {
+    int v = sval[x];
+    if (lr_check && v != -32768) {
+      const int best = sbest[x], xr = x - best - minD;
+      if (xr < 0 || abs(rkey[skew16(xr)] % D - best) > 1) v = -32768;
+    }
+    out[row + x] = (int16_t)v;
+  }
 }
 
 }  // namespace
 
+// K1's paths: vol uint8 [4, H, W, Dp] (Dp = D rounded up to 16).
 extern "C" int sgm_paths(const void* l0, const void* l1, const void* r0, const void* r1,
                          void* vol, int H, int W, int D, int minD, int p1, int p2,
                          void* stream) {
-  return launch_paths_u8(l0, l1, r0, r1, vol, nullptr, nullptr, nullptr, nullptr, H, W, D,
-                         minD, p1, p2, 0, stream);
+  return launch_paths<uint8_t>(l0, l1, r0, r1, vol, nullptr, nullptr, nullptr, nullptr, H, W, D,
+                               minD, p1, p2, true, stream);
 }
 
 // K5, the output sweeps: the four paths of one row shard into vol (uint8
-// [4, H, W, D]), the vertical ones seeded with cin_tb / cin_bt (int32 [W, D],
-// or null for a zero carry).  sgm_wta follows.
+// [4, H, W, Dp]), the vertical ones seeded with cin_tb / cin_bt (int32
+// [W, D], or null for a zero carry).  sgm_wta follows.
 extern "C" int sgm_sharded_paths(const void* l0, const void* l1, const void* r0,
                                  const void* r1, void* vol, const void* cin_tb,
                                  const void* cin_bt, int H, int W, int D, int minD, int p1,
                                  int p2, void* stream) {
-  return launch_paths_u8(l0, l1, r0, r1, vol, cin_tb, cin_bt, nullptr, nullptr, H, W, D,
-                         minD, p1, p2, 0, stream);
+  return launch_paths<uint8_t>(l0, l1, r0, r1, vol, cin_tb, cin_bt, nullptr, nullptr, H, W, D,
+                               minD, p1, p2, true, stream);
 }
 
 // K5, one settle round: both vertical paths of one row shard from cin_tb /
@@ -308,41 +668,40 @@ extern "C" int sgm_vcarry(const void* l0, const void* l1, const void* r0, const 
                           const void* cin_tb, const void* cin_bt, void* cout_tb,
                           void* cout_bt, int H, int W, int D, int minD, int p1, int p2,
                           void* stream) {
-  return launch_paths_u8(l0, l1, r0, r1, nullptr, cin_tb, cin_bt, cout_tb, cout_bt, H, W, D,
-                         minD, p1, p2, 2 * H, stream);
+  return launch_paths<uint8_t>(l0, l1, r0, r1, nullptr, cin_tb, cin_bt, cout_tb, cout_bt, H, W,
+                               D, minD, p1, p2, false, stream);
 }
 
-// K6. vol: int16 scratch [4, H, W, D]; out: int16 [H, W, D].
+// K6. vol: int16 scratch [4, H, W, Dp]; out: int16 [H, W, D].
 extern "C" int sgm_aggregate(const void* l0, const void* l1, const void* r0, const void* r1,
                              void* vol, void* out, int H, int W, int D, int minD, int p1,
                              int p2, void* stream) {
+  const int e = launch_paths<int16_t>(l0, l1, r0, r1, vol, nullptr, nullptr, nullptr, nullptr,
+                                      H, W, D, minD, p1, p2, true, stream);
+  if (e != 0) return e;
   cudaStream_t s = (cudaStream_t)stream;
-  const int warps = 2 * H + 2 * W;
-  sgm_paths_kernel<int16_t>
-      <<<(warps * 32 + kPathThreads - 1) / kPathThreads, kPathThreads, 0, s>>>(
-          (const int*)l0, (const int*)l1, (const int*)r0, (const int*)r1, (int16_t*)vol,
-          nullptr, nullptr, nullptr, nullptr, H, W, D, minD, p1, p2, 0);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const size_t n = (size_t)H * W * D;
-  if (n % 8 == 0)
-    sgm_sum4_vec_kernel<<<(unsigned)((n / 8 + 255) / 256), 256, 0, s>>>(
-        (const int16_t*)vol, (int16_t*)out, n);
+  const int Dp = padded_d(D);
+  const size_t pixels = (size_t)H * W;
+  if (Dp == D)
+    sgm_sum4_vec_kernel<<<(unsigned)((pixels * D / 8 + 255) / 256), 256, 0, s>>>(
+        (const int16_t*)vol, (int16_t*)out, pixels * D);
   else
-    sgm_sum4_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
-        (const int16_t*)vol, (int16_t*)out, n);
+    sgm_sum4_kernel<<<(unsigned)((pixels * D + 255) / 256), 256, 0, s>>>(
+        (const int16_t*)vol, (int16_t*)out, pixels, D, Dp);
   return (int)cudaGetLastError();
 }
 
+// vol: uint8 [4, H, W, Dp] from sgm_paths / sgm_sharded_paths; out: int16 [H, W].
 extern "C" int sgm_wta(const void* vol, void* out, int H, int W, int D, int minD,
                        int uniqueness, int subpixel, int lr_check, void* stream) {
-  const size_t smem = lr_check ? (size_t)W * sizeof(int) : 0;
+  if (D < 1 || D > 256 || minD < 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(skew16(W - 1) + 1) * sizeof(int) + 2 * (size_t)W * sizeof(int16_t);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         sgm_wta_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  sgm_wta_kernel<<<H, 256, smem, (cudaStream_t)stream>>>(
+  sgm_wta_kernel<<<H, kWtaThreads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)vol, (int16_t*)out, H, W, D, minD, uniqueness, subpixel, lr_check);
   return (int)cudaGetLastError();
 }

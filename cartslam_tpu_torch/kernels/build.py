@@ -10,6 +10,10 @@ use builds it, and a changed source builds a new one.
 Each C entry point launches on the stream it is given (the wrapper passes
 ``torch.cuda.current_stream().cuda_stream``) and returns
 ``cudaGetLastError()``; ``check`` raises when that is not 0.
+
+The objects are compiled with ``-Xptxas -v``: ptxas's report of each
+kernel's registers, shared memory and spill bytes is kept beside the
+library (``<library>.ptxas.txt``) and parsed by ``kernel_resources``.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -29,7 +34,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cartslam_tpu_torch"
 
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
-COMMON_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+COMMON_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # Per-file extra flags.  relax.cu must not contract a*b+c into FMAs: its
 # plain version (separate PyTorch ops) rounds after every operation.
 FILE_FLAGS = {"relax.cu": ["-fmad=false"]}
@@ -48,8 +53,8 @@ SIGNATURES = {
     "label_tally": [_P, _P, _I, _I, _I, _P, _P, _P],
     "tally_to_float": [_P, _P, _I, _P],
     "vote_tally": [_P, _P, _I, _I, _I, _P, _P],
-    "relax_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                    _P, _P, _P, _P, _P, _F, _F, _P],
+    "relax_label_rows": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "relax_sweeps": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _F, _F, _I, _P],
 }
 
 
@@ -58,6 +63,11 @@ class BuildInfo:
     path: Path
     seconds: float  # 0.0 when an existing library was loaded
     built: bool
+
+    @property
+    def report(self) -> Path:
+        """ptxas's -v report of the library's kernels."""
+        return self.path.with_suffix(".ptxas.txt")
 
 
 _lib: ctypes.CDLL | None = None
@@ -100,6 +110,7 @@ def build() -> BuildInfo:
     tmp.mkdir(exist_ok=True)
     procs = []
     objs = []
+    report = []
     for src in sources:
         obj = tmp / (src.stem + ".o")
         cmd = [nvcc, *ARCH, *COMMON_FLAGS, *FILE_FLAGS.get(src.name, []),
@@ -111,14 +122,76 @@ def build() -> BuildInfo:
         out, _ = p.communicate()
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{out}")
+        report.append(out)
     part = tmp / lib_path.name
     link = [nvcc, *ARCH, "-shared", "-o", str(part), *objs]
     res = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({' '.join(link)}):\n{res.stdout}")
+    info = BuildInfo(lib_path, time.perf_counter() - t0, True)
+    info.report.write_text("".join(report))
     os.replace(part, lib_path)
     shutil.rmtree(tmp, ignore_errors=True)
-    return BuildInfo(lib_path, time.perf_counter() - t0, True)
+    return info
+
+
+def _demangle(names: list[str]) -> list[str]:
+    """Readable kernel names through the toolkit's cu++filt (or c++filt),
+    where there is one."""
+    nvcc = shutil.which("nvcc")
+    beside = Path(nvcc).parent / "cu++filt" if nvcc else None
+    tool = (str(beside) if beside and beside.exists() else None) or shutil.which("cu++filt") \
+        or shutil.which("c++filt")
+    if not names or tool is None:
+        return names
+    res = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True)
+    out = res.stdout.splitlines()
+    return out if res.returncode == 0 and len(out) == len(names) else names
+
+
+def kernel_resources(report: str) -> list[dict]:
+    """Per kernel of a ptxas -v report: name, registers, static shared
+    memory bytes, stack frame and spill store / load bytes."""
+    kernels, cur, props = [], None, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = dict(name=m.group(1), registers=0, smem=0, stack=0, spill_stores=0,
+                       spill_loads=0)
+            kernels.append(cur)
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m and props == cur["name"]:
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    for k, name in zip(kernels, _demangle([k["name"] for k in kernels])):
+        k["name"] = _short_name(name)
+    return kernels
+
+
+def _short_name(name: str) -> str:
+    """A demangled kernel name without its return type, namespace and
+    parameter list: 'sgm_wta_kernel', 'relax_sweeps_kernel<(bool)1>'."""
+    name = re.sub(r"^void ", "", name)
+    name = re.sub(r"^(\(anonymous namespace\)|<unnamed>)::", "", name)
+    if name.endswith(")"):
+        depth = 0
+        for i in range(len(name) - 1, -1, -1):
+            depth += {")": 1, "(": -1}.get(name[i], 0)
+            if depth == 0:
+                return name[:i]
+    return name
 
 
 def library() -> ctypes.CDLL:

@@ -1,12 +1,14 @@
-"""Kernel K3: one contour-relaxation sweep (csrc/relax.cu) and its plain
-version.
+"""Kernel K3: the contour-relaxation sweeps of one ``relax`` call
+(csrc/relax.cu), and its plain version.
 
 Replaces the Pallas ``relax_phase_pallas`` (cartslam_tpu/ops/pallas/
-relax.py:240) in 'frame' stats mode with one phase.  The plain version is
-the port of ``phase_update`` (cartslam_tpu/ops/superpixels.py:335-417)
-followed by the carried stat-image update (:515).  On a CUDA tensor the
-wrapper launches the kernel or raises; on a CPU tensor it runs the plain
-version.
+relax.py:240) in 'frame' stats mode with one phase per sweep.
+``relax_sweeps`` runs a call's sweeps from the fixed per-label table.  Its
+plain version ``relax_sweeps_plain`` gathers the table into the per-pixel
+stat image and runs ``relax_sweep_plain`` once per sweep: the port of
+``phase_update`` (cartslam_tpu/ops/superpixels.py:335-417) followed by the
+carried stat-image update (:515).  On a CUDA tensor the wrapper launches the
+kernels or raises; on a CPU tensor it runs the plain version.
 
 Every float operation of the plain version is a separate PyTorch op, in the
 JAX code's order; divisions by a constant divide by a tensor, because CUDA
@@ -24,8 +26,11 @@ from typing import Sequence
 
 import torch
 
+from ..ops.tally import table_gather
 from . import build
 
+# Counts launches of the fused sweep kernel (each runs up to
+# SWEEPS_PER_LAUNCH sweeps; the per-call label-row prologue rides with them).
 COUNTER = build.counter("relax")
 OOB = -1
 # Candidate order = the reference's insertion order (x outer, y inner).
@@ -34,6 +39,14 @@ DIRECT = {(-1, 0), (1, 0), (0, -1), (0, 1)}
 KINDS = {"gaussian": 0, "compactness": 1}
 MAX_FEATURES = 4
 MAX_CHANNELS = 8
+# Floats per label in the kernel's label-major row table: 1 + 2C stats, then
+# one cost per feature.
+ROW_STRIDE = 32
+# Sweeps per launch of the fused kernel (temporal blocking: each launch
+# recomputes a halo as deep as its sweeps).  Chosen from chip_smoke.py's
+# timings of 1-24 sweeps a launch on the flagship's 8- and 24-sweep calls
+# (PERF.md).
+SWEEPS_PER_LAUNCH = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,38 +149,71 @@ def relax_sweep_plain(labels, stat_img, pixel_rows, features, c_total,
     return new_labels, torch.where(active[None], upd, stat_img)
 
 
-def relax_sweep(labels, stat_img, pixel_rows, features: Sequence[RelaxFeature],
-                c_total: int, direct_cost: float, diagonal_cost: float, prog=None):
-    """labels int32 [H, W]; stat_img, pixel_rows float32 [1 + 2C, H, W];
-    prog: float32 [H] progressive-compactness factor or None."""
+def launches(iterations: int) -> int:
+    """Launches of the fused kernel for one call of `iterations` sweeps."""
+    return -(-iterations // SWEEPS_PER_LAUNCH)
+
+
+def relax_sweeps_plain(labels, table, data, features, c_total, iterations, direct_cost,
+                       diagonal_cost, prog=None, return_stats=False):
+    """`iterations` sweeps from the fixed table: the table gathered into the
+    stat image, then relax_sweep_plain once per sweep.  Returns the labels,
+    and with return_stats also the carried stat image."""
+    stat_img = table_gather(table, labels).contiguous()
+    pixel_rows = torch.cat([torch.ones_like(data[:1]), data, data * data]).contiguous()
+    for _ in range(iterations):
+        labels, stat_img = relax_sweep_plain(labels, stat_img, pixel_rows, features, c_total,
+                                             direct_cost, diagonal_cost, prog)
+    return (labels, stat_img) if return_stats else labels
+
+
+def relax_sweeps(labels, table, data, features: Sequence[RelaxFeature], c_total: int,
+                 iterations: int, direct_cost: float, diagonal_cost: float, prog=None, *,
+                 return_stats: bool = False):
+    """`iterations` relaxation sweeps in 'frame' stats mode -> new labels.
+
+    labels int32 [H, W] (-1: outside the frame, never relabelled); table
+    float32 [1 + 2C, L] (count | sums | sums of squares per label, K2 or
+    K7); data float32 [C, H, W], the feature channels in the layout of
+    `features`; prog: float32 [H] progressive-compactness factor or None.
+    With return_stats, also table_gather(table, labels) of the new labels:
+    the stat image relax_phase_pallas carries (on the CPU, the plain
+    version's carried image, equal to it)."""
     if labels.device.type == "cpu":
         COUNTER.plain_calls += 1
-        return relax_sweep_plain(labels, stat_img, pixel_rows, features, c_total,
-                                 direct_cost, diagonal_cost, prog)
+        return relax_sweeps_plain(labels, table, data, features, c_total, iterations,
+                                  direct_cost, diagonal_cost, prog, return_stats)
     h, w = labels.shape
     nstat = 1 + 2 * c_total
     if len(features) > MAX_FEATURES or c_total > MAX_CHANNELS:
         raise ValueError(f"relax kernel takes <= {MAX_FEATURES} features and "
                          f"<= {MAX_CHANNELS} channels")
     build.expect(labels, "labels", torch.int32, (h, w))
-    build.expect(stat_img, "stat_img", torch.float32, (nstat, h, w), labels.device)
-    build.expect(pixel_rows, "pixel_rows", torch.float32, (nstat, h, w), labels.device)
+    build.expect(table, "table", torch.float32, (nstat, table.shape[-1]), labels.device)
+    build.expect(data, "data", torch.float32, (c_total, h, w), labels.device)
     if prog is not None:
         build.expect(prog, "prog", torch.float32, (h,), labels.device)
-    lib = build.library()
-    nf = len(features)
-    kinds = (ctypes.c_int * nf)(*[KINDS[f.kind] for f in features])
-    offs = (ctypes.c_int * nf)(*[f.offset for f in features])
-    chans = (ctypes.c_int * nf)(*[f.channels for f in features])
-    weights = (ctypes.c_float * nf)(*[f.weight for f in features])
-    out_labels = torch.empty_like(labels)
-    out_stat = torch.empty_like(stat_img)
-    build.check(lib.relax_sweep(labels.data_ptr(), stat_img.data_ptr(),
-                                pixel_rows.data_ptr(), out_labels.data_ptr(),
-                                out_stat.data_ptr(), h, w, c_total, nf, kinds, offs,
-                                chans, weights,
-                                prog.data_ptr() if prog is not None else None,
-                                direct_cost, diagonal_cost, build.stream()),
-                "relax_sweep")
-    COUNTER.launches += 1
-    return out_labels, out_stat
+    cur = labels
+    if iterations > 0:
+        lib = build.library()
+        s = build.stream()
+        nf, num = len(features), table.shape[-1]
+        feats = ((ctypes.c_int * nf)(*[KINDS[f.kind] for f in features]),
+                 (ctypes.c_int * nf)(*[f.offset for f in features]),
+                 (ctypes.c_int * nf)(*[f.channels for f in features]),
+                 (ctypes.c_float * nf)(*[f.weight for f in features]))
+        rows = torch.empty((num + 1, ROW_STRIDE), dtype=torch.float32, device=labels.device)
+        build.check(lib.relax_label_rows(table.data_ptr(), rows.data_ptr(), num, c_total, nf,
+                                         *feats, s), "relax_label_rows")
+        bufs = (torch.empty_like(labels), torch.empty_like(labels))
+        done = 0
+        while done < iterations:
+            n = min(SWEEPS_PER_LAUNCH, iterations - done)
+            out = bufs[1] if cur is bufs[0] else bufs[0]
+            build.check(lib.relax_sweeps(cur.data_ptr(), data.data_ptr(), rows.data_ptr(),
+                                         out.data_ptr(), h, w, num, c_total, nf, *feats,
+                                         build.ptr(prog), direct_cost, diagonal_cost, n, s),
+                        "relax_sweeps")
+            COUNTER.launches += 1
+            cur, done = out, done + n
+    return (cur, table_gather(table, cur)) if return_stats else cur

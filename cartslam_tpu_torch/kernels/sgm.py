@@ -27,6 +27,18 @@ MAX_P2 = 255 - stereo.COST_INVALID
 MAX_DISPARITIES = 256
 
 
+def padded_disparities(num_disparities: int) -> int:
+    """The d stride of the kernels' path volumes: D rounded up to 16, so
+    that the WTA kernel reads 16 disparities with one 16-byte load."""
+    return (num_disparities + 15) // 16 * 16
+
+
+def _path_volume(h: int, w: int, num_disparities: int, dtype, device) -> torch.Tensor:
+    """Scratch for the four path volumes [4, h, w, Dp]."""
+    return torch.empty((4, h, w, padded_disparities(num_disparities)), dtype=dtype,
+                       device=device)
+
+
 def _check_census(cl0, cl1, cr0, cr1) -> tuple[int, int]:
     h, w = cl0.shape
     for name, t in (("cl0", cl0), ("cl1", cl1), ("cr0", cr0), ("cr1", cr1)):
@@ -44,10 +56,10 @@ def sgm_fused(cl0, cl1, cr0, cr1, *, min_disparity: int, num_disparities: int,
     if cl0.device.type == "cpu":
         COUNTER.plain_calls += 1
         return stereo.sgm_from_census_plain(cl0, cl1, cr0, cr1, **kw)
-    _check_k1_params(p2, num_disparities)
+    _check_k1_params(p2, num_disparities, min_disparity)
     h, w = _check_census(cl0, cl1, cr0, cr1)
     lib = build.library()
-    vol = torch.empty((4, h, w, num_disparities), dtype=torch.uint8, device=cl0.device)
+    vol = _path_volume(h, w, num_disparities, torch.uint8, cl0.device)
     out = torch.empty((h, w), dtype=torch.int16, device=cl0.device)
     s = build.stream()
     build.check(lib.sgm_paths(cl0.data_ptr(), cl1.data_ptr(), cr0.data_ptr(),
@@ -62,11 +74,17 @@ def sgm_fused(cl0, cl1, cr0, cr1, *, min_disparity: int, num_disparities: int,
     return out
 
 
-def _check_k1_params(p2: int, num_disparities: int) -> None:
+def _check_k1_params(p2: int, num_disparities: int, min_disparity: int = 0) -> None:
     if p2 > MAX_P2:
         raise ValueError(f"sgm kernel stores path values as uint8: needs p2 <= {MAX_P2}")
+    _check_range(num_disparities, min_disparity)
+
+
+def _check_range(num_disparities: int, min_disparity: int) -> None:
     if not 1 <= num_disparities <= MAX_DISPARITIES:
         raise ValueError(f"sgm kernel takes 1..{MAX_DISPARITIES} disparities")
+    if min_disparity < 0:
+        raise ValueError("sgm kernel takes min_disparity >= 0")
 
 
 def sgm_vcarry_plain(cl0, cl1, cr0, cr1, tb, bt, *, min_disparity: int,
@@ -89,7 +107,7 @@ def sgm_vcarry(cl0, cl1, cr0, cr1, tb, bt, *, min_disparity: int, num_disparitie
     ckw = dict(min_disparity=min_disparity, num_disparities=num_disparities, p1=p1, p2=p2)
     if cl0.device.type == "cpu":
         return sgm_vcarry_plain(cl0, cl1, cr0, cr1, tb, bt, **ckw)
-    _check_k1_params(p2, num_disparities)
+    _check_k1_params(p2, num_disparities, min_disparity)
     h, w = _check_census(cl0, cl1, cr0, cr1)
     for name, t in (("tb", tb), ("bt", bt)):
         if t is not None:
@@ -139,13 +157,13 @@ def sgm_fused_sharded(cl0, cl1, cr0, cr1, tb, bt, *, min_disparity: int, num_dis
     if cl0.device.type == "cpu":
         SHARDED_COUNTER.plain_calls += 1
         return sgm_fused_sharded_plain(cl0, cl1, cr0, cr1, tb, bt, **kw)
-    _check_k1_params(p2, num_disparities)
+    _check_k1_params(p2, num_disparities, min_disparity)
     h, w = _check_census(cl0, cl1, cr0, cr1)
     for name, t in (("tb", tb), ("bt", bt)):
         if t is not None:
             build.expect(t, name, torch.int32, (w, num_disparities), cl0.device)
     lib = build.library()
-    vol = torch.empty((4, h, w, num_disparities), dtype=torch.uint8, device=cl0.device)
+    vol = _path_volume(h, w, num_disparities, torch.uint8, cl0.device)
     out = torch.empty((h, w), dtype=torch.int16, device=cl0.device)
     s = build.stream()
     build.check(lib.sgm_sharded_paths(cl0.data_ptr(), cl1.data_ptr(), cr0.data_ptr(),
@@ -177,11 +195,10 @@ def sgm_aggregate(cl0, cl1, cr0, cr1, *, min_disparity: int, num_disparities: in
     if cl0.device.type == "cpu":
         AGGREGATE_COUNTER.plain_calls += 1
         return sgm_aggregate_plain(cl0, cl1, cr0, cr1, **kw)
-    if not 1 <= num_disparities <= MAX_DISPARITIES:
-        raise ValueError(f"sgm_aggregate kernel takes 1..{MAX_DISPARITIES} disparities")
+    _check_range(num_disparities, min_disparity)
     h, w = _check_census(cl0, cl1, cr0, cr1)
     lib = build.library()
-    vol = torch.empty((4, h, w, num_disparities), dtype=torch.int16, device=cl0.device)
+    vol = _path_volume(h, w, num_disparities, torch.int16, cl0.device)
     out = torch.empty((h, w, num_disparities), dtype=torch.int16, device=cl0.device)
     build.check(lib.sgm_aggregate(cl0.data_ptr(), cl1.data_ptr(), cr0.data_ptr(),
                                   cr1.data_ptr(), vol.data_ptr(), out.data_ptr(), h, w,

@@ -2,9 +2,9 @@
 
 Features are per-label sufficient statistics (count, per-channel sums and
 sums of squares) kept CHANNEL-MAJOR as a table [1 + 2C, L].  The table comes
-from kernel K2 (``init_stats``); it is gathered once per frame into a
-per-pixel stat image, and each sweep (kernel K3) relabels the boundary
-pixels and carries the stat image forward from the winners' rows.
+from kernel K2 (``init_stats``) once per call and stays fixed; kernel K3
+(``relax_sweeps``) runs the call's sweeps from it, each relabelling the
+boundary pixels.
 
 Only the production mode is ported: ``stats_refresh="frame"`` with one
 phase per sweep.  Cost models (gaussian.cu:30-43, compactness.cu:28-35 of
@@ -21,7 +21,7 @@ import torch
 
 from ..kernels import relax as krelax
 from ..kernels import tally as ktally
-from .tally import label_tally, table_gather
+from .tally import label_tally
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,14 +118,5 @@ def relax(labels: torch.Tensor, feature_data: Sequence[torch.Tensor],
         core[top : h - bottom] = True
         tally_labels = torch.where(core[:, None], labels, krelax.OOB)
     stats0 = init_stats(tally_labels, data_all, num_labels, psum)
-    stat_img = table_gather(stats0, labels).contiguous()
-    pixel_rows = torch.cat(
-        [torch.ones((1, h, w), dtype=torch.float32, device=dev), data_all, data_all * data_all]
-    ).contiguous()
-    labels = labels.contiguous()
-    for _ in range(iterations):
-        labels, stat_img = krelax.relax_sweep(
-            labels, stat_img, pixel_rows, features, c_total, direct_cost,
-            diagonal_cost, prog,
-        )
-    return labels
+    return krelax.relax_sweeps(labels.contiguous(), stats0, data_all, features, c_total,
+                               iterations, direct_cost, diagonal_cost, prog)

@@ -3,14 +3,25 @@
 
 Phases (each raises on failure; none is caught):
   1. device   - require CUDA; print the card's name and power limit.
-  2. build    - compile the CUDA kernels from csrc/ with nvcc (sm_90a).
+  2. build    - compile the CUDA kernels from csrc/ with nvcc (sm_90a); print
+                ptxas's registers, shared memory and spill bytes of the SGM
+                path and WTA kernels and the relax kernels, and fail if the
+                flagship's instantiation of the fused relax kernel spills.
   3. kernels  - each kernel against its plain PyTorch version on the card, at
                 the flagship's shapes (376x1248, 256 disparities, 3329
                 labels), with its time, the plain version's, the time of one
                 PyTorch library call computing the same function where there
                 is one, and the least time the card could take (bound).  The
-                SGM stages (census, K6 aggregate, K1 fused) are timed side by
-                side.
+                SGM stages (census, K6 aggregate, K1 fused, K1's path and WTA
+                kernels alone) are timed side by side.  K1 is also held
+                against its plain version on uniform random 31-bit census
+                words (many tied costs), at D=64 and on a 37x61 crop with
+                D=15 and p2=193 and with D=100, each with the LR check and
+                the subpixel step on and off.  K3 (all sweeps of a call in
+                fused launches) is held against its plain version for 1, 8
+                and 24 sweeps from the block grid and from the labels after
+                24 sweeps, labels and stat image, and timed at 1-24 sweeps a
+                launch through its C entry points.
                 K5 (the height-sharded SGM) runs on 8 shards of 47 rows of
                 the same frame, the shards as threads on this one card: its
                 settle carries and shard outputs against its plain version,
@@ -27,15 +38,17 @@ Phases (each raises on failure; none is caught):
                   * the temporal flagship: configs/kitti-planeseg.json's
                     modules minus the host visualizations, unedited, for 65
                     synthetic frames through the registry and the run loop
-                    (K1 x65, K2 x65, K3 x552, K4 x65, no plain call);
+                    (K1 x65, K2 x65, K4 x65, K3 once per launch of its
+                    fused sweeps: launches(24) on frames 1 and 64,
+                    launches(8) on the others; no plain call);
                   * the non-temporal slice (no optflow, no temporal vote) for
                     10 frames;
                   * the spatial mode: configs/kitti-planeseg-spatial.json
                     through read_config (8 row shards, on this one card) for
                     10 frames, every output equal frame by frame to the
                     full-frame pipeline of the same modules with the 'select'
-                    warp (K5 x80, K2 x80, K3 x(24 + 9 x 8) x 8, K4 x80, K1 0,
-                    no plain call).
+                    warp (K5 x80, K2 x80, K3 x(launches(24) + 9 launches(8))
+                    x 8, K4 x80, K1 0, no plain call).
   5. parity   - the small temporal slice (64x128, 6 frames) on the card and on
                 the CPU, every output and the final state equal; the
                 full-size flow of one frame pair, card against CPU.
@@ -51,6 +64,7 @@ result line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import subprocess
@@ -94,9 +108,17 @@ SCALAR_OPS_PER_S = 67e12
 SGM_AGGREGATE_OPS_PER_CELL = 5 + 4 * 7 + 3
 SGM_FUSED_OPS_PER_CELL = SGM_AGGREGATE_OPS_PER_CELL + 6
 SGM_SETTLE_OPS_PER_CELL = 2 * (5 + 7)
-# Operations per candidate and channel of a relax sweep: 4 cost terms of
-# about 10 operations (a divide, a log, the variance) each.
-RELAX_OPS_PER_CANDIDATE_CHANNEL = 4 * 10
+# Operations of one cost term of a relax call, per channel: a divide, a log,
+# the variance and their adds, about 10.  K3's bound counts, once a call, one
+# term per label (the prologue's c(label)); in every sweep, per boundary
+# pixel, one c(old - pixel) term and one c(cand + pixel) term per distinct
+# candidate label other than its own (the own label's delta is 0, and
+# c(old), c(cand) are the prologue's), and per distinct candidate the
+# clique's 8 compares and 8 adds.
+RELAX_OPS_PER_TERM_CHANNEL = 10
+RELAX_CLIQUE_OPS = 2 * 8
+# Sweeps a launch of the fused relax kernel, timed against each other.
+RELAX_SWEEPS_PER_LAUNCH = (1, 2, 4, 8, 12, 24)
 
 # name -> (source, the TPU kernel it replaces (file:line), the path that runs it)
 KERNELS = {
@@ -115,20 +137,30 @@ KERNELS = {
     "sgm_sharded": ("cartslam_tpu_torch/csrc/sgm.cu", "cartslam_tpu/ops/pallas/sgm.py:320",
                     "spatial mode, 8 shards on one card"),
 }
-FLAGSHIP_LAUNCHES = {"sgm": FRAMES, "moment_tally": FRAMES,
-                     "relax": 24 + (FRAMES - 2) * 8 + 24, "vote_tally": FRAMES}
-NONTEMPORAL_LAUNCHES = {"sgm": NONTEMPORAL_FRAMES, "moment_tally": NONTEMPORAL_FRAMES,
-                        "relax": 24 + (NONTEMPORAL_FRAMES - 1) * 8,
-                        "vote_tally": NONTEMPORAL_FRAMES}
-# Every kernel launch of the spatial mode is per shard.
-FULL_FRAME_SELECT_LAUNCHES = {"sgm": SPATIAL_FRAMES, "sgm_sharded": 0,
-                              "moment_tally": SPATIAL_FRAMES,
-                              "relax": 24 + (SPATIAL_FRAMES - 1) * 8,
-                              "vote_tally": SPATIAL_FRAMES}
-SPATIAL_LAUNCHES = {"sgm": 0, "sgm_sharded": SHARDS * SPATIAL_FRAMES,
+
+
+def launch_plan() -> dict:
+    """The launches each path must count, by kernel.  The superpixels run 24
+    sweeps on frame 1 and on the reset frame 64, 8 on the others, and K3
+    launches kernels/relax.launches(sweeps) times per call.  Every kernel
+    launch of the spatial mode is per shard."""
+    from cartslam_tpu_torch.kernels.relax import launches
+
+    def k3(frames, resets=0):
+        return (1 + resets) * launches(24) + (frames - 1 - resets) * launches(8)
+
+    return {
+        "flagship": {"sgm": FRAMES, "moment_tally": FRAMES, "relax": k3(FRAMES, 1),
+                     "vote_tally": FRAMES},
+        "nontemporal": {"sgm": NONTEMPORAL_FRAMES, "moment_tally": NONTEMPORAL_FRAMES,
+                        "relax": k3(NONTEMPORAL_FRAMES), "vote_tally": NONTEMPORAL_FRAMES},
+        "full_frame_select": {"sgm": SPATIAL_FRAMES, "sgm_sharded": 0,
+                              "moment_tally": SPATIAL_FRAMES, "relax": k3(SPATIAL_FRAMES),
+                              "vote_tally": SPATIAL_FRAMES},
+        "spatial": {"sgm": 0, "sgm_sharded": SHARDS * SPATIAL_FRAMES,
                     "moment_tally": SHARDS * SPATIAL_FRAMES,
-                    "relax": SHARDS * (24 + (SPATIAL_FRAMES - 1) * 8),
-                    "vote_tally": SHARDS * SPATIAL_FRAMES}
+                    "relax": SHARDS * k3(SPATIAL_FRAMES), "vote_tally": SHARDS * SPATIAL_FRAMES},
+    }
 
 
 class OpCount(TorchDispatchMode):
@@ -178,6 +210,27 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def relax_work(lab: torch.Tensor) -> tuple[int, int]:
+    """(boundary pixels, distinct candidate labels (not -1) summed over
+    them) of lab: the pixels a relax sweep from lab must score, and their
+    candidates, each pixel's own label among them."""
+    h, w = lab.shape
+    pad = torch.nn.functional.pad(lab, (1, 1, 1, 1), value=-1)
+    nbs = [pad[1 + dy:1 + dy + h, 1 + dx:1 + dx + w] for dx in (-1, 0, 1) for dy in (-1, 0, 1)]
+    boundary = torch.zeros((h, w), dtype=torch.bool, device=lab.device)
+    for j, nb in enumerate(nbs):
+        if j != 4:
+            boundary |= (nb != -1) & (nb != lab)
+    count = torch.zeros((h, w), dtype=torch.int32, device=lab.device)
+    for j, nb in enumerate(nbs):
+        new = nb != -1
+        for nb2 in nbs[:j]:
+            new &= nb != nb2
+        count += new.int()
+    active = boundary & (lab != -1)
+    return int(active.sum()), int(count[active].sum())
+
+
 def flagship_modules() -> list[dict]:
     """configs/kitti-planeseg.json's modules, minus the host visualizations,
     as written (optflow, use_temporal_smoothing: true)."""
@@ -202,6 +255,7 @@ def kernel_phase(dev, tag):
     """Each kernel vs its plain version at the flagship's shapes.  Returns
     {name: dict(max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by)}
     and the inputs the path phase reuses."""
+    from cartslam_tpu_torch.kernels import build
     from cartslam_tpu_torch.kernels import relax as krelax
     from cartslam_tpu_torch.kernels import sgm as ksgm
     from cartslam_tpu_torch.kernels import tally as ktally
@@ -221,22 +275,61 @@ def kernel_phase(dev, tag):
         results[name] = dict(max_abs_err=float(err), ms=ms, plain_ms=pms, library_ms=lms,
                              bound_ms=bms, bound_by=by)
 
-    # K1
+    # K1: the synthetic pair's census and uniform random 31-bit census
+    # words (the census's range; many tied costs), at the flagship's shape,
+    # at D=64, and on an odd crop at the uint8 storage's largest p2 and at
+    # D=100, each with the LR check and the subpixel step on and off.
     gl, gr = color.bgr_to_gray(left), color.bgr_to_gray(right)
     cl = stereo.census_transform(gl)
     cr = stereo.census_transform(gr)
-    kw = dict(min_disparity=4, num_disparities=D, p1=10, p2=120, uniqueness=12,
-              subpixel=True, lr_check=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rand = [torch.randint(0, 2**31, (H, W), generator=gen, device=dev, dtype=torch.int32)
+            for _ in range(4)]
+    crop = lambda words: [x[:37, :61].contiguous() for x in words]
+    flag = dict(min_disparity=4, num_disparities=D, p1=10, p2=120)
+    d64 = dict(min_disparity=0, num_disparities=64, p1=10, p2=120)
+    odd = dict(min_disparity=3, num_disparities=15, p1=7, p2=ksgm.MAX_P2)
+    # D=100: two 16-bit pairs a lane, more disparities than the crop is wide.
+    wide = dict(min_disparity=1, num_disparities=100, p1=10, p2=120)
+    cases = [("synthetic", [*cl, *cr], flag), ("random", rand, flag),
+             ("synthetic", [*cl, *cr], d64), ("random", rand, d64),
+             ("synthetic [37,61]", crop([*cl, *cr]), odd), ("random [37,61]", crop(rand), odd),
+             ("random [37,61]", crop(rand), wide)]
+    for name, words, ckw in cases:
+        valid = []
+        for lr in (True, False):
+            for sub in (True, False):
+                kw = dict(ckw, uniqueness=12, subpixel=sub, lr_check=lr)
+                a, b = ksgm.sgm_fused(*words, **kw), stereo.sgm_from_census_plain(*words, **kw)
+                if not torch.equal(a, b):
+                    raise AssertionError(f"K1 sgm, {name} census, {kw}: "
+                                         f"{int((a != b).sum())} pixels differ from the plain "
+                                         "version")
+                valid.append(float((a != stereo.DISPARITY_INVALID).float().mean()))
+        log(f"K1 sgm: array_equal on {name} census, D={ckw['num_disparities']} minD "
+            f"{ckw['min_disparity']} p2 {ckw['p2']}, LR and subpixel on/off (valid share "
+            f"{', '.join(f'{v:.3f}' for v in valid)})")
+    kw = dict(flag, uniqueness=12, subpixel=True, lr_check=True)
     out_k = ksgm.sgm_fused(*cl, *cr, **kw)
     out_p = stereo.sgm_from_census_plain(*cl, *cr, **kw)
-    if not torch.equal(out_k, out_p):
-        n = int((out_k != out_p).sum())
-        raise AssertionError(f"K1 sgm: {n} pixels differ from the plain version")
     ms = cuda_ms(lambda: ksgm.sgm_fused(*cl, *cr, **kw), 20)
     pms = cuda_ms(lambda: stereo.sgm_from_census_plain(*cl, *cr, **kw), 2)
     record("sgm", (out_k.int() - out_p.int()).abs().max(), ms, pms, None,
            4 * H * W * 4 + H * W * 2, H * W * D * SGM_FUSED_OPS_PER_CELL)
-    log(f"K1 sgm: array_equal at [{H},{W}] D={D}; kernel {ms:.3f} ms, plain {pms:.3f} ms  [{tag}]")
+    # K1's two kernels alone, on the same inputs.
+    lib, stream = build.library(), build.stream()
+    vol = torch.empty((4, H, W, ksgm.padded_disparities(D)), dtype=torch.uint8, device=dev)
+    out16 = torch.empty((H, W), dtype=torch.int16, device=dev)
+    paths_ms = cuda_ms(lambda: build.check(lib.sgm_paths(
+        *(x.data_ptr() for x in (*cl, *cr)), vol.data_ptr(), H, W, D, 4, 10, 120, stream),
+        "sgm_paths"), 20)
+    wta_ms = cuda_ms(lambda: build.check(lib.sgm_wta(
+        vol.data_ptr(), out16.data_ptr(), H, W, D, 4, 12, 1, 1, stream), "sgm_wta"), 20)
+    if not torch.equal(out16, out_k):
+        raise AssertionError("K1: sgm_paths + sgm_wta called alone differ from sgm_fused")
+    del vol
+    log(f"K1 sgm: kernel {ms:.3f} ms (sgm_paths {paths_ms:.3f} ms, sgm_wta {wta_ms:.3f} ms "
+        f"alone), plain {pms:.3f} ms at [{H},{W}] D={D}  [{tag}]")
 
     # K6, then the SGM stages side by side.
     akw = dict(min_disparity=4, num_disparities=D, p1=10, p2=120)
@@ -304,40 +397,95 @@ def kernel_phase(dev, tag):
     log(f"K2 moment_tally: array_equal [{tk.shape[0]},{num_labels}] from N={n}; "
         f"kernel {ms:.3f} ms, plain {pms:.3f} ms, index_add_ int64 {lms:.3f} ms  [{tag}]")
 
-    # K3: one sweep from identical inputs.
+    # K3: a call's fused sweeps against relax_sweeps_plain, labels and stat
+    # image, from the block grid and from the labels after 24 sweeps (where
+    # the boundary is the flagship's after frame 1).
     feats = [krelax.RelaxFeature("gaussian", 0, 2, 1.0), krelax.RelaxFeature("gaussian", 2, 3, 1.5),
              krelax.RelaxFeature("compactness", 5, 2, 0.1)]
-    stat_img = tk[:, flat.long()].reshape(-1, H, W).contiguous()
-    pix = torch.cat([torch.ones(1, H, W, device=dev), data, data * data]).contiguous()
-    args = (labels, stat_img, pix, feats, 7, 0.5, 0.5 / np.sqrt(2))
-    lk, sk = krelax.relax_sweep(*args)
-    lp, spl = krelax.relax_sweep_plain(*args)
-    ndiff = int((lk != lp).sum())
-    moved = int((lk != labels).sum())
-    log(f"K3 relax: {ndiff} label pixels differ from the plain version (bound "
-        f"{RELAX_LABEL_BOUND}); {moved} pixels relabelled by the sweep")
-    if ndiff > RELAX_LABEL_BOUND or moved == 0:
-        raise AssertionError("K3 relax disagrees with its plain version")
-    same = (lk == lp)[None].expand_as(sk)
-    if not torch.equal(sk[same], spl[same]):
-        raise AssertionError("K3 relax: stat rows differ where labels agree")
-    ms = cuda_ms(lambda: krelax.relax_sweep(*args), 50)
-    pms = cuda_ms(lambda: krelax.relax_sweep_plain(*args), 3)
-    # Work: every boundary pixel (a 3x3 neighbour of another label) scores
-    # its 9 candidates over the 7 channels; the others copy their rows.
-    lpad = torch.nn.functional.pad(labels[None, None].float(), (1, 1, 1, 1), mode="replicate")
-    boundary = int((torch.nn.functional.max_pool2d(lpad, 3, 1) != -torch.nn.functional.max_pool2d(
-        -lpad, 3, 1)).sum())
-    nstat = stat_img.shape[0]
+    diag = 0.5 / np.sqrt(2)
+    k3 = lambda lab, n, table, **kw: krelax.relax_sweeps(lab, table, data, feats, 7, n, 0.5,
+                                                         diag, **kw)
+    p3 = lambda lab, n, table: krelax.relax_sweeps_plain(lab, table, data, feats, 7, n, 0.5,
+                                                         diag, return_stats=True)
+    # From the block grid with its table (frame 1's call), and from the
+    # labels after those 24 sweeps with their own table (the next frame's).
+    labels24 = k3(labels, 24, table=tk)
+    tk24 = ktally.moment_tally(labels24.reshape(-1).contiguous(), data_i, num_labels)
+    for start_name, start, table in (("the block grid", labels, tk),
+                                     ("the labels after 24 sweeps", labels24, tk24)):
+        if int((k3(start, 1, table=table) != start).sum()) == 0:
+            raise AssertionError(f"K3 relax: a sweep from {start_name} moved no label")
+        for n_sweeps in (1, 8, 24):
+            lk, sk = k3(start, n_sweeps, table=table, return_stats=True)
+            lp, spl = p3(start, n_sweeps, table)
+            ndiff, moved = int((lk != lp).sum()), int((lk != start).sum())
+            log(f"K3 relax, {n_sweeps} sweeps from {start_name}: {ndiff} label pixels differ "
+                f"from the plain version (bound {RELAX_LABEL_BOUND}); {moved} pixels differ "
+                "from the start")
+            if ndiff > RELAX_LABEL_BOUND:
+                raise AssertionError("K3 relax disagrees with its plain version")
+            if not torch.equal(sk, spl):
+                raise AssertionError("K3 relax: the stat image differs from the plain version's")
+    ms = cuda_ms(lambda: k3(labels24, 8, table=tk24), 50)
+    pms = cuda_ms(lambda: krelax.relax_sweeps_plain(labels24, tk24, data, feats, 7, 8, 0.5,
+                                                    diag), 2)
+    # The same calls split into launches of 1-24 sweeps, through the C entry
+    # points (the wrapper's split is krelax.SWEEPS_PER_LAUNCH, chosen from
+    # these times); each split gives the wrapper's labels.
+    nf, num = len(feats), tk.shape[-1]
+    cfeats = ((ctypes.c_int * nf)(*[krelax.KINDS[f.kind] for f in feats]),
+              (ctypes.c_int * nf)(*[f.offset for f in feats]),
+              (ctypes.c_int * nf)(*[f.channels for f in feats]),
+              (ctypes.c_float * nf)(*[f.weight for f in feats]))
+    rows = torch.empty((num + 1, krelax.ROW_STRIDE), dtype=torch.float32, device=dev)
+    bufs = (torch.empty_like(labels), torch.empty_like(labels))
+
+    def k3_split(start, table, iterations, per_launch):
+        build.check(lib.relax_label_rows(table.data_ptr(), rows.data_ptr(), num, 7, nf,
+                                         *cfeats, stream), "relax_label_rows")
+        cur = start
+        for done in range(0, iterations, per_launch):
+            out = bufs[done // per_launch % 2]
+            build.check(lib.relax_sweeps(cur.data_ptr(), data.data_ptr(), rows.data_ptr(),
+                                         out.data_ptr(), H, W, num, 7, nf, *cfeats, None, 0.5,
+                                         diag, min(per_launch, iterations - done), stream),
+                        "relax_sweeps")
+            cur = out
+        return cur
+
+    per_launch = {}
+    for k in RELAX_SWEEPS_PER_LAUNCH:
+        for start, table, iterations in ((labels24, tk24, 8), (labels, tk, 24)):
+            if not torch.equal(k3_split(start, table, iterations, k), k3(start, iterations,
+                                                                          table=table)):
+                raise AssertionError(f"K3 relax: {iterations} sweeps in launches of {k} "
+                                     "differ from the wrapper's")
+        per_launch[k] = (cuda_ms(lambda: k3_split(labels24, tk24, 8, k), 30),
+                         cuda_ms(lambda: k3_split(labels, tk, 24, k), 10))
+    # Bound of the flagship frame's call (8 sweeps from labels24): the labels
+    # in and out, the 7 data planes and the table, once; the prologue's term
+    # per label, and every sweep's terms and cliques of its boundary pixels.
+    lab, pixels, cands = labels24, 0, 0
+    for _ in range(8):
+        p, c = relax_work(lab)
+        pixels, cands = pixels + p, cands + c
+        lab = k3(lab, 1, table=tk24)
+    term = 7 * RELAX_OPS_PER_TERM_CHANNEL
     record("relax", (lk - lp).abs().max(), ms, pms, None,
-           2 * 4 * n + 3 * 4 * nstat * n, boundary * 9 * 7 * RELAX_OPS_PER_CANDIDATE_CHANNEL)
-    log(f"K3 relax: kernel {ms:.3f} ms, plain {pms:.3f} ms per sweep; {boundary} boundary "
-        f"pixels  [{tag}]")
+           2 * 4 * n + 7 * 4 * n + 4 * tk24.numel(),
+           num * term + pixels * term + (cands - pixels) * term + cands * RELAX_CLIQUE_OPS)
+    log(f"K3 relax: 8 sweeps from the labels after 24 (a flagship frame's call, "
+        f"{krelax.launches(8)} launch(es)) kernel {ms:.3f} ms, plain {pms:.3f} ms; "
+        f"{pixels} boundary pixels and {cands} distinct candidates over the 8 sweeps  [{tag}]")
+    log("K3 relax, ms by sweeps a launch (8-sweep call / 24-sweep call from the block grid; "
+        "C entry points): "
+        + ", ".join(f"{k}: {a:.4f} / {b:.4f}" for k, (a, b) in per_launch.items())
+        + f"; the wrapper's {krelax.SWEEPS_PER_LAUNCH}  [{tag}]")
 
     # K4
     ranges = torch.tensor([[3, 40], [-6, 3]], dtype=torch.int32, device=dev)
     votes = planeseg.classify(deriv[..., 0], ranges).reshape(-1).contiguous()
-    vlabels = lk.reshape(-1).contiguous()
+    vlabels = labels24.reshape(-1).contiguous()
     ck = ktally.vote_tally(vlabels, votes, num_labels, 3)
     cp = ktally.vote_tally_plain(vlabels, votes, num_labels, 3)
     if not torch.equal(ck, cp):
@@ -446,13 +594,13 @@ def shard_kernels_phase(dev, paths) -> None:
       * init_stats(psum=...) on each halo-extended shard (K2 with its
         int64 table psum'd, then tally_to_float) against moment_tally_plain
         with the same reduce, and against the full frame's K2 table;
-      * one K3 sweep on the halo-extended rows of shards 0 and 1;
+      * K3's sweeps (as many as halo rows) on the halo-extended rows of
+        shards 0 and 1, labels and stat image;
       * K4 on each shard's rows against its plain version, and the psum of
         the shards' tables against the full frame's."""
     from cartslam_tpu_torch.kernels import relax as krelax
     from cartslam_tpu_torch.kernels import tally as ktally
     from cartslam_tpu_torch.ops.superpixels import init_stats
-    from cartslam_tpu_torch.ops.tally import table_gather
     from cartslam_tpu_torch.parallel.group import ShardGroup
     from cartslam_tpu_torch.runtime.module import SpatialContext
 
@@ -501,21 +649,20 @@ def shard_kernels_phase(dev, paths) -> None:
                                      "from the plain version's or the full frame's")
             if i > 1:
                 continue
-            stat_img = table_gather(stats_k, lab_ext).contiguous()
-            pix = torch.cat([torch.ones_like(data_ext[:1]), data_ext, data_ext * data_ext])
-            args = (lab_ext, stat_img, pix.contiguous(), paths["feats"], 7, 0.5,
-                    0.5 / np.sqrt(2))
-            lk, sk = krelax.relax_sweep(*args)
-            lp, spl = krelax.relax_sweep_plain(*args)
+            # K3 as models/superpixels.py calls it on a shard: as many sweeps
+            # as halo rows, from the psum'd table.
+            args = (lab_ext, stats_k, data_ext, paths["feats"], 7, halo, 0.5, 0.5 / np.sqrt(2))
+            lk, sk = krelax.relax_sweeps(*args, return_stats=True)
+            lp, spl = krelax.relax_sweeps_plain(*args, return_stats=True)
             ndiff, moved = int((lk != lp).sum()), int(((lk != lab_ext) & (lab_ext >= 0)).sum())
-            same = (lk == lp)[None].expand_as(sk)
-            if ndiff > RELAX_LABEL_BOUND or moved == 0 or not torch.equal(sk[same], spl[same]):
+            if ndiff > RELAX_LABEL_BOUND or moved == 0 or not torch.equal(sk, spl):
                 raise AssertionError(f"K3 {where}: {ndiff} labels differ from the plain "
-                                     f"version (bound {RELAX_LABEL_BOUND}), {moved} moved")
+                                     f"version (bound {RELAX_LABEL_BOUND}), {moved} moved, or "
+                                     "the stat image differs")
     log(f"shard shapes, {SHARDS} shards: K2 on [{hl + 16},{W}] and [{hl + 48},{W}] halo rows "
         f"(int64 tables psum'd, then tally_to_float) array_equal to the plain version and to "
-        f"the full frame's table; K3 one sweep on shards 0 and 1 at both halos, 0 labels "
-        f"differ; K4 on [{hl},{W}] array_equal to the plain version, psum'd equal to the full "
+        f"the full frame's table; K3 8 and 24 sweeps (as many as halo rows) on shards 0 and "
+        f"1, 0 labels differ, stat images equal; K4 on [{hl},{W}] array_equal to the plain version, psum'd equal to the full "
         f"frame's table")
 
 
@@ -596,7 +743,7 @@ def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(a, b)
 
 
-def spatial_phase(frames, intrinsics, dev, tag) -> tuple[int, list]:
+def spatial_phase(frames, intrinsics, dev, tag, plan) -> tuple[int, list]:
     """configs/kitti-planeseg-spatial.json through read_config, the synthetic
     frames standing in for KITTI, SPATIAL_FRAMES frames on SHARDS row shards
     of this one card; every output equal frame by frame to the full-frame
@@ -613,12 +760,12 @@ def spatial_phase(frames, intrinsics, dev, tag) -> tuple[int, list]:
                 if m["type"] == "superpixel_disparity_planeseg" else m for m in mods]
     src = lambda: PreloadedSource(frames[:SPATIAL_FRAMES], intrinsics=intrinsics)
     want, got = [], []
-    drive(*build_pipeline(src(), ref_mods, device=dev), FULL_FRAME_SELECT_LAUNCHES, keep=want)
+    drive(*build_pipeline(src(), ref_mods, device=dev), plan["full_frame_select"], keep=want)
     pipe, source = read_config(cfg, device=dev, source=src())
     if not isinstance(pipe, SpatialPipeline) or pipe.n != SHARDS:
         raise AssertionError(f"{cfg} did not build a {SHARDS}-shard SpatialPipeline")
     torch.cuda.reset_peak_memory_stats(dev)
-    _, res, frame_ms, _, counts = drive(pipe, source, SPATIAL_LAUNCHES, keep=got)
+    _, res, frame_ms, _, counts = drive(pipe, source, plan["spatial"], keep=got)
     peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
     if res.frames != SPATIAL_FRAMES:
         raise AssertionError(f"spatial: ran {res.frames} frames, expected {SPATIAL_FRAMES}")
@@ -885,6 +1032,29 @@ def spatial_profile(frames, intrinsics, dev, tag) -> None:
                    tag)
 
 
+def ptxas_report(build, info) -> None:
+    """Registers, static shared memory and spill bytes (ptxas -v) of K1's
+    path and WTA kernels and of K3's kernels; fails if the flagship's
+    instantiation of the fused relax kernel spills."""
+    import re
+
+    kernels = build.kernel_resources(info.report.read_text())
+    flagship_relax = []
+    for k in kernels:
+        name = k["name"]
+        if not re.search(r"sgm_[hv]paths|sgm_wta|relax_", name):
+            continue
+        if re.search(r"relax_sweeps_kernel(<true>|<\(bool\)1>|ILb1E)", name):
+            flagship_relax.append(k)
+        log(f"ptxas: {name}: {k['registers']} registers, {k['smem']} bytes static smem, "
+            f"{k['stack']} bytes stack, {k['spill_stores']} / {k['spill_loads']} bytes spill "
+            "stores / loads")
+    if len(flagship_relax) != 1 or flagship_relax[0]["spill_stores"] or \
+            flagship_relax[0]["spill_loads"]:
+        raise AssertionError(f"ptxas: the flagship relax kernel spills, or is missing from "
+                             f"the report: {flagship_relax}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing to run",
@@ -910,6 +1080,8 @@ def main() -> int:
     sources = ", ".join(sorted(os.path.basename(p) for p in map(str, build.source_files())))
     log(f"build: {'compiled' if info.built else 'loaded'} {info.path.name} from csrc/ "
         f"({sources}) in {info.seconds:.2f} s")
+    ptxas_report(build, info)
+    plan = launch_plan()
 
     # 3. kernels vs plain versions
     results, paths = kernel_phase(dev, tag)
@@ -925,7 +1097,7 @@ def main() -> int:
     source = PreloadedSource.wrap(gen)
     torch.cuda.reset_peak_memory_stats(dev)
     pipe, res, frame_ms, last, counts = drive(
-        *build_pipeline(source, flagship_modules(), device=dev), FLAGSHIP_LAUNCHES)
+        *build_pipeline(source, flagship_modules(), device=dev), plan["flagship"])
     peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
     log("flagship modules: " + " -> ".join(m.name for m in pipe.modules))
     log(f"flagship: {res.frames} frames at {H}x{W}, D={D}; launches {counts}; "
@@ -933,18 +1105,18 @@ def main() -> int:
     if res.frames != FRAMES:
         raise AssertionError(f"ran {res.frames} frames, expected {FRAMES}")
     check_flagship_outputs(res, last, gen)
-    for name in FLAGSHIP_LAUNCHES:
+    for name in plan["flagship"]:
         launches[name] = counts[name]
     del pipe, res, last
 
     nt_source = PreloadedSource(source.frames[:NONTEMPORAL_FRAMES],
                                 intrinsics=source.get_camera_intrinsics())
     _, nt_res, nt_ms, _, nt_counts = drive(
-        *build_pipeline(nt_source, nontemporal_modules(), device=dev), NONTEMPORAL_LAUNCHES)
+        *build_pipeline(nt_source, nontemporal_modules(), device=dev), plan["nontemporal"])
     log(f"non-temporal slice: {nt_res.frames} frames; launches {nt_counts}; per-frame median "
         f"{float(np.median(nt_ms[2:])):.3f} ms over frames 3..{NONTEMPORAL_FRAMES}  [{tag}]")
     launches["sgm_sharded"], _ = spatial_phase(source.frames, source.get_camera_intrinsics(),
-                                               dev, tag)
+                                               dev, tag, plan)
 
     # 5. card against CPU
     small_temporal_check(dev)

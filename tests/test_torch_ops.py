@@ -302,7 +302,7 @@ def test_relax_matches_jax(progressive):
                                backend="xla"))
     before = krelax.COUNTER.plain_calls
     out = tsp.relax(t(labels), [t(deriv), t(img)], tspecs, num_labels, 5, 0.5, diag).numpy()
-    assert krelax.COUNTER.plain_calls == before + 5
+    assert krelax.COUNTER.plain_calls == before + 1  # one relax_sweeps call for all 5 sweeps
     assert (ref != labels).sum() > 0  # the sweeps moved labels
     np.testing.assert_array_equal(out, ref)
 
@@ -320,7 +320,7 @@ def test_relax_sweep_plain_matches_jax_phase_update():
     stats = tsp.init_stats(t(labels), t(data), num_labels)
     stat_img = stats[:, t(labels).reshape(-1).long()].reshape(-1, h, w)
     pix = torch.cat([torch.ones(1, h, w), t(data), t(data) * t(data)])
-    nl, ns = krelax.relax_sweep(t(labels), stat_img, pix, feats, 7, 0.5, 0.5 / np.sqrt(2))
+    nl, ns = krelax.relax_sweep_plain(t(labels), stat_img, pix, feats, 7, 0.5, 0.5 / np.sqrt(2))
 
     # JAX's relax() returns labels only; in frame mode each pixel's carried
     # rows are the table row of its (new) label.
@@ -332,6 +332,108 @@ def test_relax_sweep_plain_matches_jax_phase_update():
                                backend="xla"))
     np.testing.assert_array_equal(nl.numpy(), ref)
     np.testing.assert_array_equal(ns.numpy(), stats[:, nl.reshape(-1).long()].reshape(-1, h, w).numpy())
+
+
+FLAGSHIP_FEATURES = [krelax.RelaxFeature("gaussian", 0, 2, 1.0),
+                     krelax.RelaxFeature("gaussian", 2, 3, 1.5),
+                     krelax.RelaxFeature("compactness", 5, 2, 0.1)]
+
+
+def _relax_sweeps_args(h, w, seed, progressive):
+    """(labels, table, data, prog) as ops/superpixels.relax builds them for
+    the flagship's layout: deriv (2) | YCrCb (3) | x, y."""
+    labels, deriv, img = _relax_inputs(h, w, seed)
+    num_labels = int(jsp.block_init_labels(h, w, 8, 8)[1]) + 1
+    data = torch.from_numpy(np.concatenate([
+        np.moveaxis(deriv, -1, 0), np.moveaxis(img, -1, 0),
+        np.stack(np.meshgrid(np.arange(w), np.arange(h))).astype(np.float32)]))
+    table = tsp.init_stats(t(labels), data, num_labels)
+    prog = None
+    if progressive:
+        rows, gh = torch.arange(h, dtype=torch.float32), torch.tensor(float(h))
+        prog = 1.0 + progressive * (gh - rows) / gh
+    return labels, deriv, img, num_labels, table, data, prog
+
+
+@pytest.mark.parametrize("iterations", [1, 5])
+@pytest.mark.parametrize("progressive", [0.0, 0.5])
+def test_relax_sweeps_matches_jax(iterations, progressive):
+    """K3's entry on CPU tensors (its plain version) equals JAX relax in
+    'frame' stats mode, labels array_equal, with and without the
+    progressive compactness factor."""
+    h, w = 27, 38
+    labels, deriv, img, num_labels, table, data, prog = _relax_sweeps_args(
+        h, w, 20 + iterations, progressive)
+    ref = np.asarray(jsp.relax(jnp.asarray(labels), [jnp.asarray(deriv), jnp.asarray(img)],
+                               [jsp.FeatureSpec("gaussian", 1.0, 2),
+                                jsp.FeatureSpec("gaussian", 1.5, 3, bounds=(0, 255)),
+                                jsp.FeatureSpec("compactness", 0.1, 2, progressive)],
+                               num_labels, iterations, 0.5, 0.5 / np.sqrt(2),
+                               stats_refresh="frame", backend="xla"))
+    before = krelax.COUNTER.plain_calls
+    out = krelax.relax_sweeps(t(labels), table, data, FLAGSHIP_FEATURES, 7, iterations, 0.5,
+                              0.5 / np.sqrt(2), prog)
+    assert krelax.COUNTER.plain_calls == before + 1
+    assert out.dtype == torch.int32 and (ref != labels).any()
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("iterations", [0, 1, 4])
+def test_relax_sweeps_stat_image_is_the_table_row(iterations):
+    """With return_stats, the carried stat image (what relax_phase_pallas
+    returns) equals table_gather(table, new labels) exactly, and the labels
+    equal those returned without it."""
+    labels, _, _, _, table, data, prog = _relax_sweeps_args(22, 35, 31, 0.5)
+    args = (t(labels), table, data, FLAGSHIP_FEATURES, 7, iterations, 0.5, 0.5 / np.sqrt(2),
+            prog)
+    nl, ns = krelax.relax_sweeps(*args, return_stats=True)
+    assert torch.equal(nl, krelax.relax_sweeps(*args))
+    assert ns.shape == (15, 22, 35)
+    assert torch.equal(ns, ttally.table_gather(table, nl))
+    if iterations:
+        assert not torch.equal(nl, t(labels))
+
+
+def test_relax_launches_and_sgm_volume_padding():
+    """The launch count of a K3 call, and K1's padded d stride and limits."""
+    s = krelax.SWEEPS_PER_LAUNCH
+    assert [krelax.launches(n) for n in (0, 1, s, s + 1, 3 * s)] == [0, 1, 1, 2, 3]
+    assert [ksgm.padded_disparities(d) for d in (1, 15, 16, 48, 100, 256)] == [
+        16, 16, 16, 48, 112, 256]
+    with pytest.raises(ValueError, match="min_disparity"):
+        ksgm._check_k1_params(120, 64, -1)
+    with pytest.raises(ValueError, match="disparities"):
+        ksgm._check_k1_params(120, 257, 0)
+
+
+PTXAS_REPORT = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function 'sgm_wta_kernel' for 'sm_90a'
+ptxas info    : Function properties for sgm_wta_kernel
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 74 registers, used 1 barriers, 480 bytes cmem[0]
+ptxas info    : Compiling entry function 'relax_sweeps_kernel' for 'sm_90a'
+ptxas info    : Function properties for relax_sweeps_kernel
+    8 bytes stack frame, 12 bytes spill stores, 24 bytes spill loads
+ptxas info    : Used 64 registers, 16 bytes smem, 480 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_is_parsed_per_kernel():
+    """build.kernel_resources reads each kernel's registers, static shared
+    memory, stack and spill bytes from an nvcc -Xptxas -v report, and
+    _short_name strips a demangled name to the kernel and its template."""
+    got = build.kernel_resources(PTXAS_REPORT)
+    assert got == [
+        dict(name="sgm_wta_kernel", registers=74, smem=0, stack=0, spill_stores=0,
+             spill_loads=0),
+        dict(name="relax_sweeps_kernel", registers=64, smem=16, stack=8, spill_stores=12,
+             spill_loads=24)]
+    for demangled in ("void (anonymous namespace)::relax_sweeps_kernel<true>(int const*, int)",
+                      "void <unnamed>::relax_sweeps_kernel<true>(int*)"):
+        assert build._short_name(demangled) == "relax_sweeps_kernel<true>"
+    assert build._short_name("void sgm_hpaths_kernel<short, (int)8>(int const*, short*)") == \
+        "sgm_hpaths_kernel<short, (int)8>"
 
 
 # ---------------------------------------------------------------- planes

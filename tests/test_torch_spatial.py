@@ -386,6 +386,45 @@ def test_psummed_stat_table_is_rounded_once():
     assert got.tolist() == [[[1.0, 0.0], [5.0, 0.0]], [[6.0, 0.0], [10.0, 0.0]]]
 
 
+@pytest.mark.parametrize("shard", [0, 1, 3])
+def test_relax_sweeps_on_shard_rows_match_full_frame(shard):
+    """K3's entry (its plain version here) on one shard's rows with
+    `iterations`-row label halos, -1 beyond the frame, the global table and
+    the global rows' progressive factor: its core rows equal the same rows
+    of the full-frame call, and the -1 rows stay -1."""
+    from cartslam_tpu_torch.kernels import relax as krelax
+    from cartslam_tpu_torch.ops.superpixels import block_init_labels, init_stats
+
+    n, hl, w, k = 4, 8, 40, 3
+    h = n * hl
+    rng = np.random.default_rng(shard)
+    labels, num = block_init_labels(h, w, 6, 6)
+    num += 1
+    img = torch.from_numpy(np.clip(rng.normal(128, 40, (5, h, w)), 0, 255).round()
+                           .astype(np.float32))
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32),
+                            torch.arange(w, dtype=torch.float32), indexing="ij")
+    data = torch.cat([img, xs[None], ys[None]]).contiguous()
+    table = init_stats(labels, data, num)
+    feats = [krelax.RelaxFeature("gaussian", 0, 2, 1.0), krelax.RelaxFeature("gaussian", 2, 3, 1.5),
+             krelax.RelaxFeature("compactness", 5, 2, 0.1)]
+    gh = torch.tensor(float(h))
+    prog_of = lambda rows: 1.0 + 0.5 * (gh - rows) / gh
+    full = krelax.relax_sweeps(labels, table, data, feats, 7, k, 0.5, 0.5 / np.sqrt(2),
+                               prog_of(torch.arange(h, dtype=torch.float32)))
+    assert not torch.equal(full, labels)
+
+    rows = torch.arange(shard * hl - k, (shard + 1) * hl + k)
+    inside = (rows >= 0) & (rows < h)
+    src = rows.clamp(0, h - 1)
+    lab_ext = torch.where(inside[:, None], labels[src], -1).contiguous()
+    data_ext = torch.where(inside[None, :, None], data[:, src], 0.0).contiguous()
+    out = krelax.relax_sweeps(lab_ext, table, data_ext, feats, 7, k, 0.5, 0.5 / np.sqrt(2),
+                              prog_of(rows.to(torch.float32)))
+    assert torch.equal(out[k:k + hl], full[shard * hl:(shard + 1) * hl])
+    assert (out[~inside] == -1).all()
+
+
 # --------------------------------------------------------- the shard group
 
 
