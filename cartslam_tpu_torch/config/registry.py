@@ -2,7 +2,8 @@
 
 Same schema ({"data_source": {...}, "modules": [...]}, or a source file and
 a modules file) and the same per-type defaults.  The flagship's device
-module types are built; any other type raises.  A ``parallel`` block with
+module types and the pixel plane segmentation (``disparity_planeseg``) are
+built; any other type raises.  A ``parallel`` block with
 ``"mode": "spatial"`` builds the height-sharded SpatialPipeline over the
 same modules; the multi-sequence modes raise "not ported yet".
 """
@@ -114,6 +115,18 @@ def build_module(cfg: dict, st: ConfigState) -> Module:
         )
         st.superpixel_module = m
         return m
+    if mtype == "disparity_planeseg":
+        return models.DisparityPlaneSegmentationModule(
+            _read_parameter_provider(cfg["parameter_provider"]),
+            update_interval=g("update_interval", 30),
+            reset_interval=g("reset_interval", 10),
+            use_temporal_smoothing=g("use_temporal_smoothing", False),
+            temporal_smoothing_distance=g("temporal_smoothing_distance", 3),
+            temporal_mode=g("temporal_mode", "carried"),
+            warp_mode=g("warp_mode", "auto"),
+            max_warp_y=g("max_warp_y", 32),
+            max_warp_x=g("max_warp_x", 64),
+        )
     if mtype == "superpixel_disparity_planeseg":
         return models.SuperPixelDisparityPlaneSegmentationModule(
             _read_parameter_provider(cfg["parameter_provider"]),

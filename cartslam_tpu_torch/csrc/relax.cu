@@ -1,14 +1,21 @@
-// Kernel K3: the contour-relaxation sweeps of one relax() call, fixed
-// ('frame') stats, fused.
+// Kernel K3: the contour-relaxation sub-steps of a relax() call from a fixed
+// per-label table, fused.
 //
 // Replaces the Pallas relax_phase_pallas (cartslam_tpu/ops/pallas/relax.py:240,
-// body _make_phase_kernel :39) in its 'frame' stats, one-phase form, for all
-// of a call's sweeps.  Its plain version is relax_sweeps_plain in
-// cartslam_tpu_torch/kernels/relax.py: table_gather, then one
-// relax_sweep_plain (the port of phase_update,
-// cartslam_tpu/ops/superpixels.py:335-417) per sweep.
+// body _make_phase_kernel :39).  A launch runs `steps` sub-steps; sub-step k
+// updates the pixels whose checkerboard parity
+//   floor_mod(row0 + y + x, num_phases) == (phase + k) % num_phases
+// (:134-137; row0 is the global row of row 0, negative for a shard whose
+// halo starts above the frame).  'frame' stats mode runs all of a call's
+// sweeps x phases sub-steps from the call's one table; 'phase' stats mode
+// runs one sub-step a launch, each from the table re-tallied after the last.
+// Its plain versions are in cartslam_tpu_torch/kernels/relax.py:
+// relax_sweeps_plain (table_gather, then one relax_sweep_plain -- the port
+// of phase_update, cartslam_tpu/ops/superpixels.py:335-417 -- per
+// sub-step) and relax_phase_plain (one sub-step).
 //
-// Per pixel and sweep: if it is a label-boundary pixel, score the labels of
+// Per pixel and sub-step: if it is a label-boundary pixel of the sub-step's
+// parity, score the labels of
 // its 3x3 neighbourhood in _OFFSETS order (x outer, y inner) as
 //   clique(cand) + sum_f w_f * [c_f(old - pixel) + c_f(cand + pixel)
 //                               - c_f(old) - c_f(cand)]     (0 if cand == old)
@@ -16,39 +23,43 @@
 // keep the first strict-< minimum.  Out-of-bounds and -1 candidates are
 // masked; -1 pixels (the spatial mode's halo fill) never change.
 //
-// In 'frame' mode a pixel's stat rows are its label's row of the fixed
-// table, so the kernel carries labels only: no per-pixel stat image is read
+// A pixel's stat rows are its label's row of the launch's fixed table, so
+// the kernel carries labels only: no per-pixel stat image is read
 // or written (the one-sweep kernel before this one moved the 15-plane stat
 // image in and out on every sweep).
 //
-// What bounds it on an H100: per call, the bytes are the labels in and out
+// What bounds it on an H100: per table, the bytes are the labels in and out
 // (2 x 1.9 MB at 376x1248), the 7 data planes (13 MB) and the table
-// (200 KB), about 7 us at 3.35 TB/s, whatever the sweep count; the work is
-// each sweep's boundary pixels x distinct candidates x channels of
-// divisions and logf.  A launch per sweep costs a pass over the labels and
-// a launch gap each.
+// (200 KB), about 5 us at 3.35 TB/s, whatever the sub-step count (a
+// 'phase'-mode call pays them once a sub-step); the work is each sub-step's
+// active pixels x distinct candidates x channels of divisions and logf.  A
+// launch per sub-step costs a pass over the labels and a launch gap each.
 //
 // Design:
-//  * relax_label_rows, once per call: the label-major row table [L + 1, 32]
+//  * relax_label_rows, once per table (once a 'frame'-mode call, once a
+//    sub-step in 'phase' mode): the label-major row table [L + 1, 32]
 //    (the 1 + 2C stats of the label, then each feature's cost of the label,
 //    the same feature_cost in the same order); row L is zeros, the row of a
 //    label outside [0, L) (table_gather reads zeros there).  old_cost and
 //    cand_cost become loads, and a candidate's stats one 128-byte line.
 //  * relax_sweeps_kernel, temporal blocking: a block owns a 32x64 tile of
-//    the output and keeps the tile plus a halo of `sweeps` rows and columns
-//    of labels in shared memory.  Sweep s recomputes the region s cells in
-//    from the buffer's edge from the previous sweep's buffer (ping-pong);
-//    after the last sweep the block writes only its tile.  Out-of-frame
-//    cells are -1, like the plain version's OOB fill.
-//  * Dense scoring: only boundary cells (about a third at the flagship's
-//    superpixel size) do the expensive work.  A sweep first copies the other
-//    cells' labels and appends the boundary cells to a work list in shared
+//    the output and keeps the tile plus a halo of `steps` rows and columns
+//    of labels in shared memory (a sub-step moves label influence one cell).
+//    Sub-step s recomputes the region s cells in from the buffer's edge from
+//    the previous sub-step's buffer (ping-pong); after the last the block
+//    writes only its tile.  Out-of-frame cells are -1, like the plain
+//    version's OOB fill.
+//  * Dense scoring: only boundary cells of the sub-step's parity (about a
+//    third of the pixels at the flagship's superpixel size, half of that
+//    with two phases) do the expensive work.  A sub-step first copies the
+//    other cells' labels and appends those cells to a work list in shared
 //    memory, then the block's threads score the list, one cell each.
-//    The wrapper runs a call's sweeps as launches of at most
+//    The wrapper runs a 'frame'-mode call as launches of at most
 //    kernels/relax.SWEEPS_PER_LAUNCH sweeps, chosen by measurement
 //    (chip_smoke.py times 1, 2, 4, 8, 12 and 24 sweeps a launch on the
 //    flagship's 8- and 24-sweep calls): the halo's recomputation grows with
-//    the sweeps per launch, the launches and label passes shrink.
+//    the sweeps per launch, the launches and label passes shrink.  With
+//    two phases a sweep is two sub-steps, and the halo doubles.
 //  * The total of a candidate depends on its label only, so each distinct
 //    label of the neighbourhood is scored once, at its first occurrence in
 //    _OFFSETS order: a later duplicate ties exactly and cannot win a strict <.
@@ -265,29 +276,42 @@ __device__ __forceinline__ int relax_score(const int* __restrict__ t, int ew, in
   return best_label;
 }
 
-// `sweeps` sweeps from labels into out (int32 [H, W], distinct buffers).
+// Whether frame pixel (gy, gx) takes part in the sub-step of parity ph:
+// floor_mod(row0 + gy + gx, num_phases) == ph, non-negative for a negative
+// row0 as torch.remainder and jnp's % are.
+__device__ __forceinline__ bool in_phase(int gy, int gx, int row0, int num_phases, int ph) {
+  int q = (row0 + gy + gx) % num_phases;
+  if (q < 0) q += num_phases;
+  return q == ph;
+}
+
+// `steps` sub-steps from labels into out (int32 [H, W], distinct buffers);
+// sub-step k (0-based) has parity (phase + k) % num_phases.
 template <bool kFlag>
 __global__ void __launch_bounds__(kThreads) relax_sweeps_kernel(
     const int* __restrict__ labels, const float* __restrict__ data,
     const float* __restrict__ rows, int* __restrict__ out, int H, int W, int L, int c_total,
-    Features f, const float* __restrict__ prog, float direct, float diagonal, int sweeps) {
+    Features f, const float* __restrict__ prog, float direct, float diagonal, int steps,
+    int phase, int num_phases, int row0) {
   extern __shared__ int tile[];
   __shared__ int nwork;
-  const int ew = kTileW + 2 * sweeps, eh = kTileH + 2 * sweeps;
+  const int ew = kTileW + 2 * steps, eh = kTileH + 2 * steps;
   int* cur = tile;
   int* nxt = tile + eh * ew;
-  int* work = tile + 2 * eh * ew;  // a sweep's boundary cells, [(eh - 2) * (ew - 2)]
+  int* work = tile + 2 * eh * ew;  // a sub-step's boundary cells, [(eh - 2) * (ew - 2)]
   const int lane = threadIdx.x & 31;
-  const int gy0 = blockIdx.y * kTileH - sweeps, gx0 = blockIdx.x * kTileW - sweeps;
+  const int gy0 = blockIdx.y * kTileH - steps, gx0 = blockIdx.x * kTileW - steps;
   for (int i = threadIdx.x; i < eh * ew; i += kThreads) {
     const int gy = gy0 + i / ew, gx = gx0 + i % ew;
     cur[i] = (gy >= 0 && gy < H && gx >= 0 && gx < W) ? labels[(size_t)gy * W + gx] : -1;
   }
-  for (int s = 1; s <= sweeps; ++s) {
+  for (int s = 1; s <= steps; ++s) {
     if (threadIdx.x == 0) nwork = 0;
     __syncthreads();
-    // Pass 1: cells off the boundary keep their label; boundary cells go to
-    // the work list (one shared atomic per warp).
+    // Pass 1: cells off the boundary or off the sub-step's parity keep
+    // their label; the others go to the work list (one shared atomic per
+    // warp).
+    const int ph = (phase + s - 1) % num_phases;
     const int rh = eh - 2 * s, rw = ew - 2 * s, n = rh * rw;
     for (int base = threadIdx.x - lane; base < n; base += kThreads) {  // warp-uniform
       const int i = base + lane;
@@ -296,7 +320,10 @@ __global__ void __launch_bounds__(kThreads) relax_sweeps_kernel(
       if (i < n) {
         cell = (s + i / rw) * ew + s + i % rw;
         const int lab = cur[cell];
-        listed = lab != -1 && on_boundary(cur, ew, cell, lab);
+        listed = lab != -1 &&
+                 (num_phases == 1 ||
+                  in_phase(gy0 + cell / ew, gx0 + cell % ew, row0, num_phases, ph)) &&
+                 on_boundary(cur, ew, cell, lab);
         if (!listed) nxt[cell] = lab;
       }
       const unsigned mask = __ballot_sync(0xffffffffu, listed);
@@ -321,7 +348,7 @@ __global__ void __launch_bounds__(kThreads) relax_sweeps_kernel(
   for (int i = threadIdx.x; i < kTileH * kTileW; i += kThreads) {
     const int r = i / kTileW, c = i % kTileW;
     const int gy = blockIdx.y * kTileH + r, gx = blockIdx.x * kTileW + c;
-    if (gy < H && gx < W) out[(size_t)gy * W + gx] = cur[(r + sweeps) * ew + c + sweeps];
+    if (gy < H && gx < W) out[(size_t)gy * W + gx] = cur[(r + steps) * ew + c + steps];
   }
 }
 
@@ -365,18 +392,31 @@ extern "C" int relax_label_rows(const void* table, void* rows, int L, int c_tota
   return (int)cudaGetLastError();
 }
 
-// `sweeps` sweeps: labels -> out (int32 [H, W], distinct buffers); data
+// Which instantiation of relax_sweeps_kernel a layout takes: 1 for the
+// flagship's (kFlag = true), 0 for the generic one, -1 for a layout the
+// kernel refuses.
+extern "C" int relax_instantiation(int c_total, int nfeat, const int* kinds, const int* offs,
+                                   const int* chans, const float* weights) {
+  Features f;
+  if (!make_features(c_total, nfeat, kinds, offs, chans, weights, &f)) return -1;
+  return is_flagship(c_total, f) ? 1 : 0;
+}
+
+// `steps` sub-steps: labels -> out (int32 [H, W], distinct buffers); data
 // float32 [C, H, W]; rows from relax_label_rows; prog: device float32 [H]
-// progressive-compactness row factor, or null.
+// progressive-compactness row factor, or null.  Sub-step k updates the
+// pixels with floor_mod(row0 + y + x, num_phases) == (phase + k) %
+// num_phases; row0 is the global row of row 0 (it may be negative).
 extern "C" int relax_sweeps(const void* labels, const void* data, const void* rows, void* out,
                             int H, int W, int L, int c_total, int nfeat, const int* kinds,
                             const int* offs, const int* chans, const float* weights,
-                            const void* prog, float direct, float diagonal, int sweeps,
-                            void* stream) {
+                            const void* prog, float direct, float diagonal, int steps,
+                            int phase, int num_phases, int row0, void* stream) {
   Features f;
-  if (sweeps < 1 || !make_features(c_total, nfeat, kinds, offs, chans, weights, &f))
+  if (steps < 1 || num_phases < 1 || phase < 0 || phase >= num_phases ||
+      !make_features(c_total, nfeat, kinds, offs, chans, weights, &f))
     return (int)cudaErrorInvalidValue;
-  const size_t eh = kTileH + 2 * sweeps, ew = kTileW + 2 * sweeps;
+  const size_t eh = kTileH + 2 * steps, ew = kTileW + 2 * steps;
   const size_t smem = (2 * eh * ew + (eh - 2) * (ew - 2)) * sizeof(int);
   const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH);
   const bool flag = is_flagship(c_total, f);
@@ -391,10 +431,10 @@ extern "C" int relax_sweeps(const void* labels, const void* data, const void* ro
   if (flag)
     relax_sweeps_kernel<true><<<grid, kThreads, smem, s>>>(
         (const int*)labels, (const float*)data, (const float*)rows, (int*)out, H, W, L, c_total,
-        f, (const float*)prog, direct, diagonal, sweeps);
+        f, (const float*)prog, direct, diagonal, steps, phase, num_phases, row0);
   else
     relax_sweeps_kernel<false><<<grid, kThreads, smem, s>>>(
         (const int*)labels, (const float*)data, (const float*)rows, (int*)out, H, W, L, c_total,
-        f, (const float*)prog, direct, diagonal, sweeps);
+        f, (const float*)prog, direct, diagonal, steps, phase, num_phases, row0);
   return (int)cudaGetLastError();
 }

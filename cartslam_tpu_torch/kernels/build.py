@@ -54,7 +54,9 @@ SIGNATURES = {
     "tally_to_float": [_P, _P, _I, _P],
     "vote_tally": [_P, _P, _I, _I, _I, _P, _P],
     "relax_label_rows": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
-    "relax_sweeps": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _F, _F, _I, _P],
+    "relax_sweeps": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I,
+                     _I, _P],
+    "relax_instantiation": [_I, _I, _P, _P, _P, _P],
 }
 
 

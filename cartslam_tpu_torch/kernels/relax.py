@@ -1,14 +1,18 @@
-"""Kernel K3: the contour-relaxation sweeps of one ``relax`` call
-(csrc/relax.cu), and its plain version.
+"""Kernel K3: the contour-relaxation sub-steps of a ``relax`` call
+(csrc/relax.cu), and its plain versions.
 
 Replaces the Pallas ``relax_phase_pallas`` (cartslam_tpu/ops/pallas/
-relax.py:240) in 'frame' stats mode with one phase per sweep.
-``relax_sweeps`` runs a call's sweeps from the fixed per-label table.  Its
-plain version ``relax_sweeps_plain`` gathers the table into the per-pixel
-stat image and runs ``relax_sweep_plain`` once per sweep: the port of
-``phase_update`` (cartslam_tpu/ops/superpixels.py:335-417) followed by the
-carried stat-image update (:515).  On a CUDA tensor the wrapper launches the
-kernels or raises; on a CPU tensor it runs the plain version.
+relax.py:240).  A sweep is ``phases`` sub-steps; sub-step ``p`` relabels the
+boundary pixels whose checkerboard parity ``(row0 + y + x) mod phases`` is
+``p``, on global rows (``row0`` is the global row of row 0).
+``relax_sweeps`` runs a 'frame'-mode call's sweeps from the fixed per-label
+table; ``relax_phase`` runs one sub-step from a table ('phase' stats mode,
+which re-tallies the table after every sub-step).  Their plain versions
+gather the table into the per-pixel stat image and run
+``relax_sweep_plain`` once per sub-step: the port of ``phase_update``
+(cartslam_tpu/ops/superpixels.py:335-417) followed by the carried
+stat-image update (:515).  On a CUDA tensor the wrappers launch the kernels
+or raise; on a CPU tensor they run the plain versions.
 
 Every float operation of the plain version is a separate PyTorch op, in the
 JAX code's order; divisions by a constant divide by a tensor, because CUDA
@@ -30,7 +34,8 @@ from ..ops.tally import table_gather
 from . import build
 
 # Counts launches of the fused sweep kernel (each runs up to
-# SWEEPS_PER_LAUNCH sweeps; the per-call label-row prologue rides with them).
+# SWEEPS_PER_LAUNCH sweeps, or one 'phase'-mode sub-step; the label-row
+# prologue of each table rides with them).
 COUNTER = build.counter("relax")
 OOB = -1
 # Candidate order = the reference's insertion order (x outer, y inner).
@@ -42,10 +47,11 @@ MAX_CHANNELS = 8
 # Floats per label in the kernel's label-major row table: 1 + 2C stats, then
 # one cost per feature.
 ROW_STRIDE = 32
-# Sweeps per launch of the fused kernel (temporal blocking: each launch
-# recomputes a halo as deep as its sweeps).  Chosen from chip_smoke.py's
-# timings of 1-24 sweeps a launch on the flagship's 8- and 24-sweep calls
-# (PERF.md).
+# Sweeps per launch of the fused kernel in 'frame' stats mode (temporal
+# blocking: each launch recomputes a halo as deep as its sub-steps, the
+# sweeps times the phases).  Chosen from chip_smoke.py's timings of 1-24
+# sweeps a launch on the flagship's 8- and 24-sweep calls, and of 1-12 with
+# two phases (PERF.md).
 SWEEPS_PER_LAUNCH = 2
 
 
@@ -102,9 +108,19 @@ def feature_costs(img: torch.Tensor, features: Sequence[RelaxFeature],
     return out
 
 
+def phase_mask(h: int, w: int, phase: int, num_phases: int, row0: int, device) -> torch.Tensor:
+    """bool [h, w]: the pixels of checkerboard parity `phase`, on global rows
+    (row0 is the global row of row 0, negative for a shard whose halo starts
+    above the frame; the remainder is a floor remainder, as jnp's %)."""
+    ys = torch.arange(h, dtype=torch.int64, device=device)[:, None] + row0
+    xs = torch.arange(w, dtype=torch.int64, device=device)[None, :]
+    return torch.remainder(ys + xs, num_phases) == phase
+
+
 def relax_sweep_plain(labels, stat_img, pixel_rows, features, c_total,
-                      direct_cost, diagonal_cost, prog=None):
-    """One synchronous sweep -> (new labels, new stat image)."""
+                      direct_cost, diagonal_cost, prog=None, phase=0, num_phases=1, row0=0):
+    """One synchronous sub-step (a whole sweep with one phase) -> (new
+    labels, new stat image).  Only boundary pixels of parity `phase` move."""
     h, w = labels.shape
     nbs = [_shift(labels, dy, dx, OOB) for (dx, dy) in OFFSETS]
     boundary = torch.zeros((h, w), dtype=torch.bool, device=labels.device)
@@ -112,6 +128,8 @@ def relax_sweep_plain(labels, stat_img, pixel_rows, features, c_total,
         if (dx, dy) != (0, 0):
             boundary = boundary | ((nb != OOB) & (nb != labels))
     active = boundary & (labels != OOB)
+    if num_phases > 1:
+        active = active & phase_mask(h, w, phase, num_phases, row0, labels.device)
 
     cost_img = feature_costs(stat_img, features, c_total)
     old_minus = feature_costs(stat_img - pixel_rows, features, c_total)
@@ -149,40 +167,66 @@ def relax_sweep_plain(labels, stat_img, pixel_rows, features, c_total,
     return new_labels, torch.where(active[None], upd, stat_img)
 
 
-def launches(iterations: int) -> int:
-    """Launches of the fused kernel for one call of `iterations` sweeps."""
+def launches(iterations: int, phases: int = 1, stats_refresh: str = "frame") -> int:
+    """Launches of the fused kernel for one relax call of `iterations`
+    sweeps of `phases` sub-steps: launches of up to SWEEPS_PER_LAUNCH
+    sweeps in 'frame' stats mode, one a sub-step in 'phase' mode."""
+    if stats_refresh == "phase":
+        return iterations * phases
     return -(-iterations // SWEEPS_PER_LAUNCH)
 
 
+def _pixel_rows(data: torch.Tensor) -> torch.Tensor:
+    return torch.cat([torch.ones_like(data[:1]), data, data * data]).contiguous()
+
+
 def relax_sweeps_plain(labels, table, data, features, c_total, iterations, direct_cost,
-                       diagonal_cost, prog=None, return_stats=False):
-    """`iterations` sweeps from the fixed table: the table gathered into the
-    stat image, then relax_sweep_plain once per sweep.  Returns the labels,
-    and with return_stats also the carried stat image."""
+                       diagonal_cost, prog=None, return_stats=False, phases=1, row0=0):
+    """`iterations` sweeps of `phases` sub-steps from the fixed table: the
+    table gathered into the stat image, then relax_sweep_plain once per
+    sub-step.  Returns the labels, and with return_stats also the carried
+    stat image."""
     stat_img = table_gather(table, labels).contiguous()
-    pixel_rows = torch.cat([torch.ones_like(data[:1]), data, data * data]).contiguous()
+    pixel_rows = _pixel_rows(data)
     for _ in range(iterations):
-        labels, stat_img = relax_sweep_plain(labels, stat_img, pixel_rows, features, c_total,
-                                             direct_cost, diagonal_cost, prog)
+        for phase in range(phases):
+            labels, stat_img = relax_sweep_plain(labels, stat_img, pixel_rows, features,
+                                                 c_total, direct_cost, diagonal_cost, prog,
+                                                 phase, phases, row0)
     return (labels, stat_img) if return_stats else labels
 
 
-def relax_sweeps(labels, table, data, features: Sequence[RelaxFeature], c_total: int,
-                 iterations: int, direct_cost: float, diagonal_cost: float, prog=None, *,
-                 return_stats: bool = False):
-    """`iterations` relaxation sweeps in 'frame' stats mode -> new labels.
+def relax_phase_plain(labels, table, data, features, c_total, phase, phases, direct_cost,
+                      diagonal_cost, prog=None, row0=0):
+    """One sub-step of parity `phase` from the table -> new labels."""
+    return relax_sweep_plain(labels, table_gather(table, labels).contiguous(),
+                             _pixel_rows(data), features, c_total, direct_cost, diagonal_cost,
+                             prog, phase, phases, row0)[0]
 
-    labels int32 [H, W] (-1: outside the frame, never relabelled); table
-    float32 [1 + 2C, L] (count | sums | sums of squares per label, K2 or
-    K7); data float32 [C, H, W], the feature channels in the layout of
-    `features`; prog: float32 [H] progressive-compactness factor or None.
-    With return_stats, also table_gather(table, labels) of the new labels:
-    the stat image relax_phase_pallas carries (on the CPU, the plain
-    version's carried image, equal to it)."""
-    if labels.device.type == "cpu":
-        COUNTER.plain_calls += 1
-        return relax_sweeps_plain(labels, table, data, features, c_total, iterations,
-                                  direct_cost, diagonal_cost, prog, return_stats)
+
+def c_features(features: Sequence[RelaxFeature]):
+    """The C entry points' feature arrays: kinds, offsets, channels, weights."""
+    nf = len(features)
+    return ((ctypes.c_int * nf)(*[KINDS[f.kind] for f in features]),
+            (ctypes.c_int * nf)(*[f.offset for f in features]),
+            (ctypes.c_int * nf)(*[f.channels for f in features]),
+            (ctypes.c_float * nf)(*[f.weight for f in features]))
+
+
+def instantiation(features: Sequence[RelaxFeature], c_total: int) -> str:
+    """The kernel instantiation a feature layout takes on the card, as the C
+    entry point dispatches it: 'relax_sweeps_kernel<true>' (the flagship's
+    layout) or 'relax_sweeps_kernel<false>' (the generic one)."""
+    got = build.library().relax_instantiation(c_total, len(features), *c_features(features))
+    if got < 0:
+        raise ValueError("the relax kernel refuses this feature layout")
+    return f"relax_sweeps_kernel<{'true' if got else 'false'}>"
+
+
+def _launch(labels, table, data, features, c_total, direct_cost, diagonal_cost, prog, row0,
+            phases, chunks):
+    """The kernel path: the label-row prologue of `table`, then one launch
+    per (sub-steps, first phase) of `chunks`, ping-ponging two buffers."""
     h, w = labels.shape
     nstat = 1 + 2 * c_total
     if len(features) > MAX_FEATURES or c_total > MAX_CHANNELS:
@@ -193,27 +237,65 @@ def relax_sweeps(labels, table, data, features: Sequence[RelaxFeature], c_total:
     build.expect(data, "data", torch.float32, (c_total, h, w), labels.device)
     if prog is not None:
         build.expect(prog, "prog", torch.float32, (h,), labels.device)
+    if not chunks:
+        return labels
+    lib = build.library()
+    s = build.stream()
+    nf, num = len(features), table.shape[-1]
+    feats = c_features(features)
+    rows = torch.empty((num + 1, ROW_STRIDE), dtype=torch.float32, device=labels.device)
+    build.check(lib.relax_label_rows(table.data_ptr(), rows.data_ptr(), num, c_total, nf,
+                                     *feats, s), "relax_label_rows")
+    bufs = (torch.empty_like(labels), torch.empty_like(labels))
     cur = labels
-    if iterations > 0:
-        lib = build.library()
-        s = build.stream()
-        nf, num = len(features), table.shape[-1]
-        feats = ((ctypes.c_int * nf)(*[KINDS[f.kind] for f in features]),
-                 (ctypes.c_int * nf)(*[f.offset for f in features]),
-                 (ctypes.c_int * nf)(*[f.channels for f in features]),
-                 (ctypes.c_float * nf)(*[f.weight for f in features]))
-        rows = torch.empty((num + 1, ROW_STRIDE), dtype=torch.float32, device=labels.device)
-        build.check(lib.relax_label_rows(table.data_ptr(), rows.data_ptr(), num, c_total, nf,
-                                         *feats, s), "relax_label_rows")
-        bufs = (torch.empty_like(labels), torch.empty_like(labels))
-        done = 0
-        while done < iterations:
-            n = min(SWEEPS_PER_LAUNCH, iterations - done)
-            out = bufs[1] if cur is bufs[0] else bufs[0]
-            build.check(lib.relax_sweeps(cur.data_ptr(), data.data_ptr(), rows.data_ptr(),
-                                         out.data_ptr(), h, w, num, c_total, nf, *feats,
-                                         build.ptr(prog), direct_cost, diagonal_cost, n, s),
-                        "relax_sweeps")
-            COUNTER.launches += 1
-            cur, done = out, done + n
+    for steps, phase in chunks:
+        out = bufs[1] if cur is bufs[0] else bufs[0]
+        build.check(lib.relax_sweeps(cur.data_ptr(), data.data_ptr(), rows.data_ptr(),
+                                     out.data_ptr(), h, w, num, c_total, nf, *feats,
+                                     build.ptr(prog), direct_cost, diagonal_cost, steps, phase,
+                                     phases, row0, s), "relax_sweeps")
+        COUNTER.launches += 1
+        cur = out
+    return cur
+
+
+def relax_sweeps(labels, table, data, features: Sequence[RelaxFeature], c_total: int,
+                 iterations: int, direct_cost: float, diagonal_cost: float, prog=None, *,
+                 phases: int = 1, row0: int = 0, return_stats: bool = False):
+    """`iterations` relaxation sweeps of `phases` checkerboard sub-steps in
+    'frame' stats mode -> new labels.
+
+    labels int32 [H, W] (-1: outside the frame, never relabelled); table
+    float32 [1 + 2C, L] (count | sums | sums of squares per label, K2 or
+    K7); data float32 [C, H, W], the feature channels in the layout of
+    `features`; prog: float32 [H] progressive-compactness factor or None;
+    row0: the global row of row 0 (the parity's rows).
+    With return_stats, also table_gather(table, labels) of the new labels:
+    the stat image relax_phase_pallas carries (on the CPU, the plain
+    version's carried image, equal to it)."""
+    if labels.device.type == "cpu":
+        COUNTER.plain_calls += 1
+        return relax_sweeps_plain(labels, table, data, features, c_total, iterations,
+                                  direct_cost, diagonal_cost, prog, return_stats, phases, row0)
+    chunks = []
+    for done in range(0, iterations, SWEEPS_PER_LAUNCH):
+        chunks.append((min(SWEEPS_PER_LAUNCH, iterations - done) * phases, 0))
+    cur = _launch(labels, table, data, features, c_total, direct_cost, diagonal_cost, prog,
+                  row0, phases, chunks)
     return (cur, table_gather(table, cur)) if return_stats else cur
+
+
+def relax_phase(labels, table, data, features: Sequence[RelaxFeature], c_total: int,
+                phase: int, phases: int, direct_cost: float, diagonal_cost: float, prog=None,
+                *, row0: int = 0):
+    """One sub-step of parity `phase` (of `phases`) from `table` -> new
+    labels: a 'phase' stats-mode update, one launch (the label-row prologue
+    runs on this table).  Arguments as relax_sweeps."""
+    if not 0 <= phase < phases:
+        raise ValueError(f"phase {phase} outside [0, {phases})")
+    if labels.device.type == "cpu":
+        COUNTER.plain_calls += 1
+        return relax_phase_plain(labels, table, data, features, c_total, phase, phases,
+                                 direct_cost, diagonal_cost, prog, row0)
+    return _launch(labels, table, data, features, c_total, direct_cost, diagonal_cost, prog,
+                   row0, phases, [(1, phase)])

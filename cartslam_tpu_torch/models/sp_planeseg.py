@@ -2,9 +2,12 @@
 cartslam_tpu/models/sp_planeseg.py).
 
 Pixel classification of the vertical derivative (channel 0), the optional
-temporal vote (the carried flow-warped accumulator of
-``ops/planeseg.temporal_vote_warped``, current-frame weight 2), then the
-per-superpixel majority vote (kernel K4 on the device).  The host step keeps
+temporal vote with current-frame weight 2, then the per-superpixel majority
+vote (kernel K4 on the device).  The temporal vote is the carried
+flow-warped accumulator of ``ops/planeseg.temporal_vote_warped``
+(``temporal_mode="carried"``), or the reference's K gathers of the previous
+frames' planes from the flow history (``"faithful"``,
+``ops/planeseg.temporal_vote``).  The host step keeps
 the running histogram of channel 0 of the derivative histogram: the first
 contribution is skipped, the total resets at frame ids == 1 (mod
 update_interval * reset_interval), and the provider refreshes the class
@@ -39,11 +42,9 @@ class SuperPixelDisparityPlaneSegmentationModule(Module):
                  use_temporal_smoothing: bool = False, temporal_smoothing_distance: int = 3,
                  temporal_mode: str = "carried", warp_mode: str = "auto",
                  max_warp_y: int = 32, max_warp_x: int = 64):
-        if temporal_mode != "carried":
-            raise ValueError(
-                f"superpixel_disparity_planeseg with temporal_mode={temporal_mode!r} is "
-                "not ported yet (only 'carried')"
-            )
+        if temporal_mode not in pops.TEMPORAL_MODES:
+            raise ValueError(f"unknown temporal_mode {temporal_mode!r}; expected one of "
+                             f"{pops.TEMPORAL_MODES}")
         if warp_mode not in pops.WARP_MODES:
             raise ValueError(f"unknown warp_mode {warp_mode!r}; expected one of {pops.WARP_MODES}")
         self.provider = provider
@@ -52,6 +53,7 @@ class SuperPixelDisparityPlaneSegmentationModule(Module):
         self.reset_interval = reset_interval
         self.temporal = use_temporal_smoothing
         self.distance = temporal_smoothing_distance
+        self.temporal_mode = temporal_mode
         self.warp_mode = warp_mode
         self.max_warp_y = max_warp_y
         self.max_warp_x = max_warp_x
@@ -68,12 +70,12 @@ class SuperPixelDisparityPlaneSegmentationModule(Module):
             Dependency(KEY_DERIVATIVE_HISTOGRAM),
         ]
         if self.temporal:
-            # The carried warp accumulator replaces deep history reads.
-            deps += [Dependency(KEY_OPTFLOW), Dependency(KEY_PLANES_UNSMOOTHED, offset=-1)]
+            deps += pops.temporal_dependencies(self.temporal_mode, self.distance, KEY_OPTFLOW,
+                                               KEY_PLANES_UNSMOOTHED)
         return deps
 
     def init_state(self, ctx: PipelineContext):
-        if not self.temporal:
+        if not self.temporal or self.temporal_mode == "faithful":
             return {}
         return {"warp_votes": torch.full((self.distance, ctx.height, ctx.width),
                                          pops.WARP_INVALID, dtype=torch.uint8,
@@ -133,6 +135,12 @@ class SuperPixelDisparityPlaneSegmentationModule(Module):
         if not self.temporal:
             planes = pops.superpixel_vote(pixel_planes, deps[KEY_SUPERPIXELS], self.num_labels)
             return {KEY_PLANES: planes}, {}
+        if self.temporal_mode == "faithful":
+            voted = pops.temporal_vote_from_history(
+                pixel_planes, step, deps[KEY_OPTFLOW], self.distance, KEY_OPTFLOW,
+                KEY_PLANES_UNSMOOTHED, current_weight=2, compare_unknown=True)
+            planes = pops.superpixel_vote(voted, deps[KEY_SUPERPIXELS], self.num_labels)
+            return {KEY_PLANES: planes, KEY_PLANES_UNSMOOTHED: pixel_planes}, {}
         prev = step.history(KEY_PLANES_UNSMOOTHED, -1)
         if step.frame_id <= 1:
             prev = torch.full_like(prev, pops.WARP_INVALID)
@@ -154,6 +162,11 @@ class SuperPixelDisparityPlaneSegmentationModule(Module):
         return {"warp_votes": 1}
 
     def spatial_validate(self, ctx, n, h_local):
+        if self.temporal and self.temporal_mode == "faithful":
+            raise ValueError(
+                "spatial mode supports temporal_mode='carried' only (the faithful "
+                "K-gather mode would need K flow-history halos)"
+            )
         if self.temporal and self.max_warp_y > h_local:
             logging.getLogger("cart.spatial").warning(
                 "spatial mode clamps max_warp_y %d -> %d (the halo cannot exceed one "

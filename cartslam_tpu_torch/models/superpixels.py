@@ -36,11 +36,10 @@ class SuperPixelModule(Module):
             raise ValueError("directCliqueCost must be non-negative")
         if compactness_weight < 0 or image_weight < 0 or disparity_weight < 0:
             raise ValueError("weight must be non-negative")
-        if relax_phases != 1 or stats_refresh != "frame":
-            raise ValueError(
-                f"superpixels with relax_phases={relax_phases}, "
-                f"stats_refresh={stats_refresh!r} is not ported yet"
-            )
+        if relax_phases < 1:
+            raise ValueError("relax_phases must be >= 1")
+        if stats_refresh not in ("frame", "phase"):
+            raise ValueError(f"unknown stats_refresh {stats_refresh!r}")
         self.image_size = image_size
         self.initial_iterations = initial_iterations
         self.iterations = iterations
@@ -52,6 +51,11 @@ class SuperPixelModule(Module):
         self.progressive_compactness_cost = progressive_compactness_cost
         self.image_weight = image_weight
         self.disparity_weight = disparity_weight
+        # relax_phases: checkerboard sub-steps per sweep; stats_refresh:
+        # 'frame' keeps a call's label statistics fixed, 'phase' re-tallies
+        # them after every sub-step (the reference's incremental semantics).
+        self.relax_phases = relax_phases
+        self.stats_refresh = stats_refresh
 
         h, w = image_size
         bx = -(-w // block_size)
@@ -128,26 +132,29 @@ class SuperPixelModule(Module):
         labels = spops.relax(
             labels, feature_data, specs, self.num_labels, self._iterations(variant),
             self.direct_clique_cost, self.diagonal_clique_cost,
+            phases=self.relax_phases, stats_refresh=self.stats_refresh,
         )
         return self._outputs(ctx, labels)
 
     # ------------------------------------------------------ spatial (sharded)
 
     def spatial_validate(self, ctx, n, h_local):
+        ph = self.relax_phases
         for it, name in ((self.iterations, "iterations"),
                          (self.initial_iterations, "initial_iterations")):
-            if it > h_local:
+            if it * ph > h_local:
                 raise ValueError(
-                    f"superpixels {name}={it} exceeds the {h_local}-row shard"
+                    f"superpixels {name}*phases={it * ph} exceeds the {h_local}-row shard"
                 )
 
     def compute_spatial(self, ctx, step, deps, state, params, variant, sp):
-        """Sharded contour relaxation: `iterations`-row halos (a label moves
-        at most one row per sweep) and psum'd label moments, exact.  Halo
+        """Sharded contour relaxation: `iterations * phases`-row halos (a
+        label moves at most one row per sub-step) and psum'd label moments,
+        exact in both stats modes ('phase' psums every re-tally).  Halo
         labels at the global edges are -1, which relax treats as the image
         edge."""
         iters = self._iterations(variant)
-        halo = iters
+        halo = iters * self.relax_phases
         feature_data, specs = self._features(
             ctx, step, deps, extend=lambda x: sp.exchange(x, halo, halo))
         # On a reset frame, the global block grid restricted to this shard.
@@ -155,6 +162,7 @@ class SuperPixelModule(Module):
         labels_ext = spops.relax(
             sp.exchange(labels, halo, halo, fill=-1), feature_data, specs, self.num_labels,
             iters, self.direct_clique_cost, self.diagonal_clique_cost,
+            phases=self.relax_phases, stats_refresh=self.stats_refresh,
             row_offset=sp.row0 - halo, global_h=ctx.height, halo_rows=(halo, halo),
             psum=sp.psum,
         )

@@ -1,6 +1,6 @@
 """Plane segmentation from disparity derivatives (counterpart of
-ops/planeseg.py: ``classify``, ``temporal_vote_warped`` and
-``superpixel_vote``).
+ops/planeseg.py: ``classify``, ``temporal_vote``, ``temporal_vote_warped``
+and ``superpixel_vote``).
 
 Plane ids: HORIZONTAL=0, VERTICAL=1, UNKNOWN=2.  Classification tests the
 horizontal range first, then the vertical range, both half-open.
@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import tally as ktally
+from ..runtime.module import Dependency
 from .tally import table_gather
 from .warp import separable_warp
 
@@ -31,6 +32,84 @@ def classify(derivative: torch.Tensor, ranges: torch.Tensor) -> torch.Tensor:
     is_v = valid & (d >= ranges[1, 0]) & (d < ranges[1, 1]) & ~is_h
     out = torch.where(is_h, HORIZONTAL, torch.where(is_v, VERTICAL, UNKNOWN))
     return out.to(torch.uint8)
+
+
+def warp_coords(flow_stack: torch.Tensor, num_prev: int):
+    """Chained backward-warp coordinates of the reference-faithful temporal
+    vote (planeseg.cu:210-227): every flow map is sampled at the ORIGINAL
+    pixel, and the integer parts (``>> 5``) are subtracted cumulatively.
+
+    flow_stack: int16 [K, H, W, 2] S10.5 flow, [0] the current frame's
+    (current -> previous), [k] the k-th previous frame's.  Returns (xs, ys)
+    int32 [K, H, W], the position in the k-th previous frame, and in_bounds
+    bool [K, H, W], false off the frame and for k >= num_prev."""
+    k, h, w, _ = flow_stack.shape
+    dev = flow_stack.device
+    cx = torch.cumsum(flow_stack[..., 0].to(torch.int32) >> 5, dim=0, dtype=torch.int32)
+    cy = torch.cumsum(flow_stack[..., 1].to(torch.int32) >> 5, dim=0, dtype=torch.int32)
+    xs = torch.arange(w, dtype=torch.int32, device=dev)[None, None, :] - cx
+    ys = torch.arange(h, dtype=torch.int32, device=dev)[None, :, None] - cy
+    inb = (xs >= 0) & (ys >= 0) & (xs < w) & (ys < h)
+    inb = inb & (torch.arange(k, device=dev)[:, None, None] < num_prev)
+    return xs, ys, inb
+
+
+def _vote(votes, compare_unknown: bool) -> torch.Tensor:
+    """Winner of per-pixel class votes: HORIZONTAL on strictly more than
+    VERTICAL, else VERTICAL; UNKNOWN when the winner has fewer votes than
+    UNKNOWN (compare_unknown) or none at all."""
+    winner = torch.where(votes[HORIZONTAL] > votes[VERTICAL], HORIZONTAL, VERTICAL)
+    wv = torch.where(winner == HORIZONTAL, votes[HORIZONTAL], votes[VERTICAL])
+    unknown = wv < votes[UNKNOWN] if compare_unknown else wv == 0
+    return torch.where(unknown, UNKNOWN, winner).to(torch.uint8)
+
+
+def temporal_vote(current: torch.Tensor, prev_planes: torch.Tensor, flow_stack: torch.Tensor,
+                  num_prev: int, current_weight: int, compare_unknown: bool) -> torch.Tensor:
+    """The reference-faithful temporal majority vote: K flat gathers of the
+    previous frames' planes at ``warp_coords``' positions.
+
+    current: uint8 [H, W]; prev_planes: uint8 [K, H, W], the k-th previous
+    frame's unsmoothed planes; flow_stack as warp_coords; num_prev: the
+    valid history entries (min(frame_id - 1, K)).  current_weight 1 with
+    compare_unknown False is the pixel module's rule (planeseg.cu:203-238),
+    2 with True the superpixel module's (sp_planeseg.cu:82-116)."""
+    h, w = current.shape
+    xs, ys, inb = warp_coords(flow_stack, num_prev)
+    k = prev_planes.shape[0]
+    idx = (ys.clamp(0, h - 1) * w + xs.clamp(0, w - 1)).reshape(k, h * w).to(torch.int64)
+    sampled = torch.gather(prev_planes.reshape(k, h * w), 1, idx).reshape(k, h, w)
+    votes = [((sampled == plane) & inb).sum(dim=0, dtype=torch.int32)
+             + torch.where(current == plane, current_weight, 0)
+             for plane in range(PLANE_COUNT)]
+    return _vote(votes, compare_unknown)
+
+
+TEMPORAL_MODES = ("carried", "faithful")
+
+
+def temporal_dependencies(mode: str, distance: int, flow_key: str, planes_key: str) -> list:
+    """The history a temporal vote reads.  'faithful' (the reference's set,
+    include/modules/planeseg.hpp:127-137): the flow now and at -1..-(K-1)
+    and the unsmoothed planes at -1..-K.  'carried': the flow now and the
+    planes at -1 (its accumulator holds the rest)."""
+    deps = [Dependency(flow_key)]
+    if mode == "faithful":
+        deps += [Dependency(flow_key, offset=-i) for i in range(1, distance)]
+        deps += [Dependency(planes_key, offset=-i) for i in range(1, distance + 1)]
+    else:
+        deps.append(Dependency(planes_key, offset=-1))
+    return deps
+
+
+def temporal_vote_from_history(current, step, flow, distance: int, flow_key: str,
+                               planes_key: str, current_weight: int, compare_unknown: bool):
+    """temporal_vote over the step's history rings: the flows now and at
+    -1..-(K-1), the planes at -1..-K, and num_prev = min(frame_id - 1, K)."""
+    flows = [flow] + [step.history(flow_key, -i) for i in range(1, distance)]
+    prevs = [step.history(planes_key, -i) for i in range(1, distance + 1)]
+    return temporal_vote(current, torch.stack(prevs), torch.stack(flows),
+                         min(step.frame_id - 1, distance), current_weight, compare_unknown)
 
 
 WARP_INVALID = 3  # 2-bit sentinel: "no vote" (out of the image or before frame 1)
@@ -89,10 +168,7 @@ def temporal_vote_warped(current: torch.Tensor, prev_planes: torch.Tensor,
     votes = [(new_state == plane).sum(dim=0, dtype=torch.int32)
              + torch.where(current == plane, current_weight, 0)
              for plane in range(PLANE_COUNT)]
-    winner = torch.where(votes[HORIZONTAL] > votes[VERTICAL], HORIZONTAL, VERTICAL)
-    wv = torch.where(winner == HORIZONTAL, votes[HORIZONTAL], votes[VERTICAL])
-    unknown = wv < votes[UNKNOWN] if compare_unknown else wv == 0
-    return torch.where(unknown, UNKNOWN, winner).to(torch.uint8), new_state
+    return _vote(votes, compare_unknown), new_state
 
 
 def superpixel_vote(pixel_planes: torch.Tensor, labels: torch.Tensor,

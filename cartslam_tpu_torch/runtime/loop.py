@@ -4,7 +4,9 @@ The per-frame host step follows cartslam_tpu/runtime/system.py
 (``_host_post_frame``): fetch each module's host keys, call its
 ``host_update`` and merge the returned params (e.g. new plane ``ranges``)
 into ``host_params`` for the next frame.  The loop is synchronous: frame t+1
-sees the params that frame t's host step produced.
+sees the params that frame t's host step produced.  With the context's
+``grayscale`` switch, BGR frames are converted at the source boundary, as
+cartslam_tpu/runtime/system.py does.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Any, Callable, Mapping
 import numpy as np
 import torch
 
+from ..sources.base import to_grayscale
 from .pipeline import Pipeline
 
 
@@ -72,6 +75,8 @@ def run(
         if frame_np is None:
             break
         frame_id += 1
+        if pipeline.ctx.grayscale:
+            frame_np = to_grayscale(frame_np)
         frame = frame_to_device(frame_np, frame_id, pipeline.ctx.device)
         state, outputs = pipeline.step(
             state, frame, host_params, pipeline.variant(frame_id)

@@ -20,6 +20,21 @@ class CameraIntrinsics:
     q: np.ndarray  # 4x4 float32
 
 
+def to_grayscale(frame: dict) -> dict:
+    """The frame with BGR ``left``/``right`` as gray uint8 [H, W]: 0.114 B +
+    0.587 G + 0.299 R in float32, rounded and clipped (the whole-pipeline
+    grayscale switch, CARTSLAM_IMAGE_MAKE_GRAYSCALE of src/datasource.cpp:
+    6-16, converts at the source boundary).  Other keys pass through."""
+    out = dict(frame)
+    for k in ("left", "right"):
+        img = out.get(k)
+        if img is not None and img.ndim == 3:
+            y = (0.114 * img[..., 0].astype(np.float32) + 0.587 * img[..., 1]
+                 + 0.299 * img[..., 2])
+            out[k] = np.clip(np.round(y), 0, 255).astype(np.uint8)
+    return out
+
+
 class DataSource:
     def __init__(self, image_size: tuple[int, int] | None = None):
         # (height, width); None = native size.

@@ -21,7 +21,13 @@ Phases (each raises on failure; none is caught):
                 fused launches) is held against its plain version for 1, 8
                 and 24 sweeps from the block grid and from the labels after
                 24 sweeps, labels and stat image, and timed at 1-24 sweeps a
-                launch through its C entry points.
+                launch through its C entry points, with one phase and two.
+                K3's generic instantiation (the grayscale layout), its
+                progressive factor, two phases in 'frame' stats mode (both
+                instantiations), a 'phase'-stats call (one sub-step a
+                launch, a fresh K2 table each) and a shard with row0 < 0
+                against the plain versions, 0 differing labels; a
+                'phase'-mode launch timed.
                 K5 (the height-sharded SGM) runs on 8 shards of 47 rows of
                 the same frame, the shards as threads on this one card: its
                 settle carries and shard outputs against its plain version,
@@ -43,19 +49,32 @@ Phases (each raises on failure; none is caught):
                     launches(8) on the others; no plain call);
                   * the non-temporal slice (no optflow, no temporal vote) for
                     10 frames;
+                  * the reference-faithful flagship (the flagship's modules
+                    with 'phase' statistics, 2 relax phases and the faithful
+                    temporal vote) for 65 frames (K1 x65, K4 x65, K3 and K2
+                    once per sub-step: launches(24, 2, 'phase') on frames 1
+                    and 64, launches(8, 2, 'phase') on the others);
+                  * configs/kitti-naive-segmentation-temporal.json minus its
+                    visualization, in both temporal modes, 10 frames (K1
+                    only);
+                  * the flagship on grayscale frames for 10 frames (K3's
+                    generic instantiation);
                   * the spatial mode: configs/kitti-planeseg-spatial.json
                     through read_config (8 row shards, on this one card) for
                     10 frames, every output equal frame by frame to the
                     full-frame pipeline of the same modules with the 'select'
                     warp (K5 x80, K2 x80, K3 x(launches(24) + 9 launches(8))
-                    x 8, K4 x80, K1 0, no plain call).
+                    x 8, K4 x80, K1 0, no plain call), and the same with
+                    'phase' statistics for 4 frames.
   5. parity   - the small temporal slice (64x128, 6 frames) on the card and on
-                the CPU, every output and the final state equal; the
-                full-size flow of one frame pair, card against CPU.
+                the CPU, every output and the final state equal, and the same
+                with the reference-faithful modes; the full-size flow of one
+                frame pair, card against CPU.
   6. profile  - one fresh temporal flagship over frames 3..12 under
                 torch.profiler: per-module CUDA-event spans, device busy time
-                and idle share, device time by kernel name; the same for a
-                fresh spatial run over frames 3..6.
+                and idle share, device time by kernel name; the same for the
+                faithful flagship, and for a fresh spatial run over frames
+                3..6.
   7. cli      - configs/synthetic-planeseg.json through the CLI entry point.
   8. times    - per-frame ms and each kernel's numbers.
 The last two lines of standard output are the kernels JSON line and the
@@ -64,7 +83,6 @@ result line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
-import ctypes
 import json
 import os
 import subprocess
@@ -117,8 +135,17 @@ SGM_SETTLE_OPS_PER_CELL = 2 * (5 + 7)
 # clique's 8 compares and 8 adds.
 RELAX_OPS_PER_TERM_CHANNEL = 10
 RELAX_CLIQUE_OPS = 2 * 8
-# Sweeps a launch of the fused relax kernel, timed against each other.
+# Sweeps a launch of the fused relax kernel, timed against each other, with
+# one phase and with two (a launch's halo is its sub-steps: 24 x 2 does not
+# fit a block's shared memory).
 RELAX_SWEEPS_PER_LAUNCH = (1, 2, 4, 8, 12, 24)
+RELAX_SWEEPS_PER_LAUNCH_2PH = (1, 2, 4, 8, 12)
+# Frames of the reference-faithful flagship's companions: the pixel plane
+# segmentation (each temporal mode), the spatial 'phase'-stats run and the
+# grayscale flagship.
+PIXEL_FRAMES = 10
+SPATIAL_PHASE_FRAMES = 4
+GRAY_FRAMES = 10
 
 # name -> (source, the TPU kernel it replaces (file:line), the path that runs it)
 KERNELS = {
@@ -142,14 +169,32 @@ KERNELS = {
 def launch_plan() -> dict:
     """The launches each path must count, by kernel.  The superpixels run 24
     sweeps on frame 1 and on the reset frame 64, 8 on the others, and K3
-    launches kernels/relax.launches(sweeps) times per call.  Every kernel
-    launch of the spatial mode is per shard."""
+    launches kernels/relax.launches(sweeps, phases, stats_refresh) times per
+    call.  Every kernel launch of the spatial mode is per shard."""
     from cartslam_tpu_torch.kernels.relax import launches
 
-    def k3(frames, resets=0):
-        return (1 + resets) * launches(24) + (frames - 1 - resets) * launches(8)
+    def k3(frames, resets=0, phases=1, stats_refresh="frame"):
+        return ((1 + resets) * launches(24, phases, stats_refresh)
+                + (frames - 1 - resets) * launches(8, phases, stats_refresh))
 
+    # 'phase' statistics: one K3 launch a sub-step, and one K2 tally before
+    # each (the call's first, then a re-tally after every sub-step but the
+    # last), so K2 counts what K3 counts.
+    faithful = k3(FRAMES, 1, 2, "phase")
+    spatial_phase = k3(SPATIAL_PHASE_FRAMES, 0, 1, "phase")
     return {
+        "faithful": {"sgm": FRAMES, "moment_tally": faithful, "relax": faithful,
+                     "vote_tally": FRAMES},
+        "pixel": {"sgm": PIXEL_FRAMES, "moment_tally": 0, "relax": 0, "vote_tally": 0},
+        "grayscale": {"sgm": GRAY_FRAMES, "moment_tally": GRAY_FRAMES, "relax": k3(GRAY_FRAMES),
+                      "vote_tally": GRAY_FRAMES},
+        "spatial_phase_full": {"sgm": SPATIAL_PHASE_FRAMES, "sgm_sharded": 0,
+                               "moment_tally": spatial_phase, "relax": spatial_phase,
+                               "vote_tally": SPATIAL_PHASE_FRAMES},
+        "spatial_phase": {"sgm": 0, "sgm_sharded": SHARDS * SPATIAL_PHASE_FRAMES,
+                          "moment_tally": SHARDS * spatial_phase,
+                          "relax": SHARDS * spatial_phase,
+                          "vote_tally": SHARDS * SPATIAL_PHASE_FRAMES},
         "flagship": {"sgm": FRAMES, "moment_tally": FRAMES, "relax": k3(FRAMES, 1),
                      "vote_tally": FRAMES},
         "nontemporal": {"sgm": NONTEMPORAL_FRAMES, "moment_tally": NONTEMPORAL_FRAMES,
@@ -210,10 +255,12 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def relax_work(lab: torch.Tensor) -> tuple[int, int]:
-    """(boundary pixels, distinct candidate labels (not -1) summed over
-    them) of lab: the pixels a relax sweep from lab must score, and their
-    candidates, each pixel's own label among them."""
+def relax_work(lab: torch.Tensor, phase: int = 0, num_phases: int = 1) -> tuple[int, int]:
+    """(boundary pixels of parity `phase`, distinct candidate labels (not
+    -1) summed over them) of lab: the pixels a relax sub-step from lab must
+    score, and their candidates, each pixel's own label among them."""
+    from cartslam_tpu_torch.kernels.relax import phase_mask
+
     h, w = lab.shape
     pad = torch.nn.functional.pad(lab, (1, 1, 1, 1), value=-1)
     nbs = [pad[1 + dy:1 + dy + h, 1 + dx:1 + dx + w] for dx in (-1, 0, 1) for dy in (-1, 0, 1)]
@@ -227,7 +274,7 @@ def relax_work(lab: torch.Tensor) -> tuple[int, int]:
         for nb2 in nbs[:j]:
             new &= nb != nb2
         count += new.int()
-    active = boundary & (lab != -1)
+    active = boundary & (lab != -1) & phase_mask(h, w, phase, num_phases, 0, lab.device)
     return int(active.sum()), int(count[active].sum())
 
 
@@ -237,6 +284,29 @@ def flagship_modules() -> list[dict]:
     with open(os.path.join(REPO, "configs", "kitti-planeseg.json")) as f:
         mods = json.load(f)["modules"]
     return [m for m in mods if not m["type"].endswith("_visualization")]
+
+
+def faithful_modules() -> list[dict]:
+    """The reference-faithful flagship: the flagship's modules with 'phase'
+    statistics and two relax phases in the superpixels and the faithful
+    (K-gather) temporal vote."""
+    out = []
+    for m in flagship_modules():
+        if m["type"] == "superpixels":
+            m = {**m, "stats_refresh": "phase", "relax_phases": 2}
+        elif m["type"] == "superpixel_disparity_planeseg":
+            m = {**m, "temporal_mode": "faithful"}
+        out.append(m)
+    return out
+
+
+def pixel_modules(temporal_mode: str) -> list[dict]:
+    """configs/kitti-naive-segmentation-temporal.json's modules minus the
+    host visualization, with the pixel plane segmentation's temporal mode."""
+    with open(os.path.join(REPO, "configs", "kitti-naive-segmentation-temporal.json")) as f:
+        mods = json.load(f)["modules"]
+    return [{**m, "temporal_mode": temporal_mode} if m["type"] == "disparity_planeseg" else m
+            for m in mods if not m["type"].endswith("_visualization")]
 
 
 def nontemporal_modules() -> list[dict]:
@@ -432,36 +502,33 @@ def kernel_phase(dev, tag):
     # The same calls split into launches of 1-24 sweeps, through the C entry
     # points (the wrapper's split is krelax.SWEEPS_PER_LAUNCH, chosen from
     # these times); each split gives the wrapper's labels.
-    nf, num = len(feats), tk.shape[-1]
-    cfeats = ((ctypes.c_int * nf)(*[krelax.KINDS[f.kind] for f in feats]),
-              (ctypes.c_int * nf)(*[f.offset for f in feats]),
-              (ctypes.c_int * nf)(*[f.channels for f in feats]),
-              (ctypes.c_float * nf)(*[f.weight for f in feats]))
+    nf, num, cfeats = len(feats), tk.shape[-1], krelax.c_features(feats)
     rows = torch.empty((num + 1, krelax.ROW_STRIDE), dtype=torch.float32, device=dev)
     bufs = (torch.empty_like(labels), torch.empty_like(labels))
 
-    def k3_split(start, table, iterations, per_launch):
+    def k3_split(start, table, iterations, per_launch, phases=1):
         build.check(lib.relax_label_rows(table.data_ptr(), rows.data_ptr(), num, 7, nf,
                                          *cfeats, stream), "relax_label_rows")
         cur = start
         for done in range(0, iterations, per_launch):
             out = bufs[done // per_launch % 2]
+            steps = min(per_launch, iterations - done) * phases
             build.check(lib.relax_sweeps(cur.data_ptr(), data.data_ptr(), rows.data_ptr(),
                                          out.data_ptr(), H, W, num, 7, nf, *cfeats, None, 0.5,
-                                         diag, min(per_launch, iterations - done), stream),
-                        "relax_sweeps")
+                                         diag, steps, 0, phases, 0, stream), "relax_sweeps")
             cur = out
         return cur
 
     per_launch = {}
-    for k in RELAX_SWEEPS_PER_LAUNCH:
-        for start, table, iterations in ((labels24, tk24, 8), (labels, tk, 24)):
-            if not torch.equal(k3_split(start, table, iterations, k), k3(start, iterations,
-                                                                          table=table)):
-                raise AssertionError(f"K3 relax: {iterations} sweeps in launches of {k} "
-                                     "differ from the wrapper's")
-        per_launch[k] = (cuda_ms(lambda: k3_split(labels24, tk24, 8, k), 30),
-                         cuda_ms(lambda: k3_split(labels, tk, 24, k), 10))
+    for phases, splits in ((1, RELAX_SWEEPS_PER_LAUNCH), (2, RELAX_SWEEPS_PER_LAUNCH_2PH)):
+        for k in splits:
+            for start, table, iterations in ((labels24, tk24, 8), (labels, tk, 24)):
+                if not torch.equal(k3_split(start, table, iterations, k, phases),
+                                   k3(start, iterations, table=table, phases=phases)):
+                    raise AssertionError(f"K3 relax: {iterations} sweeps of {phases} phase(s) "
+                                         f"in launches of {k} differ from the wrapper's")
+            per_launch[phases, k] = (cuda_ms(lambda: k3_split(labels24, tk24, 8, k, phases), 30),
+                                     cuda_ms(lambda: k3_split(labels, tk, 24, k, phases), 10))
     # Bound of the flagship frame's call (8 sweeps from labels24): the labels
     # in and out, the 7 data planes and the table, once; the prologue's term
     # per label, and every sweep's terms and cliques of its boundary pixels.
@@ -477,10 +544,15 @@ def kernel_phase(dev, tag):
     log(f"K3 relax: 8 sweeps from the labels after 24 (a flagship frame's call, "
         f"{krelax.launches(8)} launch(es)) kernel {ms:.3f} ms, plain {pms:.3f} ms; "
         f"{pixels} boundary pixels and {cands} distinct candidates over the 8 sweeps  [{tag}]")
-    log("K3 relax, ms by sweeps a launch (8-sweep call / 24-sweep call from the block grid; "
-        "C entry points): "
-        + ", ".join(f"{k}: {a:.4f} / {b:.4f}" for k, (a, b) in per_launch.items())
-        + f"; the wrapper's {krelax.SWEEPS_PER_LAUNCH}  [{tag}]")
+    for phases in (1, 2):
+        log(f"K3 relax, {phases} phase(s), ms by sweeps a launch (8-sweep call / 24-sweep call "
+            "from the block grid; C entry points): "
+            + ", ".join(f"{k}: {a:.4f} / {b:.4f}" for (ph, k), (a, b) in per_launch.items()
+                        if ph == phases)
+            + f"; the wrapper's {krelax.SWEEPS_PER_LAUNCH}  [{tag}]")
+    relax_phase_checks(dev, tag, dict(data=data, labels=labels, tk=tk, labels24=labels24,
+                                      tk24=tk24, feats=feats, gray=gl, deriv=deriv,
+                                      num_labels=num_labels))
 
     # K4
     ranges = torch.tensor([[3, 40], [-6, 3]], dtype=torch.int32, device=dev)
@@ -527,6 +599,155 @@ def kernel_phase(dev, tag):
     paths = dict(census=(cl, cr), labels=labels, data9=data9, num_labels=num_labels,
                  k1_disparity=out_k, votes=votes, feats=feats)
     return results, paths
+
+
+def relax_phase_checks(dev, tag, t) -> None:
+    """K3's generic instantiation, its progressive factor and its phase
+    argument, each against the plain version on the card at the flagship's
+    size (3329 labels), RELAX_LABEL_BOUND differing labels at most:
+      * the grayscale layout (derivative 2, gray 1, compactness 2: 5
+        channels) and the flagship's layout with a progressive factor, 1, 8
+        and 24 sweeps from the block grid;
+      * two phases in 'frame' stats mode, 8 and 24 sweeps, from the block
+        grid and from settled labels, in both instantiations;
+      * a 'phase'-stats call, 24 sweeps x 2 phases from the block grid: one
+        sub-step a launch, each from a fresh K2 table (the label-row
+        prologue on each), against the same call through the plain versions;
+      * shard 0's rows with a 16-row halo above the frame (row0 = -16), two
+        phases, against the plain version and the full frame's rows;
+    and times a 'phase'-mode launch (one sub-step from a fresh table, its
+    label-row prologue included) and a 'phase'-mode frame's call (8 sweeps x
+    2 phases with their re-tallies)."""
+    from cartslam_tpu_torch.kernels import build
+    from cartslam_tpu_torch.kernels import relax as krelax
+    from cartslam_tpu_torch.kernels import tally as ktally
+
+    data, labels, tk, labels24, tk24, feats = (t[k] for k in ("data", "labels", "tk", "labels24",
+                                                               "tk24", "feats"))
+    num, n, diag = t["num_labels"], H * W, 0.5 / np.sqrt(2)
+    rf = krelax.RelaxFeature
+    data5 = torch.cat([t["deriv"].permute(2, 0, 1).float(), t["gray"][None].float(),
+                       data[5:7]]).contiguous()
+    feats5 = [rf("gaussian", 0, 2, 1.0), rf("gaussian", 2, 1, 1.5), rf("compactness", 3, 2, 0.1)]
+
+    def table_of(lab, d):
+        return ktally.moment_tally(lab.reshape(-1).contiguous(),
+                                   d.reshape(d.shape[0], -1).to(torch.int32).contiguous(), num)
+
+    tk5 = table_of(labels, data5)
+    gh = torch.tensor(float(H), device=dev)
+    prog = (1.0 + 0.5 * (gh - torch.arange(H, dtype=torch.float32, device=dev)) / gh)
+    # name -> (data, features, channels, table from the block grid, prog)
+    layouts = {"grayscale": (data5, feats5, 5, tk5, None),
+               "flagship": (data, feats, 7, tk, None),
+               "flagship + progressive": (data, feats, 7, tk, prog.contiguous())}
+
+    def compare(what, lk, lp, start):
+        ndiff = int((lk != lp).sum())
+        moved = int(((lk != start) & (start >= 0)).sum())
+        log(f"K3 {what}: {ndiff} label pixels differ from the plain version (bound "
+            f"{RELAX_LABEL_BOUND}); {moved} pixels moved")
+        if ndiff > RELAX_LABEL_BOUND or moved == 0:
+            raise AssertionError(f"K3 {what}: disagrees with its plain version, or moved nothing")
+
+    for name in ("grayscale", "flagship + progressive"):
+        d, f, c, table, pr = layouts[name]
+        inst = krelax.instantiation(f, c)
+        for sweeps in (1, 8, 24):
+            compare(f"{name} layout ({c} channels, {inst}), {sweeps} sweeps from the block grid",
+                    krelax.relax_sweeps(labels, table, d, f, c, sweeps, 0.5, diag, pr),
+                    krelax.relax_sweeps_plain(labels, table, d, f, c, sweeps, 0.5, diag, pr),
+                    labels)
+    for name in ("flagship", "grayscale"):
+        d, f, c, table, _ = layouts[name]
+        inst = krelax.instantiation(f, c)
+        settled = labels24 if c == 7 else krelax.relax_sweeps(labels, table, d, f, c, 24, 0.5,
+                                                              diag)
+        settled_table = tk24 if c == 7 else table_of(settled, d)
+        for start_name, start, tb in (("the block grid", labels, table),
+                                      ("the labels after 24 sweeps", settled, settled_table)):
+            for sweeps in (8, 24):
+                compare(f"{name} layout ({inst}), 2 phases, {sweeps} sweeps from {start_name}",
+                        krelax.relax_sweeps(start, tb, d, f, c, sweeps, 0.5, diag, phases=2),
+                        krelax.relax_sweeps_plain(start, tb, d, f, c, sweeps, 0.5, diag,
+                                                  phases=2),
+                        start)
+
+    def phase_call(kernel: bool, start, sweeps):
+        tally = ktally.moment_tally if kernel else ktally.moment_tally_plain
+        step = krelax.relax_phase if kernel else krelax.relax_phase_plain
+        lab, d_i = start, data.reshape(7, -1).to(torch.int32).contiguous()
+        for k in range(sweeps * 2):
+            table = tally(lab.reshape(-1).contiguous(), d_i, num)
+            lab = step(lab, table, data, feats, 7, k % 2, 2, 0.5, diag)
+        return lab
+
+    build.reset_counts()
+    lk = phase_call(True, labels, 24)
+    torch.cuda.synchronize()
+    counts = (build.COUNTERS["relax"].launches, build.COUNTERS["moment_tally"].launches)
+    if counts != (48, 48):
+        raise AssertionError(f"K3 'phase' call: (relax, moment_tally) launches {counts}, "
+                             "expected (48, 48)")
+    compare(f"'phase' stats, 24 sweeps x 2 phases from the block grid ({counts[0]} launches, "
+            f"{counts[1]} K2 tallies)", lk, phase_call(False, labels, 24), labels)
+
+    halo, hl = 16, H // SHARDS  # 8 sweeps x 2 phases on shard 0, rows -16 .. hl + 15
+    rows = torch.arange(-halo, hl + halo, device=dev)
+    inside = rows >= 0
+    src = rows.clamp(0, H - 1)
+    lab_ext = torch.where(inside[:, None], labels[src], -1).contiguous()
+    data_ext = data[:, src].contiguous()
+    lk = krelax.relax_sweeps(lab_ext, tk, data_ext, feats, 7, 8, 0.5, diag, phases=2, row0=-halo)
+    compare("shard 0 with a 16-row halo above the frame (row0 -16), 2 phases, 8 sweeps", lk,
+            krelax.relax_sweeps_plain(lab_ext, tk, data_ext, feats, 7, 8, 0.5, diag, phases=2,
+                                      row0=-halo), lab_ext)
+    full = krelax.relax_sweeps(labels, tk, data, feats, 7, 8, 0.5, diag, phases=2)
+    if not (torch.equal(lk[halo:halo + hl], full[:hl]) and bool((lk[:halo] == -1).all())):
+        raise AssertionError("K3 row0 < 0: shard 0's rows differ from the full frame's")
+    for phase in (0, 1):
+        compare(f"one 'phase' sub-step of parity {phase} on shard 0 (row0 -16)",
+                krelax.relax_phase(lab_ext, tk, data_ext, feats, 7, phase, 2, 0.5, diag,
+                                   row0=-halo),
+                krelax.relax_phase_plain(lab_ext, tk, data_ext, feats, 7, phase, 2, 0.5, diag,
+                                         row0=-halo), lab_ext)
+
+    # The wrapper's call costs more host time than the launch takes on the
+    # card, so the kernel's time comes from its C entry points in a loop (the
+    # label-row prologue and one sub-step); the wrapper's is printed beside.
+    lib, stream = build.library(), build.stream()
+    nf, cf = len(feats), krelax.c_features(feats)
+    rows = torch.empty((num + 1, krelax.ROW_STRIDE), dtype=torch.float32, device=dev)
+    out = torch.empty_like(labels24)
+
+    def c_launch():
+        build.check(lib.relax_label_rows(tk24.data_ptr(), rows.data_ptr(), num, 7, nf, *cf,
+                                         stream), "relax_label_rows")
+        build.check(lib.relax_sweeps(labels24.data_ptr(), data.data_ptr(), rows.data_ptr(),
+                                     out.data_ptr(), H, W, num, 7, nf, *cf, None, 0.5, diag, 1,
+                                     0, 2, 0, stream), "relax_sweeps")
+
+    c_launch()
+    want = krelax.relax_phase(labels24, tk24, data, feats, 7, 0, 2, 0.5, diag)
+    if not torch.equal(out, want):
+        raise AssertionError("K3: the C entry points' sub-step differs from the wrapper's")
+    ms = cuda_ms(c_launch, 200)
+    wrapper_ms = cuda_ms(lambda: krelax.relax_phase(labels24, tk24, data, feats, 7, 0, 2, 0.5,
+                                                    diag), 50)
+    pms = cuda_ms(lambda: krelax.relax_phase_plain(labels24, tk24, data, feats, 7, 0, 2, 0.5,
+                                                   diag), 3)
+    pixels, cands = relax_work(labels24, 0, 2)
+    term = 7 * RELAX_OPS_PER_TERM_CHANNEL
+    bms, by = bound(2 * 4 * n + 7 * 4 * n + 4 * tk24.numel(),
+                    num * term + pixels * term + (cands - pixels) * term
+                    + cands * RELAX_CLIQUE_OPS)
+    frame_ms = cuda_ms(lambda: phase_call(True, labels24, 8), 10)
+    log(f"K3 'phase'-mode launch (one sub-step of parity 0 from the labels after 24 sweeps, "
+        f"{pixels} active pixels, {cands} distinct candidates; label-row prologue included): "
+        f"kernel {ms:.4f} ms (C entry points; {wrapper_ms:.4f} ms through the wrapper), plain "
+        f"{pms:.4f} ms, bound {bms:.4f} ms ({by}); a 'phase'-mode "
+        f"frame's call (8 sweeps x 2 phases: 16 launches and 16 K2 tallies) {frame_ms:.4f} ms"
+        f"  [{tag}]")
 
 
 def sharded_sgm_phase(dev, tag, paths, results) -> None:
@@ -743,47 +964,110 @@ def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(a, b)
 
 
-def spatial_phase(frames, intrinsics, dev, tag, plan) -> tuple[int, list]:
+def spatial_phase(frames, intrinsics, dev, tag, plan, n_frames=SPATIAL_FRAMES,
+                  superpixels=None, keys=("full_frame_select", "spatial")) -> tuple[int, list]:
     """configs/kitti-planeseg-spatial.json through read_config, the synthetic
-    frames standing in for KITTI, SPATIAL_FRAMES frames on SHARDS row shards
-    of this one card; every output equal frame by frame to the full-frame
+    frames standing in for KITTI, n_frames frames on SHARDS row shards of
+    this one card; every output equal frame by frame to the full-frame
     pipeline of the same modules with warp_mode 'select' (the spatial mode's
-    warp) and the same max_warp_y.  Returns (K5 launches, per-frame ms)."""
+    warp) and the same max_warp_y.  superpixels: keys set on the config's
+    superpixels module (then both pipelines come from build_pipeline with
+    the config's parallel block).  keys: the launch plans of the full frame
+    and the spatial run.  Returns (K5 launches, per-frame ms)."""
     from cartslam_tpu_torch.config import build_pipeline, read_config
     from cartslam_tpu_torch.parallel.spatial_flagship import SpatialPipeline
     from cartslam_tpu_torch.sources import PreloadedSource
 
     cfg = os.path.join(REPO, "configs", "kitti-planeseg-spatial.json")
     with open(cfg) as f:
-        mods = json.load(f)["modules"]
+        config = json.load(f)
+    mods = [{**m, **superpixels} if superpixels and m["type"] == "superpixels" else m
+            for m in config["modules"]]
     ref_mods = [{**m, "warp_mode": "select", "max_warp_y": m.get("max_warp_y", 32)}
                 if m["type"] == "superpixel_disparity_planeseg" else m for m in mods]
-    src = lambda: PreloadedSource(frames[:SPATIAL_FRAMES], intrinsics=intrinsics)
+    src = lambda: PreloadedSource(frames[:n_frames], intrinsics=intrinsics)
     want, got = [], []
-    drive(*build_pipeline(src(), ref_mods, device=dev), plan["full_frame_select"], keep=want)
-    pipe, source = read_config(cfg, device=dev, source=src())
+    drive(*build_pipeline(src(), ref_mods, device=dev), plan[keys[0]], keep=want)
+    if superpixels:
+        pipe, source = build_pipeline(src(), mods, device=dev, parallel=config["parallel"])
+    else:
+        pipe, source = read_config(cfg, device=dev, source=src())
     if not isinstance(pipe, SpatialPipeline) or pipe.n != SHARDS:
         raise AssertionError(f"{cfg} did not build a {SHARDS}-shard SpatialPipeline")
     torch.cuda.reset_peak_memory_stats(dev)
-    _, res, frame_ms, _, counts = drive(pipe, source, plan["spatial"], keep=got)
+    _, res, frame_ms, _, counts = drive(pipe, source, plan[keys[1]], keep=got)
     peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
-    if res.frames != SPATIAL_FRAMES:
-        raise AssertionError(f"spatial: ran {res.frames} frames, expected {SPATIAL_FRAMES}")
+    if res.frames != n_frames:
+        raise AssertionError(f"spatial: ran {res.frames} frames, expected {n_frames}")
     for fid, (a, b) in enumerate(zip(got, want), start=1):
         if set(a) != set(b):
             raise AssertionError(f"spatial frame {fid}: keys {sorted(a)} vs {sorted(b)}")
         for k in a:
             if not _same(a[k], b[k]):
                 raise AssertionError(f"spatial frame {fid}: {k} differs from the full frame")
-    log(f"spatial: {cfg[len(REPO) + 1:]} via read_config, {SHARDS} shards of "
+    how = f"with superpixels {superpixels}" if superpixels else "via read_config"
+    log(f"spatial: {cfg[len(REPO) + 1:]} {how}, {SHARDS} shards of "
         f"{H // SHARDS} rows on one card, {res.frames} frames: every output "
         f"({', '.join(sorted(got[0]))}) array_equal frame by frame to the full-frame "
         f"pipeline with warp_mode 'select', max_warp_y 32; launches {counts}, no plain "
         f"call; peak device memory {peak_mb:.1f} MiB")
-    log(f"spatial per-frame ms: median {float(np.median(frame_ms[2:])):.3f} over frames "
-        f"3..{SPATIAL_FRAMES} (min {min(frame_ms[2:]):.3f}, max {max(frame_ms[2:]):.3f}); "
+    log(f"spatial per-frame ms ({how}): median {float(np.median(frame_ms[2:])):.3f} over "
+        f"frames 3..{n_frames} (min {min(frame_ms[2:]):.3f}, max {max(frame_ms[2:]):.3f}); "
         f"frame 1 {frame_ms[0]:.3f}; {SHARDS} shards on one card, not a latency figure  [{tag}]")
     return counts["sgm_sharded"], frame_ms
+
+
+def faithful_paths(frames, intrinsics, gen, dev, tag, plan) -> list:
+    """The paths of the reference-faithful modes, each driven with its own
+    counts: the faithful flagship (FRAMES frames), the pixel plane
+    segmentation in both temporal modes (PIXEL_FRAMES) and the flagship on
+    grayscale frames (GRAY_FRAMES).  Returns the faithful flagship's
+    per-frame ms."""
+    from cartslam_tpu_torch.config import build_pipeline
+    from cartslam_tpu_torch.sources import PreloadedSource
+
+    src = lambda n: PreloadedSource(frames[:n], intrinsics=intrinsics)
+    torch.cuda.reset_peak_memory_stats(dev)
+    pipe, res, frame_ms, last, counts = drive(*build_pipeline(src(FRAMES), faithful_modules(),
+                                                              device=dev), plan["faithful"])
+    peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
+    if res.frames != FRAMES or res.state["modules"]["SPPlaneSegmentation"]:
+        raise AssertionError("faithful flagship: wrong frame count, or a carried vote state")
+    log(f"faithful flagship ('phase' stats, 2 relax phases, faithful temporal vote): "
+        f"{res.frames} frames at {H}x{W}, D={D}; launches {counts}; history rings "
+        + ", ".join(f"{k} {tuple(v.shape)}" for k, v in res.state["history"].items())
+        + f"; peak device memory {peak_mb:.1f} MiB")
+    check_flagship_outputs(res, last, gen)
+    del pipe, res, last
+    for mode in ("carried", "faithful"):
+        _, res, ms, last, counts = drive(*build_pipeline(src(PIXEL_FRAMES), pixel_modules(mode),
+                                                         device=dev), plan["pixel"])
+        planes, hist = last["planes"], last["planeseg_frame_histogram"]
+        vals = set(torch.unique(planes).tolist())
+        if planes.shape != (H, W) or not vals <= {0, 1, 2} or int(hist.sum()) == 0:
+            raise AssertionError(f"pixel plane segmentation ({mode}): planes {vals}, "
+                                 f"histogram sum {int(hist.sum())}")
+        changed = float((planes != last["planes_unsmoothed"]).float().mean())
+        log(f"pixel plane segmentation (kitti-naive-segmentation-temporal.json, {mode} vote): "
+            f"{res.frames} frames; launches {counts}; planes classes "
+            f"{np.bincount(planes.cpu().numpy().ravel(), minlength=3).tolist()}, {changed:.4f} "
+            f"changed by the vote, ranges {res.host_params['PlaneSegmentation']['ranges'].tolist()}"
+            f"; per-frame median {float(np.median(ms[2:])):.3f} ms over frames 3..{PIXEL_FRAMES}"
+            f"  [{tag}]")
+    _, res, ms, last, counts = drive(*build_pipeline(src(GRAY_FRAMES), flagship_modules(),
+                                                     device=dev, grayscale=True),
+                                     plan["grayscale"])
+    if last["superpixels"].shape != (H, W) or last["planes"].shape != (H, W):
+        raise AssertionError("grayscale flagship: wrong output shapes")
+    from cartslam_tpu_torch.kernels import relax as krelax
+
+    gray_feats = [krelax.RelaxFeature("gaussian", 0, 2, 1.0),
+                  krelax.RelaxFeature("gaussian", 2, 1, 1.5),
+                  krelax.RelaxFeature("compactness", 3, 2, 0.1)]
+    log(f"grayscale flagship (frames converted at the source boundary): {res.frames} frames; "
+        f"launches {counts}, K3 as {krelax.instantiation(gray_feats, 5)}; per-frame median "
+        f"{float(np.median(ms[2:])):.3f} ms over frames 3..{GRAY_FRAMES}  [{tag}]")
+    return frame_ms
 
 
 def check_flagship_outputs(res, last, gen):
@@ -841,11 +1125,13 @@ def _assert_equal_trees(a, b, where):
         raise AssertionError(f"{where}: differs card vs CPU on {n} of {np.size(a)} values")
 
 
-def small_temporal_check(dev):
+def small_temporal_check(dev, faithful=False):
     """A 64x128 temporal slice for 6 frames on the card and on the CPU:
     kernels vs plain versions end to end, every output and the final state
     equal (depth within ~3 ulp).  48 disparities from 0, as in
-    configs/synthetic-planeseg.json, so K1's last lane chunk is partial."""
+    configs/synthetic-planeseg.json, so K1's last lane chunk is partial.
+    faithful: the reference-faithful modes ('phase' statistics, 2 relax
+    phases, the faithful temporal vote)."""
     from cartslam_tpu_torch.config import build_pipeline
     from cartslam_tpu_torch.runtime import run, state_to_numpy
     from cartslam_tpu_torch.sources import SyntheticDataSource
@@ -861,6 +1147,10 @@ def small_temporal_check(dev):
         {"type": "superpixel_disparity_planeseg", "parameter_provider": {"type": "histogram_peak"},
          "update_interval": 3, "use_temporal_smoothing": True},
     ]
+    if faithful:
+        mods[0] = {**mods[0], "stats_refresh": "phase", "relax_phases": 2}
+        mods[-1] = {**mods[-1], "temporal_mode": "faithful"}
+    name = "small faithful slice" if faithful else "small temporal slice"
     runs = {}
     for device in ("cpu", dev):
         src = SyntheticDataSource(image_size=(64, 128), num_frames=6, seed=0,
@@ -871,12 +1161,12 @@ def small_temporal_check(dev):
         runs[str(device)] = (frames, state_to_numpy(res.state))
     (cpu_frames, cpu_state), (dev_frames, dev_state) = runs["cpu"], runs[str(dev)]
     for fid, (a, b) in enumerate(zip(cpu_frames, dev_frames), start=1):
-        _assert_equal_trees(a, b, f"small temporal slice frame {fid}")
-    _assert_equal_trees(cpu_state, dev_state, "small temporal slice final state")
+        _assert_equal_trees(a, b, f"{name} frame {fid}")
+    _assert_equal_trees(cpu_state, dev_state, f"{name} final state")
     if not (cpu_frames[-1]["optflow"] != 0).any():
-        raise AssertionError("small temporal slice: zero flow")
-    log("small temporal slice (64x128, D=48, 6 frames): card == CPU on every output and the "
-        "final state (flow, planes, warp_votes exact; depth within ~3 ulp)")
+        raise AssertionError(f"{name}: zero flow")
+    log(f"{name} (64x128, D=48, 6 frames): card == CPU on every output and the final state "
+        "(flow, superpixels, planes, vote state and history rings exact; depth within ~3 ulp)")
 
 
 def full_flow_check(frames, dev, tag) -> float:
@@ -918,7 +1208,7 @@ def _union_ms(intervals) -> float:
     return total / 1e3
 
 
-def profile_phase(frames, intrinsics, dev, tag):
+def profile_phase(frames, intrinsics, dev, tag, modules=None, label="profile"):
     """Where the time goes, all from ONE run of a fresh temporal flagship:
     frames PROFILE_FRAMES under torch.profiler, with CUDA events around each
     module's compute.  The device's busy time is the union of the profiler's
@@ -935,7 +1225,7 @@ def profile_phase(frames, intrinsics, dev, tag):
 
     first, last = PROFILE_FRAMES
     pipe, source = build_pipeline(PreloadedSource(frames[:last], intrinsics=intrinsics),
-                                  flagship_modules(), device=dev)
+                                  modules or flagship_modules(), device=dev)
     spans = {m.name: [] for m in pipe.modules}
 
     def timed(m):
@@ -970,11 +1260,11 @@ def profile_phase(frames, intrinsics, dev, tag):
     wall = window["wall_ms"] / n
     med = {name: float(np.median([a.elapsed_time(b) for a, b in ev[first - 1:]]))
            for name, ev in spans.items()}
-    log(f"profile frames {first}..{last}: per-module device span median (CUDA events "
+    log(f"{label} frames {first}..{last}: per-module device span median (CUDA events "
         f"around compute, launch gaps included): "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(med.items(), key=lambda kv: -kv[1]))
         + f"  [{tag}]")
-    _device_report(prof, n, wall, f"profile frames {first}..{last}", tag)
+    _device_report(prof, n, wall, f"{label} frames {first}..{last}", tag)
 
 
 def _device_report(prof, n: int, wall: float, label: str, tag: str) -> None:
@@ -1115,16 +1405,22 @@ def main() -> int:
         *build_pipeline(nt_source, nontemporal_modules(), device=dev), plan["nontemporal"])
     log(f"non-temporal slice: {nt_res.frames} frames; launches {nt_counts}; per-frame median "
         f"{float(np.median(nt_ms[2:])):.3f} ms over frames 3..{NONTEMPORAL_FRAMES}  [{tag}]")
-    launches["sgm_sharded"], _ = spatial_phase(source.frames, source.get_camera_intrinsics(),
-                                               dev, tag, plan)
+    intrinsics = source.get_camera_intrinsics()
+    faithful_ms = faithful_paths(source.frames, intrinsics, gen, dev, tag, plan)
+    launches["sgm_sharded"], _ = spatial_phase(source.frames, intrinsics, dev, tag, plan)
+    spatial_phase(source.frames, intrinsics, dev, tag, plan, n_frames=SPATIAL_PHASE_FRAMES,
+                  superpixels={"stats_refresh": "phase"},
+                  keys=("spatial_phase_full", "spatial_phase"))
 
     # 5. card against CPU
     small_temporal_check(dev)
+    small_temporal_check(dev, faithful=True)
     flow_ms = full_flow_check(source.frames, dev, tag)
 
     # 6. profile
-    profile_phase(source.frames, source.get_camera_intrinsics(), dev, tag)
-    spatial_profile(source.frames, source.get_camera_intrinsics(), dev, tag)
+    profile_phase(source.frames, intrinsics, dev, tag)
+    profile_phase(source.frames, intrinsics, dev, tag, faithful_modules(), "faithful profile")
+    spatial_profile(source.frames, intrinsics, dev, tag)
 
     # 7. the CLI path
     from cartslam_tpu_torch.__main__ import main as cli_main
@@ -1139,6 +1435,10 @@ def main() -> int:
     log(f"flagship per-frame ms: median {float(np.median(steady)):.3f} over frames 3..{FRAMES} "
         f"(min {min(steady):.3f}, max {max(steady):.3f}); frame 1 {frame_ms[0]:.3f}, "
         f"frame 64 (reset) {frame_ms[63]:.3f}; dense_flow alone {flow_ms:.3f}  [{tag}]")
+    steady = faithful_ms[2:]
+    log(f"faithful flagship per-frame ms: median {float(np.median(steady)):.3f} over frames "
+        f"3..{FRAMES} (min {min(steady):.3f}, max {max(steady):.3f}); frame 1 "
+        f"{faithful_ms[0]:.3f}, frame 64 (reset) {faithful_ms[63]:.3f}  [{tag}]")
     for name, r in results.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {lib} ms, "

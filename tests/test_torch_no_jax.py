@@ -41,6 +41,22 @@ pipeline, source = build_pipeline(src, mods, device="cpu",
 assert isinstance(pipeline, SpatialPipeline)
 result = run(pipeline, source, on_frame=lambda fid, out: seen.update(out))
 assert result.frames == 2 and seen["planes"].shape == (32, 64)
+# The reference-faithful modes ('phase' statistics with two relax phases, the
+# faithful temporal vote), the pixel plane segmentation in both temporal
+# modes and the grayscale switch.
+faithful = [dict(m, relax_phases=2, stats_refresh="phase") if m["type"] == "superpixels"
+            else dict(m, temporal_mode="faithful") if m["type"].endswith("planeseg") else m
+            for m in mods]
+pixel = [{{"type": "optflow"}}, {{"type": "disparity", "num_disparities": 16}},
+         {{"type": "disparity_planeseg", "parameter_provider": {{"type": "histogram_peak"}},
+          "use_temporal_smoothing": True}}]
+for cfg, gray in ((faithful, False), (pixel, False),
+                  ([*pixel[:2], dict(pixel[2], temporal_mode="faithful")], False), (mods, True)):
+    pipeline, source = build_pipeline(src, cfg, device="cpu", grayscale=gray)
+    result = run(pipeline, source, on_frame=lambda fid, out: seen.update(out))
+    assert result.frames == 2 and seen["planes"].shape == (32, 64)
+from cartslam_tpu_torch.models.planeseg import DisparityPlaneSegmentationModule
+from cartslam_tpu_torch.sources.base import to_grayscale
 # The wrappers of the op-level kernels K6 and K7 import without JAX too.
 from cartslam_tpu_torch.kernels.sgm import sgm_aggregate
 from cartslam_tpu_torch.ops.tally import label_tally

@@ -169,11 +169,15 @@ def test_registry_rejects_unported_types(tmp_path):
     src = {"type": "synthetic", "image_size": [16, 32], "num_frames": 1}
     with pytest.raises(ValueError, match="module type 'zed_disparity' is not ported yet"):
         build_pipeline(src, [{"type": "zed_disparity"}], device="cpu")
-    with pytest.raises(ValueError, match="temporal_mode='faithful' is not ported yet"):
+    # The host visualizations are not ported yet; the faithful temporal mode
+    # is, and an unknown one is refused.
+    with pytest.raises(ValueError, match="'disparity_planeseg_visualization' is not ported yet"):
+        build_pipeline(src, [{"type": "disparity_planeseg_visualization"}], device="cpu")
+    with pytest.raises(ValueError, match="unknown temporal_mode 'exact'"):
         build_pipeline(src, [{"type": "superpixels"},
                              {"type": "superpixel_disparity_planeseg",
                               "parameter_provider": {"type": "histogram_peak"},
-                              "use_temporal_smoothing": True, "temporal_mode": "faithful"}],
+                              "use_temporal_smoothing": True, "temporal_mode": "exact"}],
                        device="cpu")
     # The spatial mode is ported; the multi-sequence modes are not.
     cfg = tmp_path / "multiseq.json"
