@@ -3,16 +3,16 @@
 //
 // K2 replaces the Pallas moment_tally_pallas (cartslam_tpu/ops/pallas/
 // tally.py:231, body :178): the per-label table [1 + 2C, L] of pixel count,
-// per-channel sums and per-channel sums of squares, negative labels dropped.
-// K4 replaces vote_tally_pallas (ops/pallas/tally.py:102, body :61): per-label
-// counts [L, P] of the plane classes.
-// K7 replaces label_tally_pallas (ops/pallas/tally.py:318): per-label column
-// sums [L, C] of an integer matrix [B, C] of any width; init_stats sends its
-// rows [1, d, d^2] here when it has more than 8 channels.
+// per-channel sums and per-channel sums of squares, labels outside [0, L)
+// dropped.  K4 replaces vote_tally_pallas (ops/pallas/tally.py:102, body
+// :61): per-label counts [L, P] of the plane classes.  K7 replaces
+// label_tally_pallas (ops/pallas/tally.py:318): per-label column sums [L, C]
+// of an integer matrix [B, C] of any width; init_stats sends its rows
+// [1, d, d^2] here when it has more than 8 channels.
 //
 // On the TPU all three are one-hot matmuls over bf16 byte planes (K7 with a
 // Khatri-Rao decomposition of the label), exact while a table entry stays
-// below 2^24.  Here they are integer scatter-adds.
+// below 2^24.  Here they are integer sums.
 //
 // The exact-sum rule (K2, K7): every entry is accumulated as an exact int64
 // (atomicAdd on unsigned long long, two's complement) and rounded to float32
@@ -23,49 +23,266 @@
 // so there the JAX CPU and TPU tables already differ in their low bits.  The
 // port's tables are the exact sums, rounded once.
 //
-// What bounds them on an H100: atomic throughput on the few labels a warp
-// touches (superpixel labels are spatially coherent, so the 32 pixels of a
-// warp hold 1-3 labels).  K2 therefore aggregates within the warp first
-// (__match_any_sync groups lanes of equal label, the group leader sums the
-// group's rows and issues one atomic per table row); K4 is the plain
-// one-atomic-per-pixel histogram.  K7 aggregates the same way, one column at
-// a time through a per-warp shared buffer: a per-block copy of the table does
-// not fit (L = 3329 labels x 19 columns x 8 bytes = 506 KB against 227 KB of
-// shared memory), so the atomics go to device memory, one per label group
-// and column.
+// What bounds K2 and K4 on an H100: the bytes, and at these sizes the fixed
+// costs.  Each reads its inputs once (K2 at the flagship, 7 channels: 15 MB,
+// 0.0045 ms at 3.35 TB/s; K4: 2.3 MB, 0.0007 ms) and does a few integer
+// operations a byte, so a launch and a memset (about 1 us each) weigh as
+// much as the reading.  What kept them far above that was the
+// reduction: one device-memory atomic per pixel (K4), or a group leader
+// looping serially over its peers and then one int64 device atomic per
+// table row and label group (K2, about 660k a call).
+//
+// Their design:
+// * Block-private accumulation.  A block owns a tile of kTileRows rows of 32
+//   quads (4 pixels each: 128 pixels) of the label image; the caller lays
+//   the tiles out (kernels/tally.tiling: an image's row width, or contiguous
+//   chunks of a flat input).  Superpixel labels are spatially coherent, so a
+//   16 x 128 tile touches about 30 labels.  The block keeps their sums in
+//   shared memory, 32-bit words in a kSlots-slot open-addressing map from
+//   label to slot, and at the tile's end adds each used (slot, table row) to
+//   device memory with one int64 atomic: about 30 x 15 a tile for K2.  A
+//   label that finds no free slot in kProbes probes (random labels, a tile
+//   with more labels than slots) adds straight to device memory: exact for
+//   any labels, only the speed depends on coherence.
+// * Per-lane shared atomics.  A lane reads its quad with one 16-byte load an
+//   array (masked scalar loads at a ragged end or an unaligned row) and, for
+//   each distinct label of its 4 pixels (usually one), adds their count,
+//   sums and square halves (K4: per class, their count) to the label's slot
+//   with 32-bit shared-memory atomics, zeros skipped.  On the H100 this beat
+//   reducing over the warp first (__match_any_sync groups with a
+//   __reduce_add_sync each, which serializes under divergent group masks, or
+//   a segmented shuffle scan over runs of equal labels) and 64-bit shared
+//   atomics; PERF.md has the times.  K2's data domain is the TPU kernel's,
+//   [-32768, 32767], which keeps every 32-bit word of a slot exact (below).
+// * One block a tile, between a memset of the table and (K2 with a float32
+//   output) the rounding kernel.  A single cooperative launch that zeroed,
+//   tallied and rounded behind grid barriers lost to these separate
+//   operations on the H100 (PERF.md).
+//
+// K7 keeps the design it was ported with: lanes of equal label grouped by
+// __match_any_sync, the leader summing its group one column at a time
+// through a per-warp shared buffer and adding to device memory (a per-block
+// copy of its table, 3329 labels x 19 columns x 8 bytes = 506 KB, does not
+// fit in shared memory).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kMaxC = 8;
 constexpr int kThreads = 256;
 
-__global__ void moment_tally_kernel(const int* __restrict__ labels,
-                                    const int* __restrict__ data, int N, int C, int L,
-                                    unsigned long long* __restrict__ acc) {
-  __shared__ int vals[kThreads * kMaxC];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int lab = i < N ? labels[i] : -1;
-  const bool keep = lab >= 0 && lab < L;
-  const unsigned active = __ballot_sync(0xffffffffu, keep);
-  if (!keep) return;
-  for (int c = 0; c < C; ++c) vals[threadIdx.x * kMaxC + c] = data[(size_t)c * N + i];
-  const unsigned peers = __match_any_sync(active, lab);
-  __syncwarp(active);
-  if (lane != __ffs(peers) - 1) return;
-  const int base = threadIdx.x - lane;
-  atomicAdd(&acc[lab], (unsigned long long)__popc(peers));
-  for (int c = 0; c < C; ++c) {
-    long long s = 0, ss = 0;
-    for (unsigned m = peers; m; m &= m - 1) {
-      const long long v = vals[(base + __ffs(m) - 1) * kMaxC + c];
-      s += v;
-      ss += v * v;
+// K2 / K4 tiles: kTileRows quad rows (one a warp) of 32 quads (one a
+// lane).  A slot's sums over a tile fit in 32 bits: at most 2048 pixels, so
+// a count below 2^12, a sum of values below 2^26 in magnitude, and square
+// halves (below 2^16 and 2^14) below 2^27.
+constexpr int kTileRows = 16;
+constexpr int kTileThreads = 32 * kTileRows;
+constexpr int kSlotBits = 7;
+constexpr int kSlots = 1 << kSlotBits;
+constexpr int kProbes = 8;
+// K4 keeps up to kMaxP classes a slot; a wider table adds to device memory.
+constexpr int kMaxP = 16;
+
+// The tiling of n pixels: quad q holds pixels 4q..4q+3; quad rows are wq
+// quads wide; tiles are kTileRows quad rows x 32 quads, `cols` to a row of
+// tiles (one block each).
+struct Tiles {
+  int n, nq, wq, cols;
+};
+
+// The quad of lane `lane` in quad row `row` of tile `tile`, or nq (no quad:
+// every pixel masked) outside the image.
+__device__ inline int quad_of(const Tiles& t, int tile, int row, int lane) {
+  const int c = (tile % t.cols) * 32 + lane;
+  const long long q = (long long)((tile / t.cols) * kTileRows + row) * t.wq + c;
+  return c < t.wq && q < t.nq ? (int)q : t.nq;
+}
+
+// Quad q of a row of n ints into v[0..3]: one 16-byte load where the quad is
+// whole and the row 16-byte aligned, else scalar loads with `fill` beyond n.
+__device__ inline void load_quad(const int* __restrict__ p, int q, int n, bool vec, int fill,
+                                 int* v) {
+  const long long i = 4LL * q;
+  if (vec && i + 3 < n) {
+    const int4 x = __ldg(reinterpret_cast<const int4*>(p) + q);
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) v[k] = i + k < n ? p[i + k] : fill;
+}
+
+// Quad q of n bytes into v[0..3] (one 4-byte load where whole and aligned).
+__device__ inline void load_bytes(const uint8_t* __restrict__ p, int q, int n, bool vec, int* v) {
+  const long long i = 4LL * q;
+  if (vec && i + 3 < n) {
+    const unsigned x = __ldg(reinterpret_cast<const unsigned*>(p) + q);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = x >> (8 * k) & 255;
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) v[k] = i + k < n ? p[i + k] : 0;
+}
+
+// The block's slot for `label` (inserted if new), or -1 when kProbes probes
+// find neither it nor a free slot.
+__device__ inline int slot_of(int* keys, int label) {
+  const unsigned h = ((unsigned)label * 2654435761u) >> (32 - kSlotBits);
+  for (int p = 0; p < kProbes; ++p) {
+    const int s = (h + p) & (kSlots - 1);
+    const int seen = ((volatile int*)keys)[s];
+    if (seen == label) return s;
+    if (seen == -1) {
+      const int old = atomicCAS(&keys[s], -1, label);
+      if (old == -1 || old == label) return s;
     }
-    atomicAdd(&acc[(size_t)(1 + c) * L + lab], (unsigned long long)s);
-    atomicAdd(&acc[(size_t)(1 + C + c) * L + lab], (unsigned long long)ss);
+  }
+  return -1;
+}
+
+// The pixels of `todo` that hold the label of its first pixel (removed from
+// todo), and that label.
+__device__ inline unsigned take_label(const int (&lab)[4], unsigned& todo, int& label) {
+  // An unrolled pick, not lab[__ffs(todo) - 1]: a dynamic index would move
+  // the array to local memory.
+#pragma unroll
+  for (int k = 3; k >= 0; --k)
+    if (todo >> k & 1) label = lab[k];
+  unsigned sel = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) sel |= (unsigned)((todo >> k & 1) && lab[k] == label) << k;
+  todo &= ~sel;
+  return sel;
+}
+
+// K2 on a lane's pixels: per distinct label, the count, sums and square
+// halves of its pixels, added to the block's 32-bit slot sums (words: count,
+// C sums, C low and C high square halves; zeros skipped), or as int64 table
+// rows to device memory when the label has no slot.
+template <int C>
+__device__ void moment_pixels(const int (&lab)[4], const int (&val)[C][4],
+                              int L, int* keys, unsigned (*sums)[kSlots],
+                              unsigned long long* __restrict__ acc) {
+  unsigned todo = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) todo |= (unsigned)(lab[k] >= 0 && lab[k] < L) << k;
+  while (todo) {
+    int label;
+    const unsigned sel = take_label(lab, todo, label);
+    const int slot = slot_of(keys, label);
+    unsigned long long* row = acc + label;
+    if (slot >= 0)
+      atomicAdd(&sums[0][slot], (unsigned)__popc(sel));
+    else
+      atomicAdd(row, (unsigned long long)__popc(sel));
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      int sum = 0;
+      unsigned lo = 0, hi = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (sel >> k & 1) {
+          const unsigned sq = (unsigned)val[c][k] * (unsigned)val[c][k];
+          sum += val[c][k];
+          lo += sq & 0xffffu;
+          hi += sq >> 16;
+        }
+      }
+      if (slot >= 0) {
+        if (sum) atomicAdd(&sums[1 + c][slot], (unsigned)sum);
+        if (lo) atomicAdd(&sums[1 + C + c][slot], lo);
+        if (hi) atomicAdd(&sums[1 + 2 * C + c][slot], hi);
+      } else {
+        if (sum) atomicAdd(row + (size_t)(1 + c) * L, (unsigned long long)(long long)sum);
+        if (lo | hi) atomicAdd(row + (size_t)(1 + C + c) * L, ((unsigned long long)hi << 16) + lo);
+      }
+    }
+  }
+}
+
+// K2: one tile a block, into acc (zeroed before).  Two blocks an SM (64
+// registers a thread at most), so the flagship's 240 tiles run at once on
+// 132 SMs.
+template <int C>
+__global__ void __launch_bounds__(kTileThreads, 2)
+    moment_tally_kernel(const int* __restrict__ labels, const int* __restrict__ data, Tiles t,
+                        int L, int vec, unsigned long long* __restrict__ acc) {
+  constexpr int R = 1 + 2 * C, S = 1 + 3 * C;
+  __shared__ int keys[kSlots];
+  __shared__ unsigned sums[S][kSlots];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int lab[4], val[C][4];
+  const int q = quad_of(t, blockIdx.x, warp, lane);
+  load_quad(labels, q, t.n, vec, -1, lab);
+#pragma unroll
+  for (int c = 0; c < C; ++c) load_quad(data + (size_t)c * t.n, q, t.n, vec, 0, val[c]);
+  for (int s = threadIdx.x; s < kSlots; s += kTileThreads) keys[s] = -1;
+  for (int e = threadIdx.x; e < S * kSlots; e += kTileThreads) sums[e >> kSlotBits][e & (kSlots - 1)] = 0;
+  __syncthreads();
+  moment_pixels<C>(lab, val, L, keys, sums, acc);
+  __syncthreads();
+  // Table row r of slot s: its count, a sum (sign-extended), or a square sum
+  // joined from its halves.
+  for (int e = threadIdx.x; e < R * kSlots; e += kTileThreads) {
+    const int s = e & (kSlots - 1), r = e >> kSlotBits;
+    if (sums[0][s] == 0) continue;
+    const unsigned long long v =
+        r == 0 ? sums[0][s]
+        : r <= C ? (unsigned long long)(long long)(int)sums[r][s]
+                 : ((unsigned long long)sums[r + C][s] << 16) + sums[r][s];
+    if (v != 0) atomicAdd(&acc[(size_t)r * L + keys[s]], v);
+  }
+}
+
+// K4 on a lane's pixels: per distinct (label, class), its pixel count added
+// to the block's slot counts, or to device memory when the label has no slot
+// (or the table more than kMaxP classes).
+__device__ void vote_pixels(const int (&lab)[4], const int (&vote)[4], int L,
+                            int P, int* keys, int (*counts)[kSlots], int* __restrict__ out) {
+  unsigned todo = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    todo |= (unsigned)(lab[k] >= 0 && lab[k] < L && vote[k] < P) << k;
+  while (todo) {
+    int label = 0, v = 0;
+#pragma unroll
+    for (int k = 3; k >= 0; --k)
+      if (todo >> k & 1) label = lab[k], v = vote[k];
+    unsigned sel = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      sel |= (unsigned)((todo >> k & 1) && lab[k] == label && vote[k] == v) << k;
+    todo &= ~sel;
+    const int slot = P <= kMaxP ? slot_of(keys, label) : -1;
+    if (slot >= 0)
+      atomicAdd(&counts[v][slot], __popc(sel));
+    else
+      atomicAdd(&out[(size_t)label * P + v], __popc(sel));
+  }
+}
+
+// K4: one tile a block, into out (zeroed before).
+__global__ void __launch_bounds__(kTileThreads)
+    vote_tally_kernel(const int* __restrict__ labels, const uint8_t* __restrict__ votes, Tiles t,
+                      int L, int P, int vec, int* __restrict__ out) {
+  __shared__ int keys[kSlots];
+  __shared__ int counts[kMaxP][kSlots];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int kept = min(P, kMaxP) * kSlots;
+  int lab[4], vote[4];
+  const int q = quad_of(t, blockIdx.x, warp, lane);
+  load_quad(labels, q, t.n, vec, -1, lab);
+  load_bytes(votes, q, t.n, vec, vote);
+  for (int s = threadIdx.x; s < kSlots; s += kTileThreads) keys[s] = -1;
+  for (int e = threadIdx.x; e < kept; e += kTileThreads) counts[e >> kSlotBits][e & (kSlots - 1)] = 0;
+  __syncthreads();
+  vote_pixels(lab, vote, L, P, keys, counts, out);
+  __syncthreads();
+  for (int e = threadIdx.x; e < kept; e += kTileThreads) {
+    const int s = e & (kSlots - 1), p = e >> kSlotBits;
+    const int c = counts[p][s];
+    if (c != 0) atomicAdd(&out[(size_t)keys[s] * P + p], c);
   }
 }
 
@@ -99,45 +316,56 @@ __global__ void to_float_kernel(const unsigned long long* __restrict__ acc,
   if (i < n) out[i] = __ll2float_rn((long long)acc[i]);
 }
 
-__global__ void vote_tally_kernel(const int* __restrict__ labels,
-                                  const uint8_t* __restrict__ votes, int N, int L, int P,
-                                  int* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N) return;
-  const int lab = labels[i];
-  const int v = votes[i];
-  if (lab >= 0 && lab < L && v < P) atomicAdd(&out[lab * P + v], 1);
+const void* moment_kernel(int C) {
+  switch (C) {
+    case 1: return (const void*)moment_tally_kernel<1>;
+    case 2: return (const void*)moment_tally_kernel<2>;
+    case 3: return (const void*)moment_tally_kernel<3>;
+    case 4: return (const void*)moment_tally_kernel<4>;
+    case 5: return (const void*)moment_tally_kernel<5>;
+    case 6: return (const void*)moment_tally_kernel<6>;
+    case 7: return (const void*)moment_tally_kernel<7>;
+    case 8: return (const void*)moment_tally_kernel<8>;
+  }
+  return nullptr;
 }
 
 }  // namespace
 
-// labels int32 [N], data int32 [C, N] (C <= 8), acc int64 scratch [1 + 2C, L],
-// out float32 [1 + 2C, L], or null to leave the exact int64 sums in acc.
-extern "C" int moment_tally(const void* labels, const void* data, int N, int C, int L,
-                            void* acc, void* out, void* stream) {
+// K2.  labels int32 [N], data int32 [C, N] (C <= 8, values in [-32768,
+// 32767]) in `count` tiles of wq-quad rows (cols tiles a row), acc int64
+// scratch [1 + 2C, L], out float32 [1 + 2C, L], or null to leave the exact
+// int64 sums in acc.
+extern "C" int moment_tally(const void* labels, const void* data, int N, int C, int L, int wq,
+                            int cols, int count, void* acc, void* out, void* stream) {
+  const void* kernel = moment_kernel(C);
+  if (kernel == nullptr || wq < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int n = (1 + 2 * C) * L;
-  cudaError_t e = cudaMemsetAsync(acc, 0, (size_t)n * sizeof(unsigned long long), s);
-  if (e != cudaSuccess) return (int)e;
-  if (N > 0)
-    moment_tally_kernel<<<(N + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-        (const int*)labels, (const int*)data, N, C, L, (unsigned long long*)acc);
-  if (out != nullptr)
-    to_float_kernel<<<(n + 255) / 256, 256, 0, s>>>((const unsigned long long*)acc,
-                                                    (float*)out, n);
-  return (int)cudaGetLastError();
+  const int table = (1 + 2 * C) * L;
+  Tiles t{N, (N + 3) / 4, wq, cols};
+  int vec = (uintptr_t)labels % 16 == 0 && (uintptr_t)data % 16 == 0 && N % 4 == 0;
+  const int* lab = (const int*)labels;
+  const int* dat = (const int*)data;
+  unsigned long long* a = (unsigned long long*)acc;
+  void* args[] = {&lab, &dat, &t, &L, &vec, &a};
+  cudaError_t e = cudaMemsetAsync(acc, 0, (size_t)table * sizeof(unsigned long long), s);
+  if (e == cudaSuccess && count > 0) e = cudaLaunchKernel(kernel, count, kTileThreads, args, 0, s);
+  if (e == cudaSuccess && out != nullptr && table > 0)
+    to_float_kernel<<<(table + 255) / 256, 256, 0, s>>>(a, (float*)out, table);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
-// labels int32 [N], votes uint8 [N], out int32 [L, P].
-extern "C" int vote_tally(const void* labels, const void* votes, int N, int L, int P,
-                          void* out, void* stream) {
+// K4.  labels int32 [N], votes uint8 [N] in tiles as K2's, out int32 [L, P].
+extern "C" int vote_tally(const void* labels, const void* votes, int N, int L, int P, int wq,
+                          int cols, int count, void* out, void* stream) {
+  if (wq < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e = cudaMemsetAsync(out, 0, (size_t)L * P * sizeof(int), s);
-  if (e != cudaSuccess) return (int)e;
-  if (N > 0)
-    vote_tally_kernel<<<(N + 255) / 256, 256, 0, s>>>(
-        (const int*)labels, (const uint8_t*)votes, N, L, P, (int*)out);
-  return (int)cudaGetLastError();
+  if (e == cudaSuccess && count > 0)
+    vote_tally_kernel<<<count, kTileThreads, 0, s>>>(
+        (const int*)labels, (const uint8_t*)votes, Tiles{N, (N + 3) / 4, wq, cols}, L, P,
+        (uintptr_t)labels % 16 == 0 && (uintptr_t)votes % 4 == 0, (int*)out);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 // K7. labels int32 [B], values int32 [B, C], acc int64 scratch [L, C],

@@ -9,6 +9,13 @@ plain version.  Both versions compute exact integer sums: K2's and K7's
 table entries are int64 sums rounded to float32 once (the JAX CPU path adds
 in float32, exact only below 2^24 per entry).
 
+K2 and K4 take their labels in the image's layout, [..., W] (an image's
+[H, W], or a flat [N]), and their data in the same layout behind the
+channel axis.  The layout only places the kernels' tiles (``tiling``): a
+block keeps the labels of a 16-row x 128-pixel tile in shared memory, and
+superpixel labels are coherent in 2-D, not along a flat index.  The plain
+versions take the flat arrays.
+
 ``reduce`` (K2 and K7): a function applied to the exact int64 table before
 it is rounded to float32.  The height-sharded mode passes its psum there, so
 the shards' tables are summed exactly and rounded once, as the full frame's
@@ -18,6 +25,10 @@ wherever an entry passes 2^24 (full-size coordinate squares do).
 
 from __future__ import annotations
 
+import dataclasses
+import math
+from typing import Sequence
+
 import torch
 
 from . import build
@@ -26,6 +37,42 @@ MOMENT_COUNTER = build.counter("moment_tally")
 VOTE_COUNTER = build.counter("vote_tally")
 LABEL_COUNTER = build.counter("label_tally")
 MAX_CHANNELS = 8
+# K2's data domain on the card (moment_tally_pallas's): the kernel's 32-bit
+# per-tile slot sums are exact for values in [-32768, 32767].
+DATA_MIN, DATA_MAX = -32768, 32767
+# K2's and K4's tiles (csrc/tally.cu): TILE_ROWS rows of TILE_QUADS quads of
+# 4 pixels.
+TILE_ROWS, TILE_QUADS = 16, 32
+
+
+@dataclasses.dataclass(frozen=True)
+class Tiling:
+    """K2's and K4's tiles over n pixels: quad rows `quads_per_row` quads
+    wide, tiles of TILE_ROWS x TILE_QUADS quads, `cols` to a row of tiles,
+    `count` in all."""
+
+    quads_per_row: int
+    cols: int
+    count: int
+
+
+def tiling(shape: Sequence[int]) -> Tiling:
+    """The tiles of a label array of `shape`: [..., W] rows of W pixels
+    (rounded up to whole quads; a row that is not a multiple of 4 only
+    shifts the quads against the image's rows), a flat [N] in contiguous
+    chunks of TILE_ROWS x TILE_QUADS quads."""
+    quads = -(-math.prod(shape) // 4)
+    wq = max(-(-shape[-1] // 4), 1) if len(shape) > 1 else TILE_QUADS
+    rows = -(-quads // wq)
+    cols = -(-wq // TILE_QUADS)
+    return Tiling(wq, cols, -(-rows // TILE_ROWS) * cols)
+
+
+def moment_scratch(channels: int, num_labels: int, reduce) -> tuple[tuple, tuple | None]:
+    """Shapes of K2's int64 table and its float32 output (None when a
+    `reduce` takes the int64 table)."""
+    shape = (1 + 2 * channels, num_labels)
+    return shape, (None if reduce is not None else shape)
 
 
 def _rounded(acc: torch.Tensor, reduce) -> torch.Tensor:
@@ -56,19 +103,28 @@ def moment_tally_plain(labels: torch.Tensor, data: torch.Tensor, num_labels: int
 
 def moment_tally(labels: torch.Tensor, data: torch.Tensor, num_labels: int,
                  reduce=None) -> torch.Tensor:
+    """moment_tally_plain's table from labels int32 [..., W] and data int32
+    [C, ..., W] (C <= 8) of the same layout.  On the card the data must lie
+    in [DATA_MIN, DATA_MAX], the TPU kernel's domain (every plane init_stats
+    tallies does: derivatives with their -32768 invalid, colours,
+    coordinates); the plain version is exact on any int32."""
     if labels.device.type == "cpu":
         MOMENT_COUNTER.plain_calls += 1
-        return moment_tally_plain(labels, data, num_labels, reduce)
-    c, n = data.shape
+        return moment_tally_plain(labels.reshape(-1), data.reshape(data.shape[0], -1),
+                                  num_labels, reduce)
+    c = data.shape[0]
     if c > MAX_CHANNELS:
         raise ValueError(f"moment tally kernel takes at most {MAX_CHANNELS} channels, got {c}")
-    build.expect(labels, "labels", torch.int32, (n,))
-    build.expect(data, "data", torch.int32, (c, n), labels.device)
+    build.expect(labels, "labels", torch.int32)
+    build.expect(data, "data", torch.int32, (c, *labels.shape), labels.device)
+    tiles = tiling(labels.shape)
+    acc_shape, out_shape = moment_scratch(c, num_labels, reduce)
+    acc = torch.empty(acc_shape, dtype=torch.int64, device=labels.device)
+    out = None if out_shape is None else torch.empty(out_shape, dtype=torch.float32,
+                                                     device=labels.device)
     lib = build.library()
-    acc = torch.empty((1 + 2 * c, num_labels), dtype=torch.int64, device=labels.device)
-    out = None if reduce is not None else torch.empty(
-        (1 + 2 * c, num_labels), dtype=torch.float32, device=labels.device)
-    build.check(lib.moment_tally(labels.data_ptr(), data.data_ptr(), n, c, num_labels,
+    build.check(lib.moment_tally(labels.data_ptr(), data.data_ptr(), labels.numel(), c,
+                                 num_labels, tiles.quads_per_row, tiles.cols, tiles.count,
                                  acc.data_ptr(), build.ptr(out), build.stream()),
                 "moment_tally")
     MOMENT_COUNTER.launches += 1
@@ -87,17 +143,19 @@ def vote_tally_plain(labels: torch.Tensor, votes: torch.Tensor, num_labels: int,
 
 def vote_tally(labels: torch.Tensor, votes: torch.Tensor, num_labels: int,
                num_classes: int) -> torch.Tensor:
+    """vote_tally_plain's counts from labels int32 [..., W] and votes uint8
+    of the same shape."""
     if labels.device.type == "cpu":
         VOTE_COUNTER.plain_calls += 1
-        return vote_tally_plain(labels, votes, num_labels, num_classes)
-    (n,) = labels.shape
-    build.expect(labels, "labels", torch.int32, (n,))
-    build.expect(votes, "votes", torch.uint8, (n,), labels.device)
-    lib = build.library()
+        return vote_tally_plain(labels.reshape(-1), votes.reshape(-1), num_labels, num_classes)
+    build.expect(labels, "labels", torch.int32)
+    build.expect(votes, "votes", torch.uint8, tuple(labels.shape), labels.device)
+    tiles = tiling(labels.shape)
     out = torch.empty((num_labels, num_classes), dtype=torch.int32, device=labels.device)
-    build.check(lib.vote_tally(labels.data_ptr(), votes.data_ptr(), n, num_labels,
-                               num_classes, out.data_ptr(), build.stream()),
-                "vote_tally")
+    build.check(build.library().vote_tally(
+        labels.data_ptr(), votes.data_ptr(), labels.numel(), num_labels, num_classes,
+        tiles.quads_per_row, tiles.cols, tiles.count, out.data_ptr(), build.stream()),
+        "vote_tally")
     VOTE_COUNTER.launches += 1
     return out
 

@@ -178,12 +178,9 @@ def superpixel_vote(pixel_planes: torch.Tensor, labels: torch.Tensor,
     the running max), painted back to the pixels as uint8.  psum (spatial
     mode): the shards' counts are summed before the winner pass, exact
     integers, so equal to the full frame's for any shard count."""
-    counts = ktally.vote_tally(
-        labels.reshape(-1).to(torch.int32).contiguous(),
-        pixel_planes.reshape(-1).contiguous(),
-        num_labels,
-        PLANE_COUNT,
-    )
+    counts = ktally.vote_tally(labels.to(torch.int32).contiguous(),
+                               pixel_planes.reshape(labels.shape).contiguous(), num_labels,
+                               PLANE_COUNT)
     if psum is not None:
         counts = psum(counts)
     best = torch.full((num_labels,), UNKNOWN, dtype=torch.int32, device=labels.device)

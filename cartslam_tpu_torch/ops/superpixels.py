@@ -45,18 +45,19 @@ def block_init_labels(height: int, width: int, block_w: int, block_h: int, devic
 def init_stats(labels: torch.Tensor, data: torch.Tensor, num_labels: int,
                psum=None) -> torch.Tensor:
     """Stat table float32 [1 + 2C, L] (count | sums | sums of squares) from
-    integer-valued channel planes data [C, H, W]; negative labels drop.
-    Each entry is the exact integer sum, rounded to float32 once: kernel K2
-    for up to 8 channels, else the column sums of the rows [1, d, d^2]
+    integer-valued channel planes data [C, H, W] (float, or already int32:
+    then used as they are); negative labels drop.  Each entry is the exact
+    integer sum, rounded to float32 once: kernel K2 for up to 8 channels, on
+    the image's layout, else the column sums of the rows [1, d, d^2]
     (kernel K7), as the JAX package routes them.  psum (spatial mode) sums
     the shards' exact int64 tables before that one rounding."""
     c = data.shape[0]
-    flat = labels.reshape(-1).contiguous()
-    d = data.reshape(c, -1).to(torch.int32)
+    d = data.to(torch.int32)
     if c <= ktally.MAX_CHANNELS:
-        return ktally.moment_tally(flat, d.contiguous(), num_labels, psum)
+        return ktally.moment_tally(labels.contiguous(), d.contiguous(), num_labels, psum)
+    d = d.reshape(c, -1)
     rows = torch.cat([torch.ones_like(d[:1]), d, d * d]).T
-    return label_tally(flat, rows, num_labels, psum).T.contiguous()
+    return label_tally(labels.reshape(-1).contiguous(), rows, num_labels, psum).T.contiguous()
 
 
 def relax(labels: torch.Tensor, feature_data: Sequence[torch.Tensor],
@@ -122,9 +123,13 @@ def relax(labels: torch.Tensor, feature_data: Sequence[torch.Tensor],
         core = torch.zeros(h, dtype=torch.bool, device=dev)
         core[top : h - bottom] = True
 
+    # The int32 planes K2 tallies, converted once for all of the call's
+    # tallies ('phase' stats re-tally after every sub-step).
+    planes = data_all.to(torch.int32)
+
     def tally(lab):
         return init_stats(lab if core is None else torch.where(core[:, None], lab, krelax.OOB),
-                          data_all, num_labels, psum)
+                          planes, num_labels, psum)
 
     labels = labels.contiguous()
     stats = tally(labels)

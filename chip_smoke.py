@@ -5,8 +5,10 @@ Phases (each raises on failure; none is caught):
   1. device   - require CUDA; print the card's name and power limit.
   2. build    - compile the CUDA kernels from csrc/ with nvcc (sm_90a); print
                 ptxas's registers, shared memory and spill bytes of the SGM
-                path and WTA kernels and the relax kernels, and fail if the
-                flagship's instantiation of the fused relax kernel spills.
+                path and WTA kernels, the relax kernels and the K2 / K4
+                tally kernels, and fail if the flagship's instantiation of
+                the fused relax kernel, or a tally kernel a path runs,
+                spills.
   3. kernels  - each kernel against its plain PyTorch version on the card, at
                 the flagship's shapes (376x1248, 256 disparities, 3329
                 labels), with its time, the plain version's, the time of one
@@ -28,6 +30,14 @@ Phases (each raises on failure; none is caught):
                 launch, a fresh K2 table each) and a shard with row0 < 0
                 against the plain versions, 0 differing labels; a
                 'phase'-mode launch timed.
+                K2 and K4 array_equal to their plain versions on the
+                flagship's labels and on hard layouts
+                (random labels over [-2, L+2), one label, every label
+                dropped, the faithful flagship's labels after 8 sub-steps, a
+                ragged unaligned flat N, K2's data at -32768 and at 32767,
+                the psum of two halves' tables), and their device time a call
+                from CUDA events around the replay of a CUDA graph of 100
+                wrapper calls, beside the wrapper's time.
                 K5 (the height-sharded SGM) runs on 8 shards of 47 rows of
                 the same frame, the shards as threads on this one card: its
                 settle carries and shard outputs against its plain version,
@@ -72,9 +82,9 @@ Phases (each raises on failure; none is caught):
                 frame pair, card against CPU.
   6. profile  - one fresh temporal flagship over frames 3..12 under
                 torch.profiler: per-module CUDA-event spans, device busy time
-                and idle share, device time by kernel name; the same for the
-                faithful flagship, and for a fresh spatial run over frames
-                3..6.
+                and idle share, device time by kernel name and K2's and K4's
+                a frame; the same for the faithful flagship, and for a fresh
+                spatial run over frames 3..6.
   7. cli      - configs/synthetic-planeseg.json through the CLI entry point.
   8. times    - per-frame ms and each kernel's numbers.
 The last two lines of standard output are the kernels JSON line and the
@@ -236,6 +246,28 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, calls: int = 100, replays: int = 3) -> float:
+    """Device ms a call of fn: CUDA events around replays of a CUDA graph of
+    `calls` captured calls, after a warm-up call and a warm-up replay.  The
+    host's work in fn (a wrapper's checks, allocations, the ctypes call) is
+    not in the graph, only what it enqueued."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
 
 
 def timed_once(fn):
@@ -448,24 +480,15 @@ def kernel_phase(dev, tag):
     num_labels = max_label + 1
     flat = labels.reshape(-1).contiguous()
     n = flat.numel()
-    data_i = data.reshape(7, -1).to(torch.int32).contiguous()
+    # K2 and K4 take the image's layout (their tiles are 2-D); the plain
+    # versions the flat arrays.
+    data_i = data.to(torch.int32)
+    data_flat = data_i.reshape(7, -1)
 
-    # K2
-    tk = ktally.moment_tally(flat, data_i, num_labels)
-    tp = ktally.moment_tally_plain(flat, data_i, num_labels)
-    if not torch.equal(tk, tp):
-        raise AssertionError(f"K2 moment tally: {int((tk != tp).sum())} entries differ")
-    ms = cuda_ms(lambda: ktally.moment_tally(flat, data_i, num_labels), 50)
-    pms = cuda_ms(lambda: ktally.moment_tally_plain(flat, data_i, num_labels), 10)
-    idx64 = flat.long()
-    rows64 = torch.cat([torch.ones_like(data_i[:1]), data_i, data_i * data_i]).long()
-    acc = torch.zeros((rows64.shape[0], num_labels), dtype=torch.int64, device=dev)
-    lms = cuda_ms(lambda: acc.index_add_(1, idx64, rows64), 50)
-    c = data_i.shape[0]
-    record("moment_tally", (tk - tp).abs().max(), ms, pms, lms,
-           4 * n + 4 * c * n + 4 * (1 + 2 * c) * num_labels, n * (3 * c + 1))
-    log(f"K2 moment_tally: array_equal [{tk.shape[0]},{num_labels}] from N={n}; "
-        f"kernel {ms:.3f} ms, plain {pms:.3f} ms, index_add_ int64 {lms:.3f} ms  [{tag}]")
+    # K2 (held on hard layouts and timed in tally_phase, below)
+    tk = ktally.moment_tally(labels, data_i, num_labels)
+    if not torch.equal(tk, ktally.moment_tally_plain(flat, data_flat, num_labels)):
+        raise AssertionError("K2 moment tally differs from the plain version on the block grid")
 
     # K3: a call's fused sweeps against relax_sweeps_plain, labels and stat
     # image, from the block grid and from the labels after 24 sweeps (where
@@ -480,7 +503,7 @@ def kernel_phase(dev, tag):
     # From the block grid with its table (frame 1's call), and from the
     # labels after those 24 sweeps with their own table (the next frame's).
     labels24 = k3(labels, 24, table=tk)
-    tk24 = ktally.moment_tally(labels24.reshape(-1).contiguous(), data_i, num_labels)
+    tk24 = ktally.moment_tally(labels24, data_i, num_labels)
     for start_name, start, table in (("the block grid", labels, tk),
                                      ("the labels after 24 sweeps", labels24, tk24)):
         if int((k3(start, 1, table=table) != start).sum()) == 0:
@@ -550,25 +573,13 @@ def kernel_phase(dev, tag):
             + ", ".join(f"{k}: {a:.4f} / {b:.4f}" for (ph, k), (a, b) in per_launch.items()
                         if ph == phases)
             + f"; the wrapper's {krelax.SWEEPS_PER_LAUNCH}  [{tag}]")
-    relax_phase_checks(dev, tag, dict(data=data, labels=labels, tk=tk, labels24=labels24,
-                                      tk24=tk24, feats=feats, gray=gl, deriv=deriv,
-                                      num_labels=num_labels))
-
-    # K4
+    # K4's votes: the plane classes of the derivative, as the flagship's.
     ranges = torch.tensor([[3, 40], [-6, 3]], dtype=torch.int32, device=dev)
     votes = planeseg.classify(deriv[..., 0], ranges).reshape(-1).contiguous()
-    vlabels = labels24.reshape(-1).contiguous()
-    ck = ktally.vote_tally(vlabels, votes, num_labels, 3)
-    cp = ktally.vote_tally_plain(vlabels, votes, num_labels, 3)
-    if not torch.equal(ck, cp):
-        raise AssertionError("K4 vote tally differs from the plain version")
-    ms = cuda_ms(lambda: ktally.vote_tally(vlabels, votes, num_labels, 3), 50)
-    pms = cuda_ms(lambda: ktally.vote_tally_plain(vlabels, votes, num_labels, 3), 10)
-    key = vlabels.long() * 3 + votes.long()
-    lms = cuda_ms(lambda: torch.bincount(key, minlength=num_labels * 3), 50)
-    record("vote_tally", (ck - cp).abs().max(), ms, pms, lms, 5 * n + 4 * 3 * num_labels, n)
-    log(f"K4 vote_tally: array_equal [{num_labels},3]; kernel {ms:.3f} ms, plain {pms:.3f} ms, "
-        f"bincount {lms:.3f} ms  [{tag}]")
+    t = dict(data=data, labels=labels, tk=tk, labels24=labels24, tk24=tk24, feats=feats,
+             gray=gl, deriv=deriv, num_labels=num_labels, votes=votes)
+    relax_phase_checks(dev, tag, t)
+    tally_phase(dev, tag, t, results)
 
     # K7: the rows [1, d, d^2] of a 9-channel init_stats (the 7 flagship
     # channels, gray and disparity), then 50 random int16-range columns.
@@ -588,6 +599,7 @@ def kernel_phase(dev, tag):
         pms = cuda_ms(lambda: ktally.label_tally_plain(flat, vals, num_labels), 10)
         vals64 = vals.long()
         acc = torch.zeros((num_labels, width), dtype=torch.int64, device=dev)
+        idx64 = flat.long()
         lms = cuda_ms(lambda: acc.index_add_(0, idx64, vals64), 50)
         bms, by = bound(4 * n + 4 * n * width + 4 * num_labels * width, n * width)
         log(f"K7 label_tally C={width}: array_equal [{num_labels},{width}] from B={n}; kernel "
@@ -631,8 +643,7 @@ def relax_phase_checks(dev, tag, t) -> None:
     feats5 = [rf("gaussian", 0, 2, 1.0), rf("gaussian", 2, 1, 1.5), rf("compactness", 3, 2, 0.1)]
 
     def table_of(lab, d):
-        return ktally.moment_tally(lab.reshape(-1).contiguous(),
-                                   d.reshape(d.shape[0], -1).to(torch.int32).contiguous(), num)
+        return ktally.moment_tally(lab, d.to(torch.int32), num)
 
     tk5 = table_of(labels, data5)
     gh = torch.tensor(float(H), device=dev)
@@ -674,11 +685,11 @@ def relax_phase_checks(dev, tag, t) -> None:
                         start)
 
     def phase_call(kernel: bool, start, sweeps):
-        tally = ktally.moment_tally if kernel else ktally.moment_tally_plain
         step = krelax.relax_phase if kernel else krelax.relax_phase_plain
-        lab, d_i = start, data.reshape(7, -1).to(torch.int32).contiguous()
+        lab, d_i = start, data.to(torch.int32)
         for k in range(sweeps * 2):
-            table = tally(lab.reshape(-1).contiguous(), d_i, num)
+            table = (ktally.moment_tally(lab, d_i, num) if kernel else
+                     ktally.moment_tally_plain(lab.reshape(-1), d_i.reshape(7, -1), num))
             lab = step(lab, table, data, feats, 7, k % 2, 2, 0.5, diag)
         return lab
 
@@ -691,6 +702,9 @@ def relax_phase_checks(dev, tag, t) -> None:
                              "expected (48, 48)")
     compare(f"'phase' stats, 24 sweeps x 2 phases from the block grid ({counts[0]} launches, "
             f"{counts[1]} K2 tallies)", lk, phase_call(False, labels, 24), labels)
+    # The faithful flagship's labels after a frame's first 8 sub-steps, for
+    # K2's and K4's checks.
+    t["labels8"] = phase_call(True, labels, 4)
 
     halo, hl = 16, H // SHARDS  # 8 sweeps x 2 phases on shard 0, rows -16 .. hl + 15
     rows = torch.arange(-halo, hl + halo, device=dev)
@@ -748,6 +762,130 @@ def relax_phase_checks(dev, tag, t) -> None:
         f"{pms:.4f} ms, bound {bms:.4f} ms ({by}); a 'phase'-mode "
         f"frame's call (8 sweeps x 2 phases: 16 launches and 16 K2 tallies) {frame_ms:.4f} ms"
         f"  [{tag}]")
+
+
+def tally_phase(dev, tag, t, results) -> None:
+    """K2 and K4 against their plain versions, array_equal, on the
+    flagship's inputs and on hard layouts:
+      * the block grid (K2), the labels after 24 sweeps, and the faithful
+        flagship's labels after a frame's first 8 sub-steps;
+      * random labels over [-2, L + 2) with random data over K2's whole
+        domain (a tile holds more labels than slots: the device-memory
+        route), random votes over [0, P] (P drops);
+      * one label everywhere (every pixel on one slot);
+      * every label dropped (-1 and L), every vote P;
+      * a flat N that is not a multiple of the tile nor of 4 (one 47-row
+        shard plus 37 pixels) from the second pixel on (unaligned rows:
+        masked scalar loads);
+      * every channel at -32768, and at 32767 (K2);
+      * the psum path: the tables of the frame's two halves summed (K2's
+        int64 tables, then rounded once) against the full frame's.
+    Then times, at the flagship's shapes (the labels after 24 sweeps), each
+    kernel's device ms a call (CUDA events around the replay of a CUDA graph
+    of 100 captured wrapper calls: the wrapper's host work, longer than these
+    kernels, is left out), its wrapper ms (`cuda_ms`), its plain and library
+    ms, and records K2 and K4."""
+    from cartslam_tpu_torch.kernels import tally as ktally
+
+    labels, labels24, labels8 = t["labels"], t["labels24"], t["labels8"]
+    num, n = t["num_labels"], H * W
+    data_i = t["data"].to(torch.int32)
+    votes = t["votes"].reshape(H, W)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rand_labels = torch.randint(-2, num + 2, (H, W), generator=gen, device=dev,
+                                dtype=torch.int32)
+    rand_data = torch.randint(ktally.DATA_MIN, ktally.DATA_MAX + 1, (7, H, W), generator=gen,
+                              device=dev, dtype=torch.int32)
+    rand_votes = torch.randint(0, 4, (H, W), generator=gen, device=dev, dtype=torch.uint8)
+    one = torch.full_like(labels, num // 2)
+    dropped = torch.where(labels24 % 2 == 0, -1, num).to(torch.int32)
+    ragged = slice(1, 1 + H // SHARDS * W + 37)
+    ragged_name = (f"a flat N = {H // SHARDS * W + 37} ({H // SHARDS} rows + 37 pixels) from "
+                   "pixel 1")
+    moment_layouts = {
+        "the block grid": (labels, data_i),
+        "the labels after 24 sweeps": (labels24, data_i),
+        "the faithful flagship's labels after 8 sub-steps": (labels8, data_i),
+        "random labels over [-2, L+2), random data over the domain": (rand_labels, rand_data),
+        "one label everywhere": (one, data_i),
+        "every label dropped": (dropped, data_i),
+        ragged_name: (labels24.reshape(-1)[ragged], data_i.reshape(7, -1)[:, ragged]),
+        "every channel at -32768": (labels24, torch.full_like(data_i, ktally.DATA_MIN)),
+        "every channel at 32767": (labels24, torch.full_like(data_i, ktally.DATA_MAX)),
+    }
+    vote_layouts = {
+        "the labels after 24 sweeps": (labels24, votes),
+        "the faithful flagship's labels after 8 sub-steps": (labels8, votes),
+        "random labels over [-2, L+2), votes over [0, P]": (rand_labels, rand_votes),
+        "one label everywhere": (one, votes),
+        "every label dropped": (dropped, votes),
+        "every vote P": (labels24, torch.full_like(votes, 3)),
+        ragged_name: (labels24.reshape(-1)[ragged], votes.reshape(-1)[ragged]),
+    }
+    half = H // 2
+    halves = [(labels24[rows].contiguous(), data_i[:, rows].contiguous(), votes[rows].contiguous())
+              for rows in (slice(0, half), slice(half, H))]
+    want_full = ktally.moment_tally_plain(labels24.reshape(-1), data_i.reshape(7, -1), num)
+    want_votes = ktally.vote_tally_plain(labels24.reshape(-1), votes.reshape(-1), num, 3)
+    err = {}  # max |kernel - plain| at the flagship's shapes, recorded below
+    for name, (lab, d) in moment_layouts.items():
+        lab, d = lab.contiguous(), d.contiguous()
+        got = ktally.moment_tally(lab, d, num)
+        want = ktally.moment_tally_plain(lab.reshape(-1), d.reshape(7, -1), num)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K2 on {name}: {int((got != want).sum())} entries differ "
+                                 "from the plain version")
+        if lab is labels24:
+            err["moment_tally"] = float((got - want).abs().max())
+    for name, (lab, v) in vote_layouts.items():
+        lab, v = lab.contiguous(), v.contiguous()
+        got = ktally.vote_tally(lab, v, num, 3)
+        want = ktally.vote_tally_plain(lab.reshape(-1), v.reshape(-1), num, 3)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K4 on {name}: differs from the plain version")
+        if lab is labels24 and v is votes:
+            err["vote_tally"] = float((got - want).abs().max())
+    bottom = []
+    ktally.moment_tally(halves[1][0], halves[1][1], num,
+                        reduce=lambda acc: bottom.append(acc) or acc)
+    summed = ktally.moment_tally(halves[0][0], halves[0][1], num,
+                                 reduce=lambda acc: acc + bottom[0])
+    if not torch.equal(summed, want_full):
+        raise AssertionError("K2: the halves' int64 tables, summed and rounded, differ from the "
+                             "full frame's plain table")
+    if not torch.equal(sum(ktally.vote_tally(lab, v, num, 3) for lab, _, v in halves),
+                       want_votes):
+        raise AssertionError("K4: the halves' counts, summed, differ from the full frame's")
+    log(f"K2 and K4 array_equal to their plain versions on "
+        f"{len(moment_layouts)} and {len(vote_layouts)} layouts ("
+        + "; ".join(dict.fromkeys([*moment_layouts, *vote_layouts])) + ") and on the psum path "
+        "(the two halves' tables summed, K2's as int64 then rounded once)")
+
+    k2 = lambda: ktally.moment_tally(labels24, data_i, num)
+    k4 = lambda: ktally.vote_tally(labels24, votes, num, 3)
+    flat24, votes_flat = labels24.reshape(-1), votes.reshape(-1)
+    data_flat = data_i.reshape(7, -1)
+    idx64, key = flat24.long(), flat24.long() * 3 + votes_flat.long()
+    rows64 = torch.cat([torch.ones_like(data_flat[:1]), data_flat, data_flat * data_flat]).long()
+    acc = torch.zeros((rows64.shape[0], num), dtype=torch.int64, device=dev)
+    timings = {
+        "moment_tally": (k2, lambda: ktally.moment_tally_plain(flat24, data_flat, num),
+                         lambda: acc.index_add_(1, idx64, rows64), "index_add_ int64",
+                         4 * n + 4 * 7 * n + 4 * 15 * num, n * (3 * 7 + 1), "K2"),
+        "vote_tally": (k4, lambda: ktally.vote_tally_plain(flat24, votes_flat, num, 3),
+                       lambda: torch.bincount(key, minlength=num * 3), "bincount",
+                       5 * n + 4 * 3 * num, n, "K4"),
+    }
+    for name, (fn, plain, library, library_name, nbytes, ops, k) in timings.items():
+        dms, ms = graph_ms(fn), cuda_ms(fn, 50)
+        pms, lms = cuda_ms(plain, 10), cuda_ms(library, 50)
+        bms, by = bound(nbytes, ops)
+        results[name] = dict(max_abs_err=err[name], ms=dms, plain_ms=pms, library_ms=lms,
+                             bound_ms=bms, bound_by=by, wrapper_ms=ms)
+        log(f"{k} {name} at [{H},{W}] (the labels after 24 sweeps): device {dms:.4f} ms a call "
+            f"(graph replay of 100 wrapper calls), wrapper {ms:.4f} ms, plain {pms:.4f} ms, "
+            f"{library_name} {lms:.4f} ms, bound {bms:.4f} ms ({by}), {bms / dms:.0%} of it  "
+            f"[{tag}]")
 
 
 def sharded_sgm_phase(dev, tag, paths, results) -> None:
@@ -831,8 +969,8 @@ def shard_kernels_phase(dev, paths) -> None:
     group = ShardGroup(SHARDS, [dev] * SHARDS)
     sp = SpatialContext(group, hl)
     full_stats = init_stats(labels, data, num)
-    full_votes = ktally.vote_tally(labels.reshape(-1).contiguous(), votes, num, 3)
     vote_rows = votes.reshape(H, W)
+    full_votes = ktally.vote_tally(labels, vote_rows, num, 3)
     xs = torch.arange(W, dtype=torch.float32, device=dev)
 
     def shard(i, halo):
@@ -851,9 +989,9 @@ def shard_kernels_phase(dev, paths) -> None:
         stats_k = init_stats(tally, data_ext, num, psum=sp.psum)
         stats_p = ktally.moment_tally_plain(tally.reshape(-1), data_ext.reshape(7, -1).to(
             torch.int32), num, reduce=sp.psum)
-        vl, vv = lab.reshape(-1).contiguous(), sp.slice_rows(vote_rows).reshape(-1).contiguous()
-        votes_k, votes_p = ktally.vote_tally(vl, vv, num, 3), ktally.vote_tally_plain(vl, vv,
-                                                                                       num, 3)
+        vl, vv = lab.contiguous(), sp.slice_rows(vote_rows).contiguous()
+        votes_k = ktally.vote_tally(vl, vv, num, 3)
+        votes_p = ktally.vote_tally_plain(vl.reshape(-1), vv.reshape(-1), num, 3)
         return (lab_ext.contiguous(), data_ext, stats_k, stats_p, votes_k, votes_p,
                 sp.psum(votes_k))
 
@@ -1286,6 +1424,12 @@ def _device_report(prof, n: int, wall: float, label: str, tag: str) -> None:
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:10]
     log(f"{label}: device ms per frame by name: "
         + "; ".join(f"{k[:60]} {sum(v) / 1e3 / n:.3f} ({len(v) / n:g}/frame)" for k, v in top))
+    tally = {k: [t for name, v in by_name.items() if k in name for t in v]
+             for k in ("moment_tally", "vote_tally")}
+    log(f"{label}: K2 and K4 device ms per frame: "
+        + ", ".join(f"{k} {sum(v) / 1e3 / n:.4f} ({len(v) / n:g} launches/frame, "
+                    f"{sum(v) / 1e3 / max(len(v), 1):.4f} each)" for k, v in tally.items())
+        + f"  [{tag}]")
 
 
 def spatial_profile(frames, intrinsics, dev, tag) -> None:
@@ -1324,18 +1468,22 @@ def spatial_profile(frames, intrinsics, dev, tag) -> None:
 
 def ptxas_report(build, info) -> None:
     """Registers, static shared memory and spill bytes (ptxas -v) of K1's
-    path and WTA kernels and of K3's kernels; fails if the flagship's
-    instantiation of the fused relax kernel spills."""
+    path and WTA kernels, K3's kernels and K2's and K4's tally kernels;
+    fails if the flagship's instantiation of the fused relax kernel, or a
+    tally kernel a path runs (K2 with 7 and 5 channels, K4), spills."""
     import re
 
     kernels = build.kernel_resources(info.report.read_text())
     flagship_relax = []
     for k in kernels:
         name = k["name"]
-        if not re.search(r"sgm_[hv]paths|sgm_wta|relax_", name):
+        if not re.search(r"sgm_[hv]paths|sgm_wta|relax_|moment_tally|vote_tally", name):
             continue
         if re.search(r"relax_sweeps_kernel(<true>|<\(bool\)1>|ILb1E)", name):
             flagship_relax.append(k)
+        if re.search(r"moment_tally_kernel<\(int\)[57]>|vote_tally_kernel", name) and (
+                k["spill_stores"] or k["spill_loads"]):
+            raise AssertionError(f"ptxas: the tally kernel {name} spills: {k}")
         log(f"ptxas: {name}: {k['registers']} registers, {k['smem']} bytes static smem, "
             f"{k['stack']} bytes stack, {k['spill_stores']} / {k['spill_loads']} bytes spill "
             "stores / loads")
