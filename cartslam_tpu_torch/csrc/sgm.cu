@@ -21,13 +21,25 @@
 // _make_vcarry :241, _make_vsweep_cin :267, _make_btwta_cin_kernel :288): K1
 // on one row shard of a height-sharded frame, the two vertical paths seeded
 // with the predecessor shard's final carry (the split-scan chain of
-// parallel/sgm_sharded.py).  The vertical path kernel takes carry-in
-// pointers (int32 [W, D]; null is a zero carry), carry-out pointers, and no
-// volume pointer for the settle sweeps (sgm_vcarry).  A carry-in sets the
-// first step's path minimum m to the carry's minimum over d (d >= D holds
-// kBig and loads nothing), as _recurrence does; a zero carry has m = 0.
-// The uint8 storage holds whatever the carry: every step's value is at most
-// COST + P2 <= 62 + P2.
+// parallel/sgm_sharded.py).  The column paths take carry-in pointers
+// (int32 [W, D]; null is a zero carry).  A carry-in sets the first step's
+// path minimum m to the carry's minimum over d (d >= D holds kBig and loads
+// nothing), as _recurrence does; a zero carry has m = 0.  The uint8 storage
+// holds whatever the carry: every step's value is at most COST + P2 <=
+// 62 + P2.
+//  * The settle sweeps (sgm_vcarry, sgm_settle_kernel): the column-path
+//    body with no volume, writing only the final carries, one launch of
+//    the direction(s) whose carry-out pointer is non-null.  The chain
+//    sweeps only what it keeps: in round j shard j sweeps top-down and
+//    shard n-1-j bottom-up, 2(n-1) direction-sweeps a frame (14 at n = 8),
+//    each 47 steps deep on 156 blocks, one after another.
+//  * The output pass is split: the row paths (planes 0-1, sgm_sharded_rows)
+//    need no carry and are launched before the chain on a side stream of
+//    the shard; the seeded column paths (planes 2-3, sgm_sharded_cols) and
+//    sgm_wta follow the chain on that side stream (kernels/sgm.py).  A
+//    shard's 47-row grids (47 row blocks, 47 WTA blocks) fill a third of
+//    the SMs; the eight shards' side streams run them side by side, and
+//    the row paths under the latency-bound chain.
 //
 // What bounds it on an H100.  The four uint8 path volumes (4 x H x W x D
 // bytes, 480 MB at 376x1248x256) are written once by the path kernels and
@@ -307,15 +319,17 @@ __device__ __forceinline__ void store_pairs(T* p, const unsigned (&P)[NP]) {
   }
 }
 
-// Column paths: block (bx, dir) holds columns [8 bx, 8 bx + 8), warp w
-// column 8 bx + w; dir 0 sweeps top->bottom (volume plane 2, carries
-// cin_tb / cout_tb), dir 1 bottom->top (plane 3, cin_bt / cout_bt).
-template <typename T, int NP>
-__global__ void __launch_bounds__(kVCols * 32) sgm_vpaths_kernel(
+// Column paths: block bx holds columns [8 bx, 8 bx + 8), warp w column
+// 8 bx + w; dir 0 sweeps top->bottom (volume plane 2, carries cin_tb /
+// cout_tb), dir 1 bottom->top (plane 3, cin_bt / cout_bt).  kSettle: no
+// volume, the final carry written to cout_tb / cout_bt; else the volume
+// written, no carry out.
+template <typename T, int NP, bool kSettle>
+__device__ __forceinline__ void vpaths_body(
     const int* __restrict__ l0, const int* __restrict__ l1, const int* __restrict__ r0,
     const int* __restrict__ r1, T* __restrict__ vol, const int* __restrict__ cin_tb,
     const int* __restrict__ cin_bt, int* __restrict__ cout_tb, int* __restrict__ cout_bt, int H,
-    int W, int D, int minD, int p1, int p2) {
+    int W, int D, int minD, int p1, int p2, int dir) {
   constexpr int KP = 2 * NP;
   constexpr int kSpan = 32 * KP + kVCols - 1;  // right pairs a step needs
   constexpr int kRight = skew8(kSpan - 1) + 1;
@@ -324,7 +338,6 @@ __global__ void __launch_bounds__(kVCols * 32) sgm_vpaths_kernel(
   constexpr int kItems = (kCopies + kVCols * 32 - 1) / (kVCols * 32);
   __shared__ int2 ring[kVStages][kStage];
   const int x0 = blockIdx.x * kVCols;
-  const int dir = blockIdx.y;
   const int base = x0 - minD - (32 * KP - 1);  // xr of staged pair 0
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int x = x0 + warp;
@@ -378,7 +391,7 @@ __global__ void __launch_bounds__(kVCols * 32) sgm_vpaths_kernel(
   const int Dp = padded_d(D);
   const int* cin = dir == 0 ? cin_tb : cin_bt;
   int* cout = dir == 0 ? cout_tb : cout_bt;
-  T* out = (live && vol != nullptr && dbase < Dp)
+  T* out = (!kSettle && live && dbase < Dp)
                ? vol + ((size_t)(2 + dir) * H + (dir == 0 ? 0 : H - 1)) * W * Dp +
                      (size_t)x * Dp + dbase
                : nullptr;
@@ -436,7 +449,7 @@ __global__ void __launch_bounds__(kVCols * 32) sgm_vpaths_kernel(
     }
   }
   cp_async_wait<0>();
-  if (live && cout != nullptr) {
+  if (kSettle && live) {
 #pragma unroll
     for (int i = 0; i < NP; ++i) {
       const int d = dbase + 2 * i;
@@ -446,12 +459,38 @@ __global__ void __launch_bounds__(kVCols * 32) sgm_vpaths_kernel(
   }
 }
 
+// The column paths of K1, K6 and K5's output pass: block (bx, dir) writes
+// volume plane 2 + dir.
+template <typename T, int NP>
+__global__ void __launch_bounds__(kVCols * 32) sgm_vpaths_kernel(
+    const int* __restrict__ l0, const int* __restrict__ l1, const int* __restrict__ r0,
+    const int* __restrict__ r1, T* __restrict__ vol, const int* __restrict__ cin_tb,
+    const int* __restrict__ cin_bt, int H, int W, int D, int minD, int p1, int p2) {
+  vpaths_body<T, NP, false>(l0, l1, r0, r1, vol, cin_tb, cin_bt, nullptr, nullptr, H, W, D, minD,
+                            p1, p2, (int)blockIdx.y);
+}
+
+// K5's settle sweeps: block (bx, y) sweeps direction dir0 + y and writes only
+// its final carry.
+template <int NP>
+__global__ void __launch_bounds__(kVCols * 32) sgm_settle_kernel(
+    const int* __restrict__ l0, const int* __restrict__ l1, const int* __restrict__ r0,
+    const int* __restrict__ r1, const int* __restrict__ cin_tb, const int* __restrict__ cin_bt,
+    int* __restrict__ cout_tb, int* __restrict__ cout_bt, int H, int W, int D, int minD, int p1,
+    int p2, int dir0) {
+  vpaths_body<uint8_t, NP, true>(l0, l1, r0, r1, nullptr, cin_tb, cin_bt, cout_tb, cout_bt, H, W,
+                                 D, minD, p1, p2, dir0 + (int)blockIdx.y);
+}
+
+// What launch_paths launches.
+enum : unsigned { kRowPaths = 1, kColPaths = 2, kSettleSweeps = 4 };
+
 template <typename T, int KP, int NP>
 int launch_paths_kp(const void* l0, const void* l1, const void* r0, const void* r1, void* vol,
                     const void* cin_tb, const void* cin_bt, void* cout_tb, void* cout_bt,
-                    int H, int W, int D, int minD, int p1, int p2, bool rows,
+                    int H, int W, int D, int minD, int p1, int p2, unsigned what,
                     cudaStream_t stream) {
-  if (rows) {
+  if (what & kRowPaths) {
     const size_t smem = (size_t)(skew8(W - 1) + 1 + W) * sizeof(int2);
     if (smem > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
@@ -464,34 +503,45 @@ int launch_paths_kp(const void* l0, const void* l1, const void* r0, const void* 
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 vgrid((W + kVCols - 1) / kVCols, 2);
-  sgm_vpaths_kernel<T, NP><<<vgrid, kVCols * 32, 0, stream>>>(
-      (const int*)l0, (const int*)l1, (const int*)r0, (const int*)r1, (T*)vol,
-      (const int*)cin_tb, (const int*)cin_bt, (int*)cout_tb, (int*)cout_bt, H, W, D, minD, p1,
-      p2);
+  const unsigned vblocks = (W + kVCols - 1) / kVCols;
+  if (what & kColPaths) {
+    sgm_vpaths_kernel<T, NP><<<dim3(vblocks, 2), kVCols * 32, 0, stream>>>(
+        (const int*)l0, (const int*)l1, (const int*)r0, (const int*)r1, (T*)vol,
+        (const int*)cin_tb, (const int*)cin_bt, H, W, D, minD, p1, p2);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (what & kSettleSweeps) {  // the direction(s) with a carry-out pointer
+    const int ndirs = (cout_tb != nullptr) + (cout_bt != nullptr);
+    if (ndirs == 0) return (int)cudaErrorInvalidValue;
+    sgm_settle_kernel<NP><<<dim3(vblocks, ndirs), kVCols * 32, 0, stream>>>(
+        (const int*)l0, (const int*)l1, (const int*)r0, (const int*)r1, (const int*)cin_tb,
+        (const int*)cin_bt, (int*)cout_tb, (int*)cout_bt, H, W, D, minD, p1, p2,
+        cout_tb != nullptr ? 0 : 1);
+  }
   return (int)cudaGetLastError();
 }
 
-// The path kernels: the row paths with KP = the least of 1, 2, 4, 8 with
-// 32 KP >= D, when `rows`, then the column paths with NP = max(KP / 2, 1)
-// pairs a lane.
+// The path kernels named by `what`: the row paths with KP = the least of 1,
+// 2, 4, 8 with 32 KP >= D, the column paths and the settle sweeps with
+// NP = max(KP / 2, 1) pairs a lane.
 template <typename T>
 int launch_paths(const void* l0, const void* l1, const void* r0, const void* r1, void* vol,
                  const void* cin_tb, const void* cin_bt, void* cout_tb, void* cout_bt, int H,
-                 int W, int D, int minD, int p1, int p2, bool rows, void* stream) {
+                 int W, int D, int minD, int p1, int p2, unsigned what, void* stream) {
   if (D < 1 || D > 256 || minD < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (D <= 32)
     return launch_paths_kp<T, 1, 1>(l0, l1, r0, r1, vol, cin_tb, cin_bt, cout_tb, cout_bt, H,
-                                    W, D, minD, p1, p2, rows, s);
+                                    W, D, minD, p1, p2, what, s);
   if (D <= 64)
     return launch_paths_kp<T, 2, 1>(l0, l1, r0, r1, vol, cin_tb, cin_bt, cout_tb, cout_bt, H,
-                                    W, D, minD, p1, p2, rows, s);
+                                    W, D, minD, p1, p2, what, s);
   if (D <= 128)
     return launch_paths_kp<T, 4, 2>(l0, l1, r0, r1, vol, cin_tb, cin_bt, cout_tb, cout_bt, H,
-                                    W, D, minD, p1, p2, rows, s);
+                                    W, D, minD, p1, p2, what, s);
   return launch_paths_kp<T, 8, 4>(l0, l1, r0, r1, vol, cin_tb, cin_bt, cout_tb, cout_bt, H, W,
-                                  D, minD, p1, p2, rows, s);
+                                  D, minD, p1, p2, what, s);
 }
 
 // out[p, d] = sum of the four planes' v[., p, d] (stride Dp) for d < D.
@@ -647,29 +697,38 @@ extern "C" int sgm_paths(const void* l0, const void* l1, const void* r0, const v
                          void* vol, int H, int W, int D, int minD, int p1, int p2,
                          void* stream) {
   return launch_paths<uint8_t>(l0, l1, r0, r1, vol, nullptr, nullptr, nullptr, nullptr, H, W, D,
-                               minD, p1, p2, true, stream);
+                               minD, p1, p2, kRowPaths | kColPaths, stream);
 }
 
-// K5, the output sweeps: the four paths of one row shard into vol (uint8
-// [4, H, W, Dp]), the vertical ones seeded with cin_tb / cin_bt (int32
+// K5's output pass, first part: the row paths of one row shard into planes
+// 0-1 of vol (uint8 [4, H, W, Dp]).  They need no carry.
+extern "C" int sgm_sharded_rows(const void* l0, const void* l1, const void* r0, const void* r1,
+                                void* vol, int H, int W, int D, int minD, int p1, int p2,
+                                void* stream) {
+  return launch_paths<uint8_t>(l0, l1, r0, r1, vol, nullptr, nullptr, nullptr, nullptr, H, W, D,
+                               minD, p1, p2, kRowPaths, stream);
+}
+
+// K5's output pass, second part: the column paths of one row shard into
+// planes 2-3 of vol, seeded with the settled carries cin_tb / cin_bt (int32
 // [W, D], or null for a zero carry).  sgm_wta follows.
-extern "C" int sgm_sharded_paths(const void* l0, const void* l1, const void* r0,
-                                 const void* r1, void* vol, const void* cin_tb,
-                                 const void* cin_bt, int H, int W, int D, int minD, int p1,
-                                 int p2, void* stream) {
+extern "C" int sgm_sharded_cols(const void* l0, const void* l1, const void* r0, const void* r1,
+                                void* vol, const void* cin_tb, const void* cin_bt, int H, int W,
+                                int D, int minD, int p1, int p2, void* stream) {
   return launch_paths<uint8_t>(l0, l1, r0, r1, vol, cin_tb, cin_bt, nullptr, nullptr, H, W, D,
-                               minD, p1, p2, true, stream);
+                               minD, p1, p2, kColPaths, stream);
 }
 
-// K5, one settle round: both vertical paths of one row shard from cin_tb /
-// cin_bt (or zero), writing only their final carries cout_tb / cout_bt
-// (int32 [W, D]).
+// K5, one settle sweep: the vertical path(s) of one row shard whose carry-out
+// pointer (cout_tb top-down, cout_bt bottom-up; int32 [W, D]) is non-null,
+// from cin_tb / cin_bt (or zero), writing only those final carries.  One
+// launch; a direction with a null carry-out is not swept.
 extern "C" int sgm_vcarry(const void* l0, const void* l1, const void* r0, const void* r1,
                           const void* cin_tb, const void* cin_bt, void* cout_tb,
                           void* cout_bt, int H, int W, int D, int minD, int p1, int p2,
                           void* stream) {
   return launch_paths<uint8_t>(l0, l1, r0, r1, nullptr, cin_tb, cin_bt, cout_tb, cout_bt, H, W,
-                               D, minD, p1, p2, false, stream);
+                               D, minD, p1, p2, kSettleSweeps, stream);
 }
 
 // K6. vol: int16 scratch [4, H, W, Dp]; out: int16 [H, W, D].
@@ -677,7 +736,7 @@ extern "C" int sgm_aggregate(const void* l0, const void* l1, const void* r0, con
                              void* vol, void* out, int H, int W, int D, int minD, int p1,
                              int p2, void* stream) {
   const int e = launch_paths<int16_t>(l0, l1, r0, r1, vol, nullptr, nullptr, nullptr, nullptr,
-                                      H, W, D, minD, p1, p2, true, stream);
+                                      H, W, D, minD, p1, p2, kRowPaths | kColPaths, stream);
   if (e != 0) return e;
   cudaStream_t s = (cudaStream_t)stream;
   const int Dp = padded_d(D);
@@ -691,7 +750,8 @@ extern "C" int sgm_aggregate(const void* l0, const void* l1, const void* r0, con
   return (int)cudaGetLastError();
 }
 
-// vol: uint8 [4, H, W, Dp] from sgm_paths / sgm_sharded_paths; out: int16 [H, W].
+// vol: uint8 [4, H, W, Dp] from sgm_paths, or sgm_sharded_rows + sgm_sharded_cols;
+// out: int16 [H, W].
 extern "C" int sgm_wta(const void* vol, void* out, int H, int W, int D, int minD,
                        int uniqueness, int subpixel, int lr_check, void* stream) {
   if (D < 1 || D > 256 || minD < 0) return (int)cudaErrorInvalidValue;

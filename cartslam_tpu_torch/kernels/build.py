@@ -47,7 +47,8 @@ SIGNATURES = {
     "sgm_paths": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "sgm_wta": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "sgm_aggregate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "sgm_sharded_paths": [_P] * 7 + [_I] * 6 + [_P],
+    "sgm_sharded_rows": [_P] * 5 + [_I] * 6 + [_P],
+    "sgm_sharded_cols": [_P] * 7 + [_I] * 6 + [_P],
     "sgm_vcarry": [_P] * 8 + [_I] * 6 + [_P],
     "moment_tally": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "label_tally": [_P, _P, _I, _I, _I, _P, _P, _P],

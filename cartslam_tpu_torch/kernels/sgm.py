@@ -8,7 +8,8 @@ sgm.py:654, with ``wta_lr_row`` of ops/pallas/wta.py:66); K5 replaces
 ``sgm_aggregate_pallas`` (ops/pallas/sgm.py:510).  On a CUDA tensor a wrapper
 launches its CUDA kernels or raises; on a CPU tensor it runs the plain
 version, the XLA path's chain in ops/stereo.py.  K5's wrappers work on one
-row shard from given carries; the split-scan chain that settles the carries
+row shard: the settle sweep from given carries, and the output pass around
+a settle chain it is handed; the split-scan chain that settles the carries
 across shards is parallel/sgm_sharded.py's.
 """
 
@@ -21,6 +22,7 @@ from . import build
 
 COUNTER = build.counter("sgm")
 SHARDED_COUNTER = build.counter("sgm_sharded")
+SETTLE_COUNTER = build.counter("sgm_settle")
 AGGREGATE_COUNTER = build.counter("sgm_aggregate")
 # Path values are stored as uint8: each is bounded by COST_INVALID + p2.
 MAX_P2 = 255 - stereo.COST_INVALID
@@ -88,37 +90,51 @@ def _check_range(num_disparities: int, min_disparity: int) -> None:
 
 
 def sgm_vcarry_plain(cl0, cl1, cr0, cr1, tb, bt, *, min_disparity: int,
-                     num_disparities: int, p1: int, p2: int):
-    """One settle round, plain: the final carries int32 [W, D] of the
-    shard's top-down and bottom-up sweeps from carries tb and bt (None is
-    a zero carry)."""
+                     num_disparities: int, p1: int, p2: int, top_down: bool = True,
+                     bottom_up: bool = True):
+    """One settle sweep, plain: the final carries int32 [W, D] of the
+    shard's top-down sweep from carry tb and of its bottom-up sweep from bt
+    (None is a zero carry), for the directions asked for; a direction not
+    swept gives None."""
     cost = stereo.hamming_cost_volume((cl0, cl1), (cr0, cr1), min_disparity, num_disparities)
     chwd = cost.permute(1, 2, 0)
-    return (stereo._aggregate_scan(chwd, p1, p2, tb)[-1],
-            stereo._aggregate_scan(chwd.flip(0), p1, p2, bt)[-1])
+    return (stereo._aggregate_scan(chwd, p1, p2, tb)[-1] if top_down else None,
+            stereo._aggregate_scan(chwd.flip(0), p1, p2, bt)[-1] if bottom_up else None)
 
 
 def sgm_vcarry(cl0, cl1, cr0, cr1, tb, bt, *, min_disparity: int, num_disparities: int,
-               p1: int, p2: int):
-    """One settle round of K5 (sgm_vcarry in csrc/sgm.cu): the vertical
-    sweeps of one row shard from carries tb and bt (None is a zero carry),
-    no volume written, only the final carries.  A step of K5 (see
-    parallel/sgm_sharded.py); it counts no launch of its own."""
-    ckw = dict(min_disparity=min_disparity, num_disparities=num_disparities, p1=p1, p2=p2)
+               p1: int, p2: int, top_down: bool = True, bottom_up: bool = True):
+    """One settle sweep of K5 (sgm_vcarry in csrc/sgm.cu): the vertical
+    sweep(s) of one row shard asked for, top-down from carry tb and
+    bottom-up from bt (None is a zero carry), in one launch that writes no
+    volume, only the final carries; a direction not swept gives None.  A
+    step of K5 (see parallel/sgm_sharded.py), counted by `sgm_settle`."""
+    if not (top_down or bottom_up):
+        raise ValueError("sgm_vcarry: no direction to sweep")
+    ckw = dict(min_disparity=min_disparity, num_disparities=num_disparities, p1=p1, p2=p2,
+               top_down=top_down, bottom_up=bottom_up)
     if cl0.device.type == "cpu":
+        SETTLE_COUNTER.plain_calls += 1
         return sgm_vcarry_plain(cl0, cl1, cr0, cr1, tb, bt, **ckw)
     _check_k1_params(p2, num_disparities, min_disparity)
     h, w = _check_census(cl0, cl1, cr0, cr1)
-    for name, t in (("tb", tb), ("bt", bt)):
-        if t is not None:
-            build.expect(t, name, torch.int32, (w, num_disparities), cl0.device)
-    tb_fin = torch.empty((w, num_disparities), dtype=torch.int32, device=cl0.device)
-    bt_fin = torch.empty_like(tb_fin)
+    tb, bt = (tb if top_down else None), (bt if bottom_up else None)
+    _check_carries(tb, bt, w, num_disparities, cl0.device)
+    new = lambda on: (torch.empty((w, num_disparities), dtype=torch.int32, device=cl0.device)
+                      if on else None)
+    tb_fin, bt_fin = new(top_down), new(bottom_up)
     build.check(build.library().sgm_vcarry(
         cl0.data_ptr(), cl1.data_ptr(), cr0.data_ptr(), cr1.data_ptr(), build.ptr(tb),
-        build.ptr(bt), tb_fin.data_ptr(), bt_fin.data_ptr(), h, w, num_disparities,
+        build.ptr(bt), build.ptr(tb_fin), build.ptr(bt_fin), h, w, num_disparities,
         min_disparity, p1, p2, build.stream()), "sgm_vcarry")
+    SETTLE_COUNTER.launches += 1
     return tb_fin, bt_fin
+
+
+def _check_carries(tb, bt, w: int, num_disparities: int, device) -> None:
+    for name, t in (("tb", tb), ("bt", bt)):
+        if t is not None:
+            build.expect(t, name, torch.int32, (w, num_disparities), device)
 
 
 def sgm_fused_sharded_plain(cl0, cl1, cr0, cr1, tb, bt, *, min_disparity: int,
@@ -143,36 +159,64 @@ def sgm_fused_sharded_plain(cl0, cl1, cr0, cr1, tb, bt, *, min_disparity: int,
     return torch.where(valid, disp16, stereo.DISPARITY_INVALID).to(torch.int16)
 
 
-def sgm_fused_sharded(cl0, cl1, cr0, cr1, tb, bt, *, min_disparity: int, num_disparities: int,
-                      p1: int, p2: int, uniqueness: int, subpixel: bool,
-                      lr_check: bool) -> torch.Tensor:
-    """K5's output pass on one row shard: census words (int32 [h, W] x2 per
-    view) and the settled vertical carries tb, bt (int32 [W, D]; None is a
-    zero carry) -> int16 x16 disparity [h, W], the counterpart of
-    sgm_fused_pallas_sharded's output sweeps and WTA.  With the carries of
-    parallel/sgm_sharded.settled_carries it equals the full frame's rows."""
+def sgm_fused_sharded(cl0, cl1, cr0, cr1, carries, *, side: torch.cuda.Stream | None,
+                      min_disparity: int, num_disparities: int, p1: int, p2: int,
+                      uniqueness: int, subpixel: bool, lr_check: bool) -> torch.Tensor:
+    """K5's output pass on one row shard around its settle chain: census
+    words (int32 [h, W] x2 per view) -> int16 x16 disparity [h, W], the
+    counterpart of sgm_fused_pallas_sharded's output sweeps and WTA.
+    `carries(on_settled=None)` runs the shard's part of the settle chain on
+    the current stream and returns the settled vertical carries (tb, bt:
+    int32 [W, D]; None is a zero carry), calling on_settled(tb, bt) as soon
+    as they are settled; with parallel/sgm_sharded.settled_carries the
+    output equals the full frame's rows.
+
+    On the card the pass forks onto `side`, a CUDA stream of the shard's
+    own (parallel/group.ShardGroup.side_stream; None on the CPU): the row
+    paths, which need no carry, are launched there before the
+    chain, so that they run beside it and beside the other shards' row
+    paths.  As soon as the carries are settled, the side stream waits for
+    the current stream (the sweeps that made them) and runs the seeded
+    column paths and the WTA, while the chain goes on; when the chain
+    returns, the current stream waits for the side stream, so the call
+    returns with the fork joined.  The chain returns on no shard before
+    every shard has forked (settled_carries ends with a barrier): a fork
+    made after another shard's join on the one current stream would wait
+    for that shard's output pass, and the output passes would run one
+    after another.  The volume is allocated on the side stream, which
+    alone uses it; every other tensor the side stream reads or writes
+    outlives the join."""
     kw = dict(min_disparity=min_disparity, num_disparities=num_disparities,
               p1=p1, p2=p2, uniqueness=uniqueness, subpixel=subpixel,
               lr_check=lr_check)
     if cl0.device.type == "cpu":
         SHARDED_COUNTER.plain_calls += 1
-        return sgm_fused_sharded_plain(cl0, cl1, cr0, cr1, tb, bt, **kw)
+        return sgm_fused_sharded_plain(cl0, cl1, cr0, cr1, *carries(), **kw)
     _check_k1_params(p2, num_disparities, min_disparity)
     h, w = _check_census(cl0, cl1, cr0, cr1)
-    for name, t in (("tb", tb), ("bt", bt)):
-        if t is not None:
-            build.expect(t, name, torch.int32, (w, num_disparities), cl0.device)
     lib = build.library()
-    vol = _path_volume(h, w, num_disparities, torch.uint8, cl0.device)
+    census = (cl0.data_ptr(), cl1.data_ptr(), cr0.data_ptr(), cr1.data_ptr())
+    main = torch.cuda.current_stream(cl0.device)
     out = torch.empty((h, w), dtype=torch.int16, device=cl0.device)
-    s = build.stream()
-    build.check(lib.sgm_sharded_paths(cl0.data_ptr(), cl1.data_ptr(), cr0.data_ptr(),
-                                      cr1.data_ptr(), vol.data_ptr(), build.ptr(tb),
-                                      build.ptr(bt), h, w, num_disparities, min_disparity,
-                                      p1, p2, s), "sgm_sharded_paths")
-    build.check(lib.sgm_wta(vol.data_ptr(), out.data_ptr(), h, w, num_disparities,
-                            min_disparity, uniqueness, int(subpixel), int(lr_check), s),
-                "sgm_wta")
+    side.wait_stream(main)  # the census words
+    with torch.cuda.stream(side):
+        vol = _path_volume(h, w, num_disparities, torch.uint8, cl0.device)
+    build.check(lib.sgm_sharded_rows(*census, vol.data_ptr(), h, w, num_disparities,
+                                     min_disparity, p1, p2, side.cuda_stream),
+                "sgm_sharded_rows")
+
+    def output(tb, bt):
+        _check_carries(tb, bt, w, num_disparities, cl0.device)
+        side.wait_stream(main)  # the settle sweeps that made tb and bt
+        build.check(lib.sgm_sharded_cols(*census, vol.data_ptr(), build.ptr(tb),
+                                         build.ptr(bt), h, w, num_disparities, min_disparity,
+                                         p1, p2, side.cuda_stream), "sgm_sharded_cols")
+        build.check(lib.sgm_wta(vol.data_ptr(), out.data_ptr(), h, w, num_disparities,
+                                min_disparity, uniqueness, int(subpixel), int(lr_check),
+                                side.cuda_stream), "sgm_wta")
+
+    carries(output)
+    main.wait_stream(side)  # the join
     SHARDED_COUNTER.launches += 1
     return out
 

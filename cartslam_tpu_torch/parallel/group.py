@@ -14,8 +14,18 @@ card, and every shard thread enqueues on the caller's current stream.  A
 producer's kernels are enqueued before it deposits their output, and a
 consumer's kernels after it has passed the barrier, so stream order alone
 orders them: no event or synchronisation is needed, and a deposited tensor
-is handed over without a copy.  A device per shard is part of the interface
-so that a transport across cards can slot in (``_to``).
+is handed over without a copy.  A shard may fork work onto a stream of its
+own (``side_stream``; K5's output pass, kernels/sgm.sgm_fused_sharded): the
+side stream waits on an event of the caller's stream for its inputs, and
+the caller's stream waits on the side stream's end before the forking
+function returns.  So every fork is joined inside the shard's call, and
+what the shard deposits or returns is ordered on the caller's stream as
+before.  A join orders everything enqueued after it on the shared stream,
+so a fork that must not wait for the other shards' forked work is made
+before a collective that every shard passes before it joins (the barrier
+that ends parallel/sgm_sharded.settled_carries).  A device per shard is
+part of the interface so that a transport across cards can slot in
+(``_to``).
 
 Turns on the host: one shard runs Python at a time.  A shard holds the
 group's baton from its start to its next collective, where it hands the
@@ -62,6 +72,7 @@ class ShardGroup:
         self._barrier: threading.Barrier | None = None  # one per run
         self._baton = threading.Lock()
         self._slots: list[list[Any]] = [[None] * n, [None] * n]
+        self._side: dict[int, torch.cuda.Stream] = {}
 
     # ------------------------------------------------------------- running
 
@@ -114,6 +125,17 @@ class ShardGroup:
         """The calling shard's index."""
         return self._local.index
 
+    def side_stream(self) -> torch.cuda.Stream | None:
+        """A CUDA stream of the calling shard's own, for work it forks off
+        the caller's stream (see Ordering on the card), made at its first
+        use and kept; None on a CPU device."""
+        i = self._local.index
+        if self.devices[i].type != "cuda":
+            return None
+        if i not in self._side:  # each shard thread reads and writes its own key
+            self._side[i] = torch.cuda.Stream(device=self.devices[i])
+        return self._side[i]
+
     def _exchange(self, x) -> list:
         """Deposit x, wait for every shard, return all shards' deposits.
 
@@ -134,15 +156,32 @@ class ShardGroup:
     def _to(self, x: torch.Tensor) -> torch.Tensor:
         return x.to(self.devices[self._local.index])
 
-    def ppermute(self, x: torch.Tensor, perm: Sequence[tuple[int, int]]) -> torch.Tensor:
-        """Shard dst receives shard src's x for each (src, dst) in perm;
-        a shard that receives nothing gets zeros, as in JAX."""
-        got = self._exchange(x)
+    def ppermute(self, x: torch.Tensor | None,
+                 perm: Sequence[tuple[int, int]]) -> torch.Tensor | None:
+        """Shard dst receives shard src's x for each (src, dst) in perm; a
+        shard that is no destination gets zeros, as in JAX.  x may be None:
+        the shard hands on nothing, and its destination gets None, never
+        zeros that it could take for data (None too for a shard that is no
+        destination and passed None)."""
+        return self.ppermutes((x, perm))[0]
+
+    def ppermutes(self, *pairs: tuple[torch.Tensor | None, Sequence[tuple[int, int]]]) -> list:
+        """Several ppermutes, (x, perm) each, in one collective: one
+        barrier for all of them.  Returns what each ppermute returns."""
+        got = self._exchange(tuple(x for x, _ in pairs))
         i = self._local.index
-        for src, dst in perm:
-            if dst == i:
-                return self._to(got[src])
-        return torch.zeros_like(x)
+        out = []
+        for k, (x, perm) in enumerate(pairs):
+            src = next((s for s, d in perm if d == i), None)
+            if src is None:
+                out.append(None if x is None else torch.zeros_like(x))
+            else:
+                out.append(None if got[src][k] is None else self._to(got[src][k]))
+        return out
+
+    def barrier(self) -> None:
+        """Wait until every shard has reached this point."""
+        self._exchange(None)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """Sum of every shard's x, added in shard order (so every shard

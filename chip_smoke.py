@@ -39,9 +39,15 @@ Phases (each raises on failure; none is caught):
                 from CUDA events around the replay of a CUDA graph of 100
                 wrapper calls, beside the wrapper's time.
                 K5 (the height-sharded SGM) runs on 8 shards of 47 rows of
-                the same frame, the shards as threads on this one card: its
-                settle carries and shard outputs against its plain version,
-                and the 8 shards' disparity against K1's full frame.  K2, K3
+                the same frame, the shards as threads on this one card: the
+                carries of its exact settle schedule (14 one-direction
+                sweeps) against its plain version and against the
+                all-shards schedule replayed with the kernel's
+                both-directions sweep, shard outputs against its plain
+                version, and the 8 shards' disparity against K1's full
+                frame; its device span, busy time and time by kernel a
+                frame from torch.profiler, beside the host-inclusive time
+                of the call and K1's time in the same call.  K2, K3
                 and K4 at the spatial path's shard shapes (47 rows, and 63
                 and 95 rows with the superpixels' halos) against their plain
                 versions, K2's and K4's psum'd tables against the full
@@ -73,9 +79,10 @@ Phases (each raises on failure; none is caught):
                     through read_config (8 row shards, on this one card) for
                     10 frames, every output equal frame by frame to the
                     full-frame pipeline of the same modules with the 'select'
-                    warp (K5 x80, K2 x80, K3 x(launches(24) + 9 launches(8))
-                    x 8, K4 x80, K1 0, no plain call), and the same with
-                    'phase' statistics for 4 frames.
+                    warp (K5 x80 with 140 settle sweeps, K2 x80, K3
+                    x(launches(24) + 9 launches(8)) x 8, K4 x80, K1 0, no
+                    plain call), and the same with 'phase' statistics for 4
+                    frames.
   5. parity   - the small temporal slice (64x128, 6 frames) on the card and on
                 the CPU, every output and the final state equal, and the same
                 with the reference-faithful modes; the full-size flow of one
@@ -84,7 +91,7 @@ Phases (each raises on failure; none is caught):
                 torch.profiler: per-module CUDA-event spans, device busy time
                 and idle share, device time by kernel name and K2's and K4's
                 a frame; the same for the faithful flagship, and for a fresh
-                spatial run over frames 3..6.
+                spatial run over frames 3..6 with K5's kernels by name.
   7. cli      - configs/synthetic-planeseg.json through the CLI entry point.
   8. times    - per-frame ms and each kernel's numbers.
 The last two lines of standard output are the kernels JSON line and the
@@ -108,6 +115,11 @@ FRAMES = 65
 NONTEMPORAL_FRAMES = 10
 SPATIAL_FRAMES = 10
 SHARDS = 8  # configs/kitti-planeseg-spatial.json's parallel.devices
+# K5's settle sweeps a frame: in round j of the n-1, shard j sweeps top-down
+# and shard n-1-j bottom-up, one launch each (SHARDS is even).
+SETTLE_LAUNCHES = 2 * (SHARDS - 1)
+K5_PROFILE_RUNS = 5  # profiled runs (and graph replays) of the 8 shards' K5
+K5_REPLAYS = 20  # timed replays of the CUDA graph of one run of the 8 shards' K5
 # K3 labels could differ from the plain version's only where torch's CUDA log
 # and the kernel's logf round one value differently and so flip a strict-<
 # tie.  Both call the same logf, and every run so far showed 0, so the bound
@@ -198,10 +210,11 @@ def launch_plan() -> dict:
         "pixel": {"sgm": PIXEL_FRAMES, "moment_tally": 0, "relax": 0, "vote_tally": 0},
         "grayscale": {"sgm": GRAY_FRAMES, "moment_tally": GRAY_FRAMES, "relax": k3(GRAY_FRAMES),
                       "vote_tally": GRAY_FRAMES},
-        "spatial_phase_full": {"sgm": SPATIAL_PHASE_FRAMES, "sgm_sharded": 0,
+        "spatial_phase_full": {"sgm": SPATIAL_PHASE_FRAMES, "sgm_sharded": 0, "sgm_settle": 0,
                                "moment_tally": spatial_phase, "relax": spatial_phase,
                                "vote_tally": SPATIAL_PHASE_FRAMES},
         "spatial_phase": {"sgm": 0, "sgm_sharded": SHARDS * SPATIAL_PHASE_FRAMES,
+                          "sgm_settle": SETTLE_LAUNCHES * SPATIAL_PHASE_FRAMES,
                           "moment_tally": SHARDS * spatial_phase,
                           "relax": SHARDS * spatial_phase,
                           "vote_tally": SHARDS * SPATIAL_PHASE_FRAMES},
@@ -209,10 +222,11 @@ def launch_plan() -> dict:
                      "vote_tally": FRAMES},
         "nontemporal": {"sgm": NONTEMPORAL_FRAMES, "moment_tally": NONTEMPORAL_FRAMES,
                         "relax": k3(NONTEMPORAL_FRAMES), "vote_tally": NONTEMPORAL_FRAMES},
-        "full_frame_select": {"sgm": SPATIAL_FRAMES, "sgm_sharded": 0,
+        "full_frame_select": {"sgm": SPATIAL_FRAMES, "sgm_sharded": 0, "sgm_settle": 0,
                               "moment_tally": SPATIAL_FRAMES, "relax": k3(SPATIAL_FRAMES),
                               "vote_tally": SPATIAL_FRAMES},
         "spatial": {"sgm": 0, "sgm_sharded": SHARDS * SPATIAL_FRAMES,
+                    "sgm_settle": SETTLE_LAUNCHES * SPATIAL_FRAMES,
                     "moment_tally": SHARDS * SPATIAL_FRAMES,
                     "relax": SHARDS * k3(SPATIAL_FRAMES), "vote_tally": SHARDS * SPATIAL_FRAMES},
     }
@@ -888,12 +902,68 @@ def tally_phase(dev, tag, t, results) -> None:
             f"[{tag}]")
 
 
+def all_shards_carries(settle, sp):
+    """K5's earlier settle schedule, replayed as the reference of the exact
+    one: n-1 rounds in which every shard sweeps both directions from its
+    current carries and hands both on."""
+    from cartslam_tpu_torch.parallel.sgm_sharded import chain_perms
+
+    n, idx = sp.n, sp.index
+    fwd, bwd = chain_perms(n)
+    tb = bt = None
+    for _ in range(n - 1):
+        tb_fin, bt_fin = settle(tb, bt)
+        tb_recv = sp.group.ppermute(tb_fin, fwd)
+        bt_recv = sp.group.ppermute(bt_fin, bwd)
+        tb = None if idx == 0 else tb_recv
+        bt = None if idx == n - 1 else bt_recv
+    return tb, bt
+
+
+# K5's kernels by profiler name: (name pattern, label).
+K5_KERNELS = (("sgm_settle_kernel", "settle"), ("sgm_hpaths_kernel", "row paths"),
+              ("sgm_vpaths_kernel", "column paths"), ("sgm_wta_kernel", "WTA"))
+
+
+def k5_device_times(dev_events) -> dict:
+    """K5's device figures from profiler device events: busy ms (the union
+    of its kernels' intervals), span ms (the first K5 kernel's start to the
+    last one's end) and {label: [ms, launches]} by kernel."""
+    spans, by = [], {label: [0.0, 0] for _, label in K5_KERNELS}
+    for e in dev_events:
+        label = next((lab for pat, lab in K5_KERNELS if pat in e.name), None)
+        if label is None:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        by[label][0] += e.time_range.elapsed_us() / 1e3
+        by[label][1] += 1
+    if not spans:
+        return dict(busy_ms=None, span_ms=None, by_kernel=by)
+    return dict(busy_ms=_union_ms(spans),
+                span_ms=(max(e for _, e in spans) - min(s for s, _ in spans)) / 1e3, by_kernel=by)
+
+
+def _ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
+def _k5_by_kernel(by: dict, per: float = 1.0) -> str:
+    return ", ".join(f"{label} {ms / per:.4f} ms ({n / per:g})" for label, (ms, n) in by.items())
+
+
 def sharded_sgm_phase(dev, tag, paths, results) -> None:
     """K5 on SHARDS row shards of the frame's census (the rows a shard's
     3-row census halo gives it), the shards as threads on this card: the
-    settled carries and every shard's output against the plain version, and
-    the shards' disparity against K1's full frame.  Adds K5's numbers to
-    `results`."""
+    settled carries of the exact schedule against its plain version and
+    against the all-shards schedule replayed with the kernel's
+    both-directions sweep; every shard's output against the plain version
+    and the shards' disparity against K1's full frame.  Then K5's device
+    time a frame apart from the host, from the replay of a CUDA graph of
+    one run of the 8 shards (CUDA events; span, busy and time by kernel
+    from the profiler), beside the same from runs as the shard threads make
+    them (the host paces these) and the host-inclusive time of the call.
+    Adds K5's numbers to `results`."""
+    from cartslam_tpu_torch.kernels import build
     from cartslam_tpu_torch.kernels import sgm as ksgm
     from cartslam_tpu_torch.parallel.group import ShardGroup
     from cartslam_tpu_torch.parallel.sgm_sharded import sgm_census_sharded, settled_carries
@@ -907,22 +977,42 @@ def sharded_sgm_phase(dev, tag, paths, results) -> None:
     ckw = dict(min_disparity=4, num_disparities=D, p1=10, p2=120)
     kw = dict(ckw, uniqueness=12, subpixel=True, lr_check=True)
 
-    def carries(i):
-        k = settled_carries(lambda tb, bt: ksgm.sgm_vcarry(*rows[i], tb, bt, **ckw), sp)
-        p = settled_carries(lambda tb, bt: ksgm.sgm_vcarry_plain(*rows[i], tb, bt, **ckw), sp)
-        return k, p
+    def exact(vcarry):
+        return group.run(lambda i: settled_carries(
+            lambda tb, bt, down, up: vcarry(*rows[i], tb, bt, top_down=down, bottom_up=up, **ckw),
+            sp))
 
+    build.reset_counts()
+    got_k = exact(ksgm.sgm_vcarry)
+    torch.cuda.synchronize()
+    settle_launches = ksgm.SETTLE_COUNTER.launches
+    if settle_launches != SETTLE_LAUNCHES:
+        raise AssertionError(f"K5: the settle chain launched {settle_launches} sweeps, expected "
+                             f"{SETTLE_LAUNCHES}")
+    got_p = exact(ksgm.sgm_vcarry_plain)
+    got_o = group.run(lambda i: all_shards_carries(
+        lambda tb, bt: ksgm.sgm_vcarry(*rows[i], tb, bt, **ckw), sp))
     checked = 0
-    for i, (k, p) in enumerate(group.run(carries)):
-        for name, a, b in (("top-down", k[0], p[0]), ("bottom-up", k[1], p[1])):
-            if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
-                raise AssertionError(f"K5 shard {i}: the settled {name} carry differs from "
-                                     "the plain version's")
-            checked += a is not None
-    kernel = lambda: torch.cat(group.run(lambda i: sgm_census_sharded(*rows[i], sp, **kw)))
+    for i, (k, p, o) in enumerate(zip(got_k, got_p, got_o)):
+        for d, name in enumerate(("top-down", "bottom-up")):
+            for what, ref in (("the plain version's", p[d]), ("the all-shards schedule's", o[d])):
+                a = k[d]
+                if (a is None) != (ref is None) or (a is not None and not torch.equal(a, ref)):
+                    raise AssertionError(f"K5 shard {i}: the settled {name} carry differs from "
+                                         f"{what}")
+            checked += k[d] is not None
+    shards = lambda: group.run(lambda i: sgm_census_sharded(*rows[i], sp, **kw))
+    kernel = lambda: torch.cat(shards())
     plain = lambda: torch.cat(group.run(
         lambda i: sgm_census_sharded(*rows[i], sp, plain=True, **kw)))
+    build.reset_counts()
     out_k = kernel()
+    torch.cuda.synchronize()
+    counts = {c.name: (c.launches, c.plain_calls) for c in build.COUNTERS.values()}
+    if (counts["sgm_sharded"] != (SHARDS, 0) or counts["sgm_settle"] != (SETTLE_LAUNCHES, 0)
+            or any(pc for _, pc in counts.values())):
+        raise AssertionError(f"K5: launches (sgm_sharded, sgm_settle) {counts}, expected "
+                             f"({SHARDS}, {SETTLE_LAUNCHES}) and no plain call")
     out_p, pms = timed_once(plain)  # the plain chain takes seconds: one timed run
     if not torch.equal(out_k, out_p):
         raise AssertionError(f"K5: {int((out_k != out_p).sum())} pixels differ from the plain "
@@ -931,17 +1021,84 @@ def sharded_sgm_phase(dev, tag, paths, results) -> None:
         n = int((out_k != paths["k1_disparity"]).sum())
         raise AssertionError(f"K5: the {SHARDS}-shard disparity differs from K1's full frame "
                              f"on {n} pixels")
-    ms = cuda_ms(kernel, 10)
+    wrapper_ms = cuda_ms(kernel, 10)
+    # As the shard threads run it, under the profiler: the host paces it.
+    eager = _median_run([profiled_k5(shards) for _ in range(K5_PROFILE_RUNS)])
+    # Device time apart from the host: one group.run of the 8 shards captured
+    # into a CUDA graph (the shard threads enqueue on the capturing stream,
+    # and their side streams join the capture through the forks), replayed.
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        out_g = shards()
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(torch.cat(out_g), out_k):
+        raise AssertionError("K5: the replayed CUDA graph's disparity differs from the kernel's")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(K5_REPLAYS):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / K5_REPLAYS
+    replay = _median_run([profiled_k5(graph.replay) for _ in range(K5_PROFILE_RUNS)])
+    del graph, out_g
+    torch.cuda.empty_cache()
+    for what, r in (("run", eager), ("replay", replay)):
+        for label, (_, n) in r["by_kernel"].items():
+            want = SETTLE_LAUNCHES if label == "settle" else SHARDS
+            if r["span_ms"] is not None and n != want:
+                raise AssertionError(f"K5 {what}: the profiler saw {n} {label} launches, "
+                                     f"expected {want}")
     nbytes = 4 * H * W * 4 + H * W * 2
     ops = H * W * D * (SGM_FUSED_OPS_PER_CELL + (SHARDS - 1) / SHARDS * SGM_SETTLE_OPS_PER_CELL)
     bms, by = bound(nbytes, ops)
-    results["sgm_sharded"] = dict(max_abs_err=float((out_k.int() - out_p.int()).abs().max()),
-                                  ms=ms, plain_ms=pms, library_ms=None, bound_ms=bms,
-                                  bound_by=by)
+    results["sgm_sharded"] = dict(
+        max_abs_err=float((out_k.int() - out_p.int()).abs().max()), ms=ms, plain_ms=pms,
+        library_ms=None, bound_ms=bms, bound_by=by, span_ms=replay["span_ms"],
+        busy_ms=replay["busy_ms"], eager_span_ms=eager["span_ms"], wrapper_ms=wrapper_ms)
     log(f"K5 sgm_sharded: {SHARDS} shards of [{hl},{W}] D={D} on one card; {checked} settled "
-        f"carries and every shard's output array_equal to the plain version; the shards' "
-        f"disparity array_equal to K1's full frame; kernel {ms:.3f} ms per frame (all "
-        f"shards, {SHARDS - 1} settle rounds), plain {pms:.3f} ms  [{tag}]")
+        f"carries array_equal to the plain version and to the all-shards schedule (kernel, "
+        f"both directions); every shard's output, and a CUDA graph's replay of the 8 shards, "
+        f"array_equal to the plain version; the shards' disparity array_equal to K1's full "
+        f"frame; launches a frame: sgm_sharded {SHARDS}, sgm_settle {settle_launches}; plain "
+        f"{pms:.3f} ms")
+    log(f"K5 device time a frame, apart from the host (a CUDA graph of one group.run of the "
+        f"{SHARDS} shards, replayed): {ms:.4f} ms a replay (CUDA events, {K5_REPLAYS} "
+        f"replays); profiler, {K5_PROFILE_RUNS} replays, the one of median span: span "
+        f"{_ms(replay['span_ms'])}, busy {_ms(replay['busy_ms'])}; "
+        f"{_k5_by_kernel(replay['by_kernel'])}; spans {replay['spans']}; K1 in this call "
+        f"{results['sgm']['ms']:.4f} ms  [{tag}]")
+    log(f"K5 as the shard threads run it (profiler, {K5_PROFILE_RUNS} runs, the one of median "
+        f"span; the host paces it): span {_ms(eager['span_ms'])}, busy "
+        f"{_ms(eager['busy_ms'])}; {_k5_by_kernel(eager['by_kernel'])}; spans "
+        f"{eager['spans']}; host-inclusive (CUDA events around group.run and the cat, the "
+        f"shard threads' host work included) {wrapper_ms:.4f} ms  [{tag}]")
+
+
+def profiled_k5(fn) -> dict:
+    """k5_device_times of one call of fn under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return k5_device_times([e for e in prof.events() if e.device_type == cuda])
+
+
+def _median_run(runs: list) -> dict:
+    """The run of median span, with every run's span (ms, 4 decimals);
+    runs whose profile holds no K5 kernel are left out and counted (all
+    None, and "not measured", when no run has one)."""
+    seen = sorted((r for r in runs if r["span_ms"] is not None), key=lambda r: r["span_ms"])
+    spans = ", ".join(f"{r['span_ms']:.4f}" for r in seen) or "not measured"
+    if len(seen) < len(runs):
+        spans += f" ({len(runs) - len(seen)} of {len(runs)} profiles without K5 kernels)"
+    med = seen[len(seen) // 2] if seen else k5_device_times([])
+    return dict(med, spans=spans)
 
 
 def shard_kernels_phase(dev, paths) -> None:
@@ -1462,8 +1619,19 @@ def spatial_profile(frames, intrinsics, dev, tag) -> None:
 
     run(pipe, source, on_frame=on_frame)
     n = last - first + 1
-    _device_report(prof, n, window["wall_ms"] / n, f"spatial profile frames {first}..{last}",
-                   tag)
+    label = f"spatial profile frames {first}..{last}"
+    _device_report(prof, n, window["wall_ms"] / n, label, tag)
+    cuda = torch.autograd.DeviceType.CUDA
+    k5 = k5_device_times([e for e in prof.events() if e.device_type == cuda])
+    if k5["busy_ms"] is None:
+        log(f"{label}: K5 kernels not measured (no device events)  [{tag}]")
+        return
+    if k5["by_kernel"]["settle"][1] != SETTLE_LAUNCHES * n:
+        raise AssertionError(f"{label}: {k5['by_kernel']['settle'][1]} settle sweeps, expected "
+                             f"{SETTLE_LAUNCHES * n}")
+    log(f"{label}: K5 device ms a frame by kernel (launches a frame): "
+        f"{_k5_by_kernel(k5['by_kernel'], n)}; K5 busy {k5['busy_ms'] / n:.4f} ms a frame  "
+        f"[{tag}]")
 
 
 def ptxas_report(build, info) -> None:
@@ -1477,7 +1645,8 @@ def ptxas_report(build, info) -> None:
     flagship_relax = []
     for k in kernels:
         name = k["name"]
-        if not re.search(r"sgm_[hv]paths|sgm_wta|relax_|moment_tally|vote_tally", name):
+        if not re.search(r"sgm_[hv]paths|sgm_settle|sgm_wta|relax_|moment_tally|vote_tally",
+                         name):
             continue
         if re.search(r"relax_sweeps_kernel(<true>|<\(bool\)1>|ILb1E)", name):
             flagship_relax.append(k)
