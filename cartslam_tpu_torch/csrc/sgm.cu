@@ -13,9 +13,41 @@
 // K6 replaces sgm_aggregate_pallas (ops/pallas/sgm.py:510): census words in,
 // the 4-path aggregated cost out as int16 [H, W, D] with d ascending (the
 // TPU's reversed-d layout, flip=False, is not carried over).  It runs the
-// path kernels below with int16 path storage, so it takes the JAX op's whole
-// P2 range (each path value <= 62 + P2 <= 8062, the 4-path sum < 32767),
-// then sgm_sum4 adds the four volumes.
+// path kernels below in their accumulate form (kAcc), which add the paths
+// into the output itself: no path volume, no summing pass.  It takes the JAX
+// op's whole P2 range: each path value is a non-negative integer <= 62 + P2
+// <= 8062, so every partial sum of the four is < 32767, a 32-bit add of two
+// packed int16 pairs carries nothing between the halves, and every order of
+// the adds is exact.
+//  * Row pass (sgm_hpaths_kernel<int16_t, KP, true>): the block's two warps
+//    sweep the row from its two ends.  In the first W / 2 steps each warp
+//    stores its own values to the cells it reaches first; a __syncthreads()
+//    at the midpoint makes them visible to the other warp, which from then on
+//    adds its value to the cell and stores the sum.  Those cells were stored
+//    long before, so they come from device memory: a lane copies them 15
+//    steps ahead with cp.async into a ring of its own in shared memory.  The
+//    middle cell of an odd W is reached by both warps at once:
+//    left-to-right stores, a second barrier, right-to-left adds.
+//  * Column pass (sgm_vpaths_acc_kernel): one block of 12 warps holds both
+//    vertical directions of 6 columns (two census rings), and adds both into
+//    the row sums under the per-step barrier the rings already take.  A cell
+//    is reached by the two directions at steps a and H-1-a.  Each lane's
+//    cells ride in its step's cp.async group, 3 steps ahead, except at the
+//    two steps after H / 2 - 1, whose cell the other direction may have
+//    reached less than 3 steps before: those load after their step's
+//    barrier, and the middle row of an odd H is added top-down first, then,
+//    after a second barrier, bottom-up.
+//  * Each pass's first half, middle and second half are separate loops: the
+//    sweeps are latency- and issue-bound, and a per-step test of where a
+//    step lies cost a quarter of the row pass (PERF.md).
+//  Bytes: the row pass writes, reads and writes the output once each, the
+//  column pass reads and writes it twice: 1.68 GB at 376x1248, D = 256,
+//  where four int16 scratch planes and a summing pass moved 2.16 GB, and a
+//  call allocates only its output.  Lanes store to the output's stride D
+//  with one vector access where D is a multiple of their run of
+//  disparities, else with masked scalar accesses (and load in the step).
+//  Zeroing the output and adding every direction with 32-bit atomics of
+//  packed pairs, in any order, took twice as long (PERF.md).
 //
 // K5 replaces sgm_fused_pallas_sharded (ops/pallas/sgm.py:320, with
 // _make_vcarry :241, _make_vsweep_cin :267, _make_btwta_cin_kernel :288): K1
@@ -58,8 +90,9 @@
 //    consecutive disparities, d = KP * lane + k (KP = 8 at D = 256), so d-1
 //    and d+1 are registers of the same lane except at the lane's two ends:
 //    a step costs 2 shuffles and one __reduce_min_sync for the path minimum.
-//    Each lane writes its KP values with one store of KP bytes (2 KP for
-//    K6's int16), so a warp writes one contiguous run per step.
+//    Each lane writes its KP values with one store of KP bytes (K6: adds
+//    them to the output's int16 cells), so a warp writes one contiguous run
+//    per step.
 //    - Row paths (sgm_hpaths): one block per image row holds both of its
 //      directions.  The row's census words are staged in shared memory once,
 //      the right view as (r0, r1) pairs with one pad pair after every 8
@@ -111,6 +144,8 @@ constexpr int kCostInvalid = 62;
 constexpr int kBig16 = 32767;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kVCols = 8;      // columns per block of the column-path kernel
+constexpr int kAccCols = 6;    // columns per block of K6's column-path kernel (both directions)
+constexpr int kRowRing = 16;   // slots of K6's row-sweep cell ring: cells copied 15 steps ahead
 constexpr int kVStages = 4;    // cp.async ring depth of the column-path kernel
 constexpr int kWtaThreads = 256;
 
@@ -120,6 +155,9 @@ __host__ __device__ constexpr int skew8(int i) { return i + (i >> 3); }
 __host__ __device__ constexpr int skew16(int i) { return i + (i >> 4); }
 
 __host__ __device__ constexpr int padded_d(int d) { return (d + 15) & ~15; }
+// The row-path kernel's shared memory: the staged right and left pairs,
+// then (K6) its ring of prefetched cells, 16-byte aligned; in int2 units.
+__host__ __device__ constexpr int row_ring_offset(int W) { return (skew8(W - 1) + 2 + W) & ~1; }
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -163,6 +201,65 @@ __device__ __forceinline__ void store_run(T* p, const int (&v)[KP]) {
   }
 }
 
+// K6's output cells: a lane's n <= 2 NW consecutive int16 values at p, as NW
+// packed pairs (value 2i in the low half).  vec: one vector access (n is 2 NW
+// and p is 4 NW-byte aligned); else n scalar accesses, zeros beyond n.
+template <int NW>
+__device__ __forceinline__ void load_cells(const int16_t* p, int n, bool vec, unsigned (&w)[NW]) {
+  if (vec) {
+    if constexpr (NW == 4) {
+      const uint4 q = *reinterpret_cast<const uint4*>(p);
+      w[0] = q.x, w[1] = q.y, w[2] = q.z, w[3] = q.w;
+    } else if constexpr (NW == 2) {
+      const uint2 q = *reinterpret_cast<const uint2*>(p);
+      w[0] = q.x, w[1] = q.y;
+    } else {
+      w[0] = *reinterpret_cast<const unsigned*>(p);
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < NW; ++i)
+    w[i] = (2 * i < n ? (unsigned)(uint16_t)p[2 * i] : 0u) |
+           (2 * i + 1 < n ? (unsigned)(uint16_t)p[2 * i + 1] << 16 : 0u);
+}
+template <int NW>
+__device__ __forceinline__ void store_cells(int16_t* p, int n, bool vec, const unsigned (&w)[NW]) {
+  if (vec) {
+    if constexpr (NW == 4)
+      *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+    else if constexpr (NW == 2)
+      *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+    else
+      *reinterpret_cast<unsigned*>(p) = w[0];
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    if (2 * i < n) p[2 * i] = (int16_t)(w[i] & 0xffffu);
+    if (2 * i + 1 < n) p[2 * i + 1] = (int16_t)(w[i] >> 16);
+  }
+}
+// Copies a lane's NW packed cell pairs from src to the shared address dst
+// with one cp.async (src 4 NW-byte aligned).
+template <int NW>
+__device__ __forceinline__ void cp_cells(const void* dst, const int16_t* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (NW == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+  else if constexpr (NW == 2)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+// w += v pairwise: each half's sum stays below 2^15 (see K6 above), so one
+// 32-bit add carries nothing between the halves.
+template <int NW>
+__device__ __forceinline__ void add_cells(unsigned (&w)[NW], const unsigned (&v)[NW]) {
+#pragma unroll
+  for (int i = 0; i < NW; ++i) w[i] += v[i];
+}
+
 // One step of the recurrence for the lane's disparities dbase..dbase+KP-1:
 //   L(d) <- C(d) + min(L(d), L(d+-1) + P1, m + P2) - m,   kBig for d >= D,
 // returning the new path minimum over d.
@@ -192,13 +289,19 @@ __device__ __forceinline__ int hamming(int2 a, int2 r) {
   return __popc((unsigned)(a.x ^ r.x)) + __popc((unsigned)(a.y ^ r.y));
 }
 
-// Row paths: block y holds image row y, warp 0 sweeps left->right (volume
-// plane 0), warp 1 right->left (plane 1).  vol: [4, H, W, Dp] or null.
-template <typename T, int KP>
+// Row paths: block y holds image row y, warp 0 sweeps left->right, warp 1
+// right->left.  K1 / K5: each into its plane (0, 1) of vol [4, H, W, Dp], or
+// no volume (null).  kAcc (K6): the sum of both into vol = out [H, W, D]:
+// the first half's steps store, the second half's add (see K6 above).  The
+// three parts are separate loops: the sweeps are latency-bound (752 warps
+// for 528 schedulers), so every per-step test of where the step lies would
+// lengthen every step.
+template <typename T, int KP, bool kAcc>
 __global__ void __launch_bounds__(64) sgm_hpaths_kernel(
     const int* __restrict__ l0, const int* __restrict__ l1, const int* __restrict__ r0,
     const int* __restrict__ r1, T* __restrict__ vol, int H, int W, int D, int minD, int p1,
     int p2) {
+  static_assert(!kAcc || sizeof(T) == 2, "K6 accumulates int16 sums");
   extern __shared__ int2 hsm[];
   int2* rs = hsm;                     // right pairs, skew8 layout
   int2* ls = hsm + skew8(W - 1) + 1;  // left pairs
@@ -214,8 +317,9 @@ __global__ void __launch_bounds__(64) sgm_hpaths_kernel(
   const int dir = threadIdx.x >> 5;  // warp-uniform
   const int dbase = KP * lane;
   const int Dp = padded_d(D);
-  T* out = (vol != nullptr && dbase < Dp) ? vol + ((size_t)dir * H * W + row) * Dp + dbase
-                                          : nullptr;
+  T* out = (vol != nullptr && dbase < (kAcc ? D : Dp))
+               ? vol + (kAcc ? row * D : ((size_t)dir * H * W + row) * Dp) + dbase
+               : nullptr;
   int L[KP];  // a zero carry, kBig for d >= D; m = 0
 #pragma unroll
   for (int k = 0; k < KP; ++k) L[k] = dbase + k < D ? 0 : kBig;
@@ -228,7 +332,8 @@ __global__ void __launch_bounds__(64) sgm_hpaths_kernel(
 #pragma unroll
   for (int k = 0; k < KP; ++k) win[k] = rs[skew8(max(x - minD - dbase - k, 0))];
   int2 a = ls[x];
-  for (int s = 0; s < W; ++s) {
+  // Step s at x: L <- the path values of x; then x moves on.
+  auto sweep = [&](int s) {
     const int xn = x + step;
     int2 an = a, wn = win[0];
     if (s + 1 < W) {  // the next step's left pair and new window pair
@@ -245,7 +350,6 @@ __global__ void __launch_bounds__(64) sgm_hpaths_kernel(
       for (int k = 0; k < KP; ++k) c[k] = xr0 - k >= 0 ? hamming(a, win[k]) : kCostInvalid;
     }
     m = path_step<KP>(L, c, m, p1, p2, lane, dbase, D);
-    if (out != nullptr) store_run<T, KP>(out + (size_t)x * Dp, L);
     if (dir == 0) {
 #pragma unroll
       for (int k = KP - 1; k > 0; --k) win[k] = win[k - 1];
@@ -257,6 +361,86 @@ __global__ void __launch_bounds__(64) sgm_hpaths_kernel(
     }
     a = an;
     x = xn;
+  };
+  if constexpr (!kAcc) {
+    for (int s = 0; s < W; ++s) {
+      T* o = out + (size_t)x * Dp;
+      sweep(s);
+      if (out != nullptr) store_run<T, KP>(o, L);
+    }
+  } else {
+    // The lane's n cells a pixel, as NW packed pairs, at `cell` (x's).  After
+    // the midpoint a lane whose cells take one vector access (vec) has them
+    // copied kRowRing - 1 steps ahead into its slots of a ring in shared
+    // memory (the other warp stored them long before: they come from device
+    // memory); another lane loads them in the step.
+    constexpr int NW = (KP + 1) / 2;
+    const int n = min(KP, D - dbase);
+    const bool vec = KP > 1 && D % KP == 0;
+    const int half = W / 2;
+    const bool ring = out != nullptr && vec;
+    const ptrdiff_t cstep = (ptrdiff_t)step * D;
+    int16_t* cell = out + (ptrdiff_t)x * D;
+    unsigned* hring = reinterpret_cast<unsigned*>(hsm + row_ring_offset(W)) + threadIdx.x * NW;
+    const int16_t* ahead = cell + half * cstep;
+    // The copy of step t's cell (none past the row's end) and its group.
+    auto fetch = [&](int t) {
+      if (t < W) cp_cells<NW>(hring + (t & (kRowRing - 1)) * 64 * NW, ahead);
+      ahead += cstep;
+      cp_async_commit();
+    };
+    // Step t's cells from the ring, the copy of step t + kRowRing - 1 issued.
+    auto from_ring = [&](int t, unsigned (&w)[NW]) {
+      fetch(t + kRowRing - 1);
+      cp_async_wait<kRowRing - 1>();  // step t's group landed
+      const unsigned* p = hring + (t & (kRowRing - 1)) * 64 * NW;
+#pragma unroll
+      for (int i = 0; i < NW; ++i) w[i] = p[i];
+    };
+    auto pack = [&](unsigned (&v)[NW]) {
+#pragma unroll
+      for (int i = 0; i < NW; ++i) v[i] = pack2(L[2 * i], 2 * i + 1 < KP ? L[2 * i + 1] : 0);
+    };
+    unsigned v[NW], cur[NW];
+    int s = 0;
+    for (; s < half; ++s, cell += cstep) {  // the cells this warp reaches first
+      sweep(s);
+      pack(v);
+      if (out != nullptr) store_cells<NW>(cell, n, vec, v);
+    }
+    __syncthreads();  // those stores are visible to the other warp
+    if (ring) {
+      if (W & 1) {  // the middle cell is not copied: it waits for the second barrier
+        cp_async_commit();
+        ahead += cstep;
+      }
+      for (int t = half + (W & 1); t < half + kRowRing - 1; ++t) fetch(t);
+    }
+    if (W & 1) {  // the middle cell: left-to-right stores, then right-to-left adds
+      if (ring) from_ring(s, cur);
+      sweep(s);
+      pack(v);
+      if (dir == 0 && out != nullptr) store_cells<NW>(cell, n, vec, v);
+      __syncthreads();
+      if (dir == 1 && out != nullptr) {
+        load_cells<NW>(cell, n, vec, cur);
+        add_cells<NW>(v, cur);
+        store_cells<NW>(cell, n, vec, v);
+      }
+      ++s, cell += cstep;
+    }
+    for (; s < W; ++s, cell += cstep) {  // the cells the other warp stored
+      if (ring)
+        from_ring(s, cur);
+      else if (out != nullptr)
+        load_cells<NW>(cell, n, vec, cur);
+      sweep(s);
+      pack(v);
+      if (out != nullptr) {
+        add_cells<NW>(v, cur);
+        store_cells<NW>(cell, n, vec, v);
+      }
+    }
   }
 }
 
@@ -323,23 +507,37 @@ __device__ __forceinline__ void store_pairs(T* p, const unsigned (&P)[NP]) {
 // 8 bx + w; dir 0 sweeps top->bottom (volume plane 2, carries cin_tb /
 // cout_tb), dir 1 bottom->top (plane 3, cin_bt / cout_bt).  kSettle: no
 // volume, the final carry written to cout_tb / cout_bt; else the volume
-// written, no carry out.
-template <typename T, int NP, bool kSettle>
+// written, no carry out.  kAcc (K6): the block holds both directions of
+// kAccCols columns (warps 0-5 top-down, 6-11 bottom-up, one cp.async ring
+// each, dir from the thread) and adds both into vol = out [H, W, D], which
+// holds the row sums (see K6 above): 208 blocks of 12 warps at W = 1248, at
+// most 24 warps an SM as in K1's column kernel; 8 columns a block made 156
+// blocks of 16 warps that load the SMs unevenly, and 4 or 5 columns cost
+// more census copies a column (PERF.md has the times).
+template <typename T, int NP, bool kSettle, bool kAcc = false>
 __device__ __forceinline__ void vpaths_body(
     const int* __restrict__ l0, const int* __restrict__ l1, const int* __restrict__ r0,
     const int* __restrict__ r1, T* __restrict__ vol, const int* __restrict__ cin_tb,
     const int* __restrict__ cin_bt, int* __restrict__ cout_tb, int* __restrict__ cout_bt, int H,
     int W, int D, int minD, int p1, int p2, int dir) {
+  static_assert(!kAcc || (sizeof(T) == 2 && !kSettle), "K6 accumulates int16 sums");
   constexpr int KP = 2 * NP;
-  constexpr int kSpan = 32 * KP + kVCols - 1;  // right pairs a step needs
+  constexpr int kCols = kAcc ? kAccCols : kVCols;
+  constexpr int kSpan = 32 * KP + kCols - 1;  // right pairs a step needs
   constexpr int kRight = skew8(kSpan - 1) + 1;
-  constexpr int kStage = kRight + kVCols;      // + the columns' left pairs
-  constexpr int kCopies = 2 * kSpan + 2 * kVCols;
-  constexpr int kItems = (kCopies + kVCols * 32 - 1) / (kVCols * 32);
-  __shared__ int2 ring[kVStages][kStage];
-  const int x0 = blockIdx.x * kVCols;
+  constexpr int kStage = kRight + kCols;      // + the columns' left pairs
+  constexpr int kCopies = 2 * kSpan + 2 * kCols;
+  constexpr int kItems = (kCopies + kCols * 32 - 1) / (kCols * 32);
+  constexpr int kRings = kAcc ? 2 : 1;
+  __shared__ int2 rings[kRings][kVStages][kStage];
+  // kAcc: each lane's cells of a step, copied with the step's census words
+  // (kVStages - 1 steps ahead) where no other direction may still store them.
+  __shared__ __align__(16) unsigned cells[kAcc ? kVStages : 1][kAcc ? 2 * kCols * 32 : 1][NP];
+  const int tid = threadIdx.x % (kCols * 32);  // the thread within its direction
+  auto& ring = rings[kAcc ? dir : 0];
+  const int x0 = blockIdx.x * kCols;
   const int base = x0 - minD - (32 * KP - 1);  // xr of staged pair 0
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = tid >> 5, lane = tid & 31;
   const int x = x0 + warp;
 
   // This thread's 4-byte copies of a step, fixed but for the row: the
@@ -350,7 +548,7 @@ __device__ __forceinline__ void vpaths_body(
   bool copy[kItems];
 #pragma unroll
   for (int q = 0; q < kItems; ++q) {
-    const int i = threadIdx.x + q * kVCols * 32;
+    const int i = tid + q * kCols * 32;
     int plane = 0, word = 0, col = -1;
     if (i < 2 * kSpan) {
       plane = i >= kSpan;
@@ -359,8 +557,8 @@ __device__ __forceinline__ void vpaths_body(
       col = base + j;
     } else if (i < kCopies) {
       const int t = i - 2 * kSpan;
-      plane = t >= kVCols;
-      const int j = t - plane * kVCols;
+      plane = t >= kCols;
+      const int j = t - plane * kCols;
       word = 2 * (kRight + j) + plane;
       col = x0 + j < W ? x0 + j : -1;
     }
@@ -369,9 +567,32 @@ __device__ __forceinline__ void vpaths_body(
     const int* plane_base = i < 2 * kSpan ? (plane ? r1 : r0) : (plane ? l1 : l0);
     src[q] = plane_base + (copy[q] ? col : 0);
   }
+  // kAcc: a lane's cells of step t are copied with the step's census words,
+  // kVStages - 1 = 3 steps ahead, unless the other direction reaches them at
+  // most 3 steps before t (0 <= 2t - (H - 1) <= 3: t = H / 2 and H / 2 + 1;
+  // at t = H / 2 of an odd H it reaches them at the same step): those are
+  // loaded in the step, after its barrier (the middle row bottom-up after a
+  // second barrier).  A cell the other direction reaches later sees this
+  // one's store before its own copy is issued.  Without one vector access
+  // (D not a multiple of KP) every step's cells are loaded in the step.
+  const int dbase = KP * lane;
+  const int n = min(KP, D - dbase);
+  const bool vec = D % KP == 0;
+  static_assert(kVStages == 4, "the near steps below are those of a ring 3 steps ahead");
+  auto in_step = [&](int t) { return !vec || (unsigned)(t - H / 2) < 2u; };  // t = H/2, H/2 + 1
+  const size_t row0 = dir == 0 ? 0 : H - 1;
+  const ptrdiff_t out_step = (dir == 0 ? 1 : -1) * (ptrdiff_t)W * (kAcc ? D : padded_d(D));
+  const int16_t* cells0 =
+      kAcc && x < W && dbase < D ? reinterpret_cast<const int16_t*>(vol) + (row0 * W + x) * D +
+                                       dbase
+                                 : nullptr;
   // Issues the copies of step s (row y) into ring slot s % kVStages.
   auto stage = [&](int s) {
     if (s < H) {
+      if constexpr (kAcc) {
+        if (cells0 != nullptr && !in_step(s))
+          cp_cells<NP>(cells[s % kVStages][threadIdx.x], cells0 + s * out_step);
+      }
       const size_t row = (size_t)(dir == 0 ? s : H - 1 - s) * W;
       const unsigned slot = (unsigned)((s % kVStages) * kStage * sizeof(int2));
 #pragma unroll
@@ -387,15 +608,15 @@ __device__ __forceinline__ void vpaths_body(
   for (int s = 0; s < kVStages - 1; ++s) stage(s);
 
   const bool live = x < W;  // warp-uniform
-  const int dbase = KP * lane;
   const int Dp = padded_d(D);
   const int* cin = dir == 0 ? cin_tb : cin_bt;
   int* cout = dir == 0 ? cout_tb : cout_bt;
-  T* out = (!kSettle && live && dbase < Dp)
-               ? vol + ((size_t)(2 + dir) * H + (dir == 0 ? 0 : H - 1)) * W * Dp +
-                     (size_t)x * Dp + dbase
+  T* out = (!kSettle && live && dbase < (kAcc ? D : Dp))
+               ? vol + (kAcc ? (row0 * W + x) * D
+                             : ((size_t)(2 + dir) * H + row0) * W * Dp + (size_t)x * Dp) +
+                     dbase
                : nullptr;
-  const ptrdiff_t out_step = (dir == 0 ? 1 : -1) * (ptrdiff_t)W * Dp;
+  unsigned cur[NP];  // kAcc: the cells of this step
   unsigned P[NP], keep[NP];
   int cmin = INT_MAX;
 #pragma unroll
@@ -419,34 +640,89 @@ __device__ __forceinline__ void vpaths_body(
   const int xr0 = x - minD - dbase;        // xr of the lane's first disparity
   const bool in_frame = xr0 - (KP - 1) >= 0;  // every candidate reads the right image
   const int j0 = warp + 32 * KP - 1 - dbase;  // staged pair of xr0
-  for (int s = 0; s < H; ++s) {
+  // Step s's barrier: the step's copies landed, its ring slot is read, the
+  // copies of step s + kVStages - 1 are issued.
+  auto enter = [&](int s) {
     cp_async_wait<kVStages - 2>();  // this thread's copies of step s landed
     __syncthreads();                // everyone's did; slot (s - 1) is free
     stage(s + kVStages - 1);
-    if (live) {
-      const int2* slot = ring[s % kVStages];
-      const int2 a = slot[kRight + warp];
-      unsigned C[NP];
-      if (in_frame) {
+  };
+  // Step s's recurrence: P <- the path values of the step's row.
+  auto sweep = [&](int s) {
+    if (!live) return;
+    const int2* slot = ring[s % kVStages];
+    const int2 a = slot[kRight + warp];
+    unsigned C[NP];
+    if (in_frame) {
 #pragma unroll
-        for (int i = 0; i < NP; ++i)
-          C[i] = (unsigned)hamming(a, slot[skew8(j0 - 2 * i)]) |
-                 ((unsigned)hamming(a, slot[skew8(j0 - 2 * i - 1)]) << 16);
-      } else {
+      for (int i = 0; i < NP; ++i)
+        C[i] = (unsigned)hamming(a, slot[skew8(j0 - 2 * i)]) |
+               ((unsigned)hamming(a, slot[skew8(j0 - 2 * i - 1)]) << 16);
+    } else {
 #pragma unroll
-        for (int i = 0; i < NP; ++i) {
-          const int c0 = xr0 - 2 * i >= 0 ? hamming(a, slot[skew8(j0 - 2 * i)]) : kCostInvalid;
-          const int c1 =
-              xr0 - 2 * i - 1 >= 0 ? hamming(a, slot[skew8(j0 - 2 * i - 1)]) : kCostInvalid;
-          C[i] = (unsigned)c0 | ((unsigned)c1 << 16);
-        }
+      for (int i = 0; i < NP; ++i) {
+        const int c0 = xr0 - 2 * i >= 0 ? hamming(a, slot[skew8(j0 - 2 * i)]) : kCostInvalid;
+        const int c1 =
+            xr0 - 2 * i - 1 >= 0 ? hamming(a, slot[skew8(j0 - 2 * i - 1)]) : kCostInvalid;
+        C[i] = (unsigned)c0 | ((unsigned)c1 << 16);
       }
-      m = path_step2<NP>(P, C, keep, m, p1x2, p2, lane);
+    }
+    m = path_step2<NP>(P, C, keep, m, p1x2, p2, lane);
+  };
+  if constexpr (!kAcc) {
+    for (int s = 0; s < H; ++s) {
+      enter(s);
+      sweep(s);
       if (out != nullptr) {
         store_pairs<T, NP>(out, P);
         out += out_step;
       }
     }
+  } else {
+    // The steps before H / 2 and after H / 2 + 1 read their cells from the
+    // ring (vec) or load them after the barrier; the two between load them
+    // after the barrier, and the middle row of an odd H is added top-down,
+    // then, after a second barrier, bottom-up.  Separate loops: no per-step
+    // test of where the step lies.
+    int16_t* cell = reinterpret_cast<int16_t*>(out);
+    auto add_store = [&]() {
+      add_cells<NP>(cur, P);
+      store_cells<NP>(cell, n, vec, cur);
+    };
+    auto far = [&](int s) {
+      enter(s);
+      if (out != nullptr) {
+        if (vec) {
+#pragma unroll
+          for (int i = 0; i < NP; ++i) cur[i] = cells[s % kVStages][threadIdx.x][i];
+        } else {
+          load_cells<NP>(cell, n, vec, cur);
+        }
+      }
+      sweep(s);
+      if (out != nullptr) add_store();
+      cell += out_step;
+    };
+    const int near = H / 2;
+    int s = 0;
+    for (; s < near; ++s) far(s);
+    for (; s < min(H, near + 2); ++s, cell += out_step) {
+      enter(s);
+      const bool mid = (H & 1) && s == near;  // both directions at the middle row
+      if (out != nullptr && (!mid || dir == 0)) load_cells<NP>(cell, n, vec, cur);
+      sweep(s);
+      if (mid) {
+        if (dir == 0 && out != nullptr) add_store();
+        __syncthreads();
+        if (dir == 1 && out != nullptr) {
+          load_cells<NP>(cell, n, vec, cur);
+          add_store();
+        }
+      } else if (out != nullptr) {
+        add_store();
+      }
+    }
+    for (; s < H; ++s) far(s);
   }
   cp_async_wait<0>();
   if (kSettle && live) {
@@ -459,7 +735,7 @@ __device__ __forceinline__ void vpaths_body(
   }
 }
 
-// The column paths of K1, K6 and K5's output pass: block (bx, dir) writes
+// The column paths of K1 and K5's output pass: block (bx, dir) writes
 // volume plane 2 + dir.
 template <typename T, int NP>
 __global__ void __launch_bounds__(kVCols * 32) sgm_vpaths_kernel(
@@ -468,6 +744,18 @@ __global__ void __launch_bounds__(kVCols * 32) sgm_vpaths_kernel(
     const int* __restrict__ cin_bt, int H, int W, int D, int minD, int p1, int p2) {
   vpaths_body<T, NP, false>(l0, l1, r0, r1, vol, cin_tb, cin_bt, nullptr, nullptr, H, W, D, minD,
                             p1, p2, (int)blockIdx.y);
+}
+
+// K6's column paths: block bx adds both vertical directions of its 6 columns
+// into out [H, W, D].
+template <int NP>
+__global__ void __launch_bounds__(kAccCols * 64) sgm_vpaths_acc_kernel(
+    const int* __restrict__ l0, const int* __restrict__ l1, const int* __restrict__ r0,
+    const int* __restrict__ r1, int16_t* __restrict__ out, int H, int W, int D, int minD, int p1,
+    int p2) {
+  vpaths_body<int16_t, NP, false, true>(l0, l1, r0, r1, out, nullptr, nullptr, nullptr, nullptr,
+                                        H, W, D, minD, p1, p2,
+                                        (int)threadIdx.x / (kAccCols * 32));
 }
 
 // K5's settle sweeps: block (bx, y) sweeps direction dir0 + y and writes only
@@ -490,21 +778,32 @@ int launch_paths_kp(const void* l0, const void* l1, const void* r0, const void* 
                     const void* cin_tb, const void* cin_bt, void* cout_tb, void* cout_bt,
                     int H, int W, int D, int minD, int p1, int p2, unsigned what,
                     cudaStream_t stream) {
+  constexpr bool kAcc = sizeof(T) == 2;  // K6: the paths add into out [H, W, D]
   if (what & kRowPaths) {
-    const size_t smem = (size_t)(skew8(W - 1) + 1 + W) * sizeof(int2);
+    const size_t smem =
+        kAcc ? (size_t)row_ring_offset(W) * sizeof(int2) +
+                   (size_t)kRowRing * 64 * ((KP + 1) / 2) * sizeof(unsigned)
+             : (size_t)(skew8(W - 1) + 1 + W) * sizeof(int2);
     if (smem > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
-          sgm_hpaths_kernel<T, KP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+          sgm_hpaths_kernel<T, KP, kAcc>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
       if (e != cudaSuccess) return (int)e;
     }
-    sgm_hpaths_kernel<T, KP><<<H, 64, smem, stream>>>(
+    sgm_hpaths_kernel<T, KP, kAcc><<<H, 64, smem, stream>>>(
         (const int*)l0, (const int*)l1, (const int*)r0, (const int*)r1, (T*)vol, H, W, D, minD,
         p1, p2);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
   const unsigned vblocks = (W + kVCols - 1) / kVCols;
-  if (what & kColPaths) {
+  if ((what & kColPaths) && kAcc) {  // after the row paths, on the same stream
+    sgm_vpaths_acc_kernel<NP><<<(W + kAccCols - 1) / kAccCols, kAccCols * 64, 0, stream>>>(
+        (const int*)l0, (const int*)l1, (const int*)r0, (const int*)r1, (int16_t*)vol, H, W, D,
+        minD, p1, p2);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  } else if (what & kColPaths) {
     sgm_vpaths_kernel<T, NP><<<dim3(vblocks, 2), kVCols * 32, 0, stream>>>(
         (const int*)l0, (const int*)l1, (const int*)r0, (const int*)r1, (T*)vol,
         (const int*)cin_tb, (const int*)cin_bt, H, W, D, minD, p1, p2);
@@ -542,36 +841,6 @@ int launch_paths(const void* l0, const void* l1, const void* r0, const void* r1,
                                     W, D, minD, p1, p2, what, s);
   return launch_paths_kp<T, 8, 4>(l0, l1, r0, r1, vol, cin_tb, cin_bt, cout_tb, cout_bt, H, W,
                                   D, minD, p1, p2, what, s);
-}
-
-// out[p, d] = sum of the four planes' v[., p, d] (stride Dp) for d < D.
-// Eight values per thread through 16-byte loads when Dp == D, else one.
-__global__ void sgm_sum4_vec_kernel(const int16_t* __restrict__ v, int16_t* __restrict__ out,
-                                    size_t n) {
-  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 8;
-  if (i >= n) return;
-  int4 q[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) q[k] = *reinterpret_cast<const int4*>(v + k * n + i);
-  int4 r;
-  int16_t* pr = reinterpret_cast<int16_t*>(&r);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    int s = 0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) s += reinterpret_cast<const int16_t*>(&q[k])[j];
-    pr[j] = (int16_t)s;
-  }
-  *reinterpret_cast<int4*>(out + i) = r;
-}
-
-__global__ void sgm_sum4_kernel(const int16_t* __restrict__ v, int16_t* __restrict__ out,
-                                size_t pixels, int D, int Dp) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= pixels * D) return;
-  const size_t n = pixels * Dp;
-  const size_t j = (i / D) * Dp + i % D;
-  out[i] = (int16_t)((int)v[j] + v[n + j] + v[2 * n + j] + v[3 * n + j]);
 }
 
 __device__ __forceinline__ int floor_div(int a, int b) {  // b > 0
@@ -731,23 +1000,12 @@ extern "C" int sgm_vcarry(const void* l0, const void* l1, const void* r0, const 
                                D, minD, p1, p2, kSettleSweeps, stream);
 }
 
-// K6. vol: int16 scratch [4, H, W, Dp]; out: int16 [H, W, D].
+// K6: the 4-path sum into out, int16 [H, W, D] (every cell written).
 extern "C" int sgm_aggregate(const void* l0, const void* l1, const void* r0, const void* r1,
-                             void* vol, void* out, int H, int W, int D, int minD, int p1,
-                             int p2, void* stream) {
-  const int e = launch_paths<int16_t>(l0, l1, r0, r1, vol, nullptr, nullptr, nullptr, nullptr,
-                                      H, W, D, minD, p1, p2, kRowPaths | kColPaths, stream);
-  if (e != 0) return e;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int Dp = padded_d(D);
-  const size_t pixels = (size_t)H * W;
-  if (Dp == D)
-    sgm_sum4_vec_kernel<<<(unsigned)((pixels * D / 8 + 255) / 256), 256, 0, s>>>(
-        (const int16_t*)vol, (int16_t*)out, pixels * D);
-  else
-    sgm_sum4_kernel<<<(unsigned)((pixels * D + 255) / 256), 256, 0, s>>>(
-        (const int16_t*)vol, (int16_t*)out, pixels, D, Dp);
-  return (int)cudaGetLastError();
+                             void* out, int H, int W, int D, int minD, int p1, int p2,
+                             void* stream) {
+  return launch_paths<int16_t>(l0, l1, r0, r1, out, nullptr, nullptr, nullptr, nullptr, H, W, D,
+                               minD, p1, p2, kRowPaths | kColPaths, stream);
 }
 
 // vol: uint8 [4, H, W, Dp] from sgm_paths, or sgm_sharded_rows + sgm_sharded_cols;

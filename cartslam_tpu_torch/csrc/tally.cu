@@ -6,9 +6,10 @@
 // per-channel sums and per-channel sums of squares, labels outside [0, L)
 // dropped.  K4 replaces vote_tally_pallas (ops/pallas/tally.py:102, body
 // :61): per-label counts [L, P] of the plane classes.  K7 replaces
-// label_tally_pallas (ops/pallas/tally.py:318): per-label column sums [L, C]
-// of an integer matrix [B, C] of any width; init_stats sends its rows
-// [1, d, d^2] here when it has more than 8 channels.
+// label_tally_pallas (ops/pallas/tally.py:318): per-label sums of C integer
+// columns of any width, here channel-major (data [C, N] -> table [C, L]);
+// init_stats sends its rows [1, d, d^2] here when it has more than 8
+// channels.
 //
 // On the TPU all three are one-hot matmuls over bf16 byte planes (K7 with a
 // Khatri-Rao decomposition of the label), exact while a table entry stays
@@ -23,11 +24,11 @@
 // so there the JAX CPU and TPU tables already differ in their low bits.  The
 // port's tables are the exact sums, rounded once.
 //
-// What bounds K2 and K4 on an H100: the bytes, and at these sizes the fixed
-// costs.  Each reads its inputs once (K2 at the flagship, 7 channels: 15 MB,
-// 0.0045 ms at 3.35 TB/s; K4: 2.3 MB, 0.0007 ms) and does a few integer
-// operations a byte, so a launch and a memset (about 1 us each) weigh as
-// much as the reading.  What kept them far above that was the
+// What bounds K2, K4 and K7 on an H100: the bytes, and at these sizes the
+// fixed costs.  Each reads its inputs once (K2 at the flagship, 7 channels:
+// 15 MB, 0.0045 ms at 3.35 TB/s; K4: 2.3 MB, 0.0007 ms; K7 at 19 columns:
+// 37.6 MB, 0.0113 ms) and does a few integer operations a byte, so a launch
+// and a memset (about 1 us each) weigh as much as the reading.  What kept them far above that was the
 // reduction: one device-memory atomic per pixel (K4), or a group leader
 // looping serially over its peers and then one int64 device atomic per
 // table row and label group (K2, about 660k a call).
@@ -54,22 +55,23 @@
 //   a segmented shuffle scan over runs of equal labels) and 64-bit shared
 //   atomics; PERF.md has the times.  K2's data domain is the TPU kernel's,
 //   [-32768, 32767], which keeps every 32-bit word of a slot exact (below).
-// * One block a tile, between a memset of the table and (K2 with a float32
-//   output) the rounding kernel.  A single cooperative launch that zeroed,
+// * K7 is K2's design on C columns of any int32 values: a slot keeps each
+//   column as two 32-bit words, the sum of the values' low 16 bits and the
+//   sum of their signed high 16 bits, both exact over a 2048-pixel tile
+//   (below 2^27 and 2^26 in magnitude), joined into an int64 at the flush.
+//   The lane finds its distinct labels and their slots once, then walks the
+//   columns, one 16-byte load of its quad a column, channel-major as K2
+//   reads its data.  A block keeps up to kLabelCols columns (32 KB of
+//   sums); a wider table runs one block a (tile, column group).
+// * One block a tile, between a memset of the table and (K2 and K7 with a
+//   float32 output) the rounding kernel.  A single cooperative launch that zeroed,
 //   tallied and rounded behind grid barriers lost to these separate
 //   operations on the H100 (PERF.md).
 //
-// K7 keeps the design it was ported with: lanes of equal label grouped by
-// __match_any_sync, the leader summing its group one column at a time
-// through a per-warp shared buffer and adding to device memory (a per-block
-// copy of its table, 3329 labels x 19 columns x 8 bytes = 506 KB, does not
-// fit in shared memory).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
-
-constexpr int kThreads = 256;
 
 // K2 / K4 tiles: kTileRows quad rows (one a warp) of 32 quads (one a
 // lane).  A slot's sums over a tile fit in 32 bits: at most 2048 pixels, so
@@ -82,6 +84,8 @@ constexpr int kSlots = 1 << kSlotBits;
 constexpr int kProbes = 8;
 // K4 keeps up to kMaxP classes a slot; a wider table adds to device memory.
 constexpr int kMaxP = 16;
+// K7's columns a block: their slot sums take 2 x 32 x 128 words, 32 KB.
+constexpr int kLabelCols = 32;
 
 // The tiling of n pixels: quad q holds pixels 4q..4q+3; quad rows are wq
 // quads wide; tiles are kTileRows quad rows x 32 quads, `cols` to a row of
@@ -286,27 +290,67 @@ __global__ void __launch_bounds__(kTileThreads)
   }
 }
 
-__global__ void label_tally_kernel(const int* __restrict__ labels,
-                                   const int* __restrict__ values, int B, int C, int L,
-                                   unsigned long long* __restrict__ acc) {
-  __shared__ int buf[kThreads];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int lab = i < B ? labels[i] : -1;
-  const bool keep = lab >= 0 && lab < L;
-  // Every lane takes part (no early exit): dropped lanes group under -1.
-  const unsigned peers = __match_any_sync(0xffffffffu, keep ? lab : -1);
-  const bool leader = keep && lane == __ffs(peers) - 1;
-  const int base = threadIdx.x - lane;
-  for (int c = 0; c < C; ++c) {
-    buf[threadIdx.x] = keep ? values[(size_t)i * C + c] : 0;
-    __syncwarp();
-    if (leader) {
-      long long s = 0;
-      for (unsigned m = peers; m; m &= m - 1) s += buf[base + __ffs(m) - 1];
-      atomicAdd(&acc[(size_t)lab * C + c], (unsigned long long)s);
+// K7: one (tile, group of kLabelCols columns) a block, into acc [C, L]
+// (zeroed before).
+__global__ void __launch_bounds__(kTileThreads, 2)
+    label_tally_kernel(const int* __restrict__ labels, const int* __restrict__ values, Tiles t,
+                       int C, int L, int vec, unsigned long long* __restrict__ acc) {
+  __shared__ int keys[kSlots];
+  __shared__ unsigned sums[2 * kLabelCols][kSlots];  // a column's low and high half sums
+  const int c0 = blockIdx.y * kLabelCols, nc = min(kLabelCols, C - c0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int lab[4];
+  const int q = quad_of(t, blockIdx.x, warp, lane);
+  load_quad(labels, q, t.n, vec, -1, lab);
+  for (int s = threadIdx.x; s < kSlots; s += kTileThreads) keys[s] = -1;
+  for (int e = threadIdx.x; e < 2 * nc * kSlots; e += kTileThreads)
+    sums[e >> kSlotBits][e & (kSlots - 1)] = 0;
+  __syncthreads();
+  // The lane's distinct labels (usually one): their pixels, label and slot.
+  unsigned todo = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) todo |= (unsigned)(lab[k] >= 0 && lab[k] < L) << k;
+  unsigned sel[4];
+  int glab[4], slot[4];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    sel[g] = 0, glab[g] = 0, slot[g] = -1;
+    if (todo) {
+      sel[g] = take_label(lab, todo, glab[g]);
+      slot[g] = slot_of(keys, glab[g]);
     }
-    __syncwarp();
+  }
+  const int* col = values + (size_t)c0 * t.n;
+  for (int j = 0; j < nc; ++j, col += t.n) {
+    int v[4];
+    load_quad(col, q, t.n, vec, 0, v);
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      if (sel[g] == 0) continue;
+      unsigned lo = 0;
+      int hi = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (sel[g] >> k & 1) {
+          lo += (unsigned)v[k] & 0xffffu;
+          hi += v[k] >> 16;
+        }
+      }
+      if (slot[g] >= 0) {
+        if (lo) atomicAdd(&sums[2 * j][slot[g]], lo);
+        if (hi) atomicAdd(&sums[2 * j + 1][slot[g]], (unsigned)hi);
+      } else {
+        const long long sum = (long long)hi * 65536 + lo;
+        if (sum) atomicAdd(&acc[(size_t)(c0 + j) * L + glab[g]], (unsigned long long)sum);
+      }
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < nc * kSlots; e += kTileThreads) {
+    const int s = e & (kSlots - 1), j = e >> kSlotBits;
+    if (keys[s] == -1) continue;
+    const long long v = (long long)(int)sums[2 * j + 1][s] * 65536 + sums[2 * j][s];
+    if (v != 0) atomicAdd(&acc[(size_t)(c0 + j) * L + keys[s]], (unsigned long long)v);
   }
 }
 
@@ -368,21 +412,24 @@ extern "C" int vote_tally(const void* labels, const void* votes, int N, int L, i
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
-// K7. labels int32 [B], values int32 [B, C], acc int64 scratch [L, C],
-// out float32 [L, C], or null to leave the exact int64 sums in acc.
-extern "C" int label_tally(const void* labels, const void* values, int B, int C, int L,
-                           void* acc, void* out, void* stream) {
+// K7.  labels int32 [N], values int32 [C, N] in tiles as K2's, acc int64
+// scratch [C, L], out float32 [C, L], or null to leave the exact int64 sums
+// in acc.
+extern "C" int label_tally(const void* labels, const void* values, int N, int C, int L, int wq,
+                           int cols, int count, void* acc, void* out, void* stream) {
+  if (wq < 1 || C < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int n = L * C;
-  cudaError_t e = cudaMemsetAsync(acc, 0, (size_t)n * sizeof(unsigned long long), s);
-  if (e != cudaSuccess) return (int)e;
-  if (B > 0 && C > 0)
-    label_tally_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-        (const int*)labels, (const int*)values, B, C, L, (unsigned long long*)acc);
-  if (n > 0 && out != nullptr)
-    to_float_kernel<<<(n + 255) / 256, 256, 0, s>>>((const unsigned long long*)acc,
-                                                    (float*)out, n);
-  return (int)cudaGetLastError();
+  const int table = C * L;
+  cudaError_t e = cudaMemsetAsync(acc, 0, (size_t)table * sizeof(unsigned long long), s);
+  if (e == cudaSuccess && count > 0 && C > 0)
+    label_tally_kernel<<<dim3(count, (C + kLabelCols - 1) / kLabelCols), kTileThreads, 0, s>>>(
+        (const int*)labels, (const int*)values, Tiles{N, (N + 3) / 4, wq, cols}, C, L,
+        (uintptr_t)labels % 16 == 0 && (uintptr_t)values % 16 == 0 && N % 4 == 0,
+        (unsigned long long*)acc);
+  if (e == cudaSuccess && out != nullptr && table > 0)
+    to_float_kernel<<<(table + 255) / 256, 256, 0, s>>>((const unsigned long long*)acc,
+                                                        (float*)out, table);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 // The rounding step of K2 and K7 on its own: out[i] = float32(acc[i]), n

@@ -46,12 +46,12 @@ _F = ctypes.c_float
 SIGNATURES = {
     "sgm_paths": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "sgm_wta": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "sgm_aggregate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "sgm_aggregate": [_P] * 5 + [_I] * 6 + [_P],
     "sgm_sharded_rows": [_P] * 5 + [_I] * 6 + [_P],
     "sgm_sharded_cols": [_P] * 7 + [_I] * 6 + [_P],
     "sgm_vcarry": [_P] * 8 + [_I] * 6 + [_P],
     "moment_tally": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    "label_tally": [_P, _P, _I, _I, _I, _P, _P, _P],
+    "label_tally": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "tally_to_float": [_P, _P, _I, _P],
     "vote_tally": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "relax_label_rows": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],

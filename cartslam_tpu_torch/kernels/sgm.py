@@ -36,7 +36,7 @@ def padded_disparities(num_disparities: int) -> int:
 
 
 def _path_volume(h: int, w: int, num_disparities: int, dtype, device) -> torch.Tensor:
-    """Scratch for the four path volumes [4, h, w, Dp]."""
+    """Scratch for K1's and K5's four path volumes [4, h, w, Dp]."""
     return torch.empty((4, h, w, padded_disparities(num_disparities)), dtype=dtype,
                        device=device)
 
@@ -232,8 +232,9 @@ def sgm_aggregate(cl0, cl1, cr0, cr1, *, min_disparity: int, num_disparities: in
                   p1: int, p2: int) -> torch.Tensor:
     """Census words (int32 [H, W] x2 per view) -> the 4-path aggregated cost
     int16 [H, W, D], d ascending: the counterpart of sgm_aggregate_pallas.
-    Takes the JAX op's parameter range (p2 <= 8000): the kernel stores path
-    values as int16."""
+    Takes the JAX op's parameter range (p2 <= 8000): the kernel's path
+    kernels add their int16 values into the output, which is all the memory
+    the call takes (no path volume)."""
     stereo.check_sgm_params(p1, p2)
     kw = dict(min_disparity=min_disparity, num_disparities=num_disparities, p1=p1, p2=p2)
     if cl0.device.type == "cpu":
@@ -241,12 +242,9 @@ def sgm_aggregate(cl0, cl1, cr0, cr1, *, min_disparity: int, num_disparities: in
         return sgm_aggregate_plain(cl0, cl1, cr0, cr1, **kw)
     _check_range(num_disparities, min_disparity)
     h, w = _check_census(cl0, cl1, cr0, cr1)
-    lib = build.library()
-    vol = _path_volume(h, w, num_disparities, torch.int16, cl0.device)
     out = torch.empty((h, w, num_disparities), dtype=torch.int16, device=cl0.device)
-    build.check(lib.sgm_aggregate(cl0.data_ptr(), cl1.data_ptr(), cr0.data_ptr(),
-                                  cr1.data_ptr(), vol.data_ptr(), out.data_ptr(), h, w,
-                                  num_disparities, min_disparity, p1, p2, build.stream()),
-                "sgm_aggregate")
+    build.check(build.library().sgm_aggregate(
+        cl0.data_ptr(), cl1.data_ptr(), cr0.data_ptr(), cr1.data_ptr(), out.data_ptr(), h, w,
+        num_disparities, min_disparity, p1, p2, build.stream()), "sgm_aggregate")
     AGGREGATE_COUNTER.launches += 1
     return out

@@ -9,12 +9,14 @@ plain version.  Both versions compute exact integer sums: K2's and K7's
 table entries are int64 sums rounded to float32 once (the JAX CPU path adds
 in float32, exact only below 2^24 per entry).
 
-K2 and K4 take their labels in the image's layout, [..., W] (an image's
+K2, K4 and K7 take their labels in the image's layout, [..., W] (an image's
 [H, W], or a flat [N]), and their data in the same layout behind the
-channel axis.  The layout only places the kernels' tiles (``tiling``): a
-block keeps the labels of a 16-row x 128-pixel tile in shared memory, and
-superpixel labels are coherent in 2-D, not along a flat index.  The plain
-versions take the flat arrays.
+channel axis; K7, like K2, returns its table channel-major, [C, L].  The
+layout only places the kernels' tiles (``tiling``): a block keeps the labels
+of a 16-row x 128-pixel tile in shared memory, and superpixel labels are
+coherent in 2-D, not along a flat index.  The plain
+versions take the flat arrays (K7's: labels [B] and values [B, C], the JAX
+function's form).
 
 ``reduce`` (K2 and K7): a function applied to the exact int64 table before
 it is rounded to float32.  The height-sharded mode passes its psum there, so
@@ -40,7 +42,7 @@ MAX_CHANNELS = 8
 # K2's data domain on the card (moment_tally_pallas's): the kernel's 32-bit
 # per-tile slot sums are exact for values in [-32768, 32767].
 DATA_MIN, DATA_MAX = -32768, 32767
-# K2's and K4's tiles (csrc/tally.cu): TILE_ROWS rows of TILE_QUADS quads of
+# K2's, K4's and K7's tiles (csrc/tally.cu): TILE_ROWS rows of TILE_QUADS quads of
 # 4 pixels.
 TILE_ROWS, TILE_QUADS = 16, 32
 
@@ -164,25 +166,36 @@ def label_tally_plain(labels: torch.Tensor, values: torch.Tensor, num_labels: in
                       reduce=None) -> torch.Tensor:
     """labels int32 [B], values int32 [B, C] -> float32 [L, C] per-label
     column sums; labels outside [0, L) drop."""
+    return _rounded(_label_sums(labels, values, num_labels), reduce)
+
+
+def _label_sums(labels: torch.Tensor, values: torch.Tensor, num_labels: int) -> torch.Tensor:
+    """The exact int64 [L, C] sums of label_tally_plain."""
     keep = (labels >= 0) & (labels < num_labels)
     acc = torch.zeros((num_labels, values.shape[1]), dtype=torch.int64, device=labels.device)
-    acc.index_add_(0, labels[keep].to(torch.int64), values[keep].to(torch.int64))
-    return _rounded(acc, reduce)
+    return acc.index_add_(0, labels[keep].to(torch.int64), values[keep].to(torch.int64))
 
 
 def label_tally(labels: torch.Tensor, values: torch.Tensor, num_labels: int,
                 reduce=None) -> torch.Tensor:
+    """Per-label sums of C columns, channel-major: float32 [C, L] from labels
+    int32 [..., W] and values int32 [C, ..., W] of the same layout (any
+    int32 values), the transpose of label_tally_plain's table; `reduce`
+    takes the int64 table [C, L].  The layout places the tiles, as K2's."""
+    c = values.shape[0]
     if labels.device.type == "cpu":
         LABEL_COUNTER.plain_calls += 1
-        return label_tally_plain(labels, values, num_labels, reduce)
-    b, c = values.shape
-    build.expect(labels, "labels", torch.int32, (b,))
-    build.expect(values, "values", torch.int32, (b, c), labels.device)
+        sums = _label_sums(labels.reshape(-1), values.reshape(c, -1).T, num_labels)
+        return _rounded(sums.T.contiguous(), reduce)
+    build.expect(labels, "labels", torch.int32)
+    build.expect(values, "values", torch.int32, (c, *labels.shape), labels.device)
+    tiles = tiling(labels.shape)
     lib = build.library()
-    acc = torch.empty((num_labels, c), dtype=torch.int64, device=labels.device)
+    acc = torch.empty((c, num_labels), dtype=torch.int64, device=labels.device)
     out = None if reduce is not None else torch.empty(
-        (num_labels, c), dtype=torch.float32, device=labels.device)
-    build.check(lib.label_tally(labels.data_ptr(), values.data_ptr(), b, c, num_labels,
+        (c, num_labels), dtype=torch.float32, device=labels.device)
+    build.check(lib.label_tally(labels.data_ptr(), values.data_ptr(), labels.numel(), c,
+                                num_labels, tiles.quads_per_row, tiles.cols, tiles.count,
                                 acc.data_ptr(), build.ptr(out), build.stream()),
                 "label_tally")
     LABEL_COUNTER.launches += 1

@@ -22,7 +22,6 @@ import torch
 
 from ..kernels import relax as krelax
 from ..kernels import tally as ktally
-from .tally import label_tally
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,16 +47,16 @@ def init_stats(labels: torch.Tensor, data: torch.Tensor, num_labels: int,
     integer-valued channel planes data [C, H, W] (float, or already int32:
     then used as they are); negative labels drop.  Each entry is the exact
     integer sum, rounded to float32 once: kernel K2 for up to 8 channels, on
-    the image's layout, else the column sums of the rows [1, d, d^2]
-    (kernel K7), as the JAX package routes them.  psum (spatial mode) sums
-    the shards' exact int64 tables before that one rounding."""
+    the image's layout, else the per-label sums of the rows [1, d, d^2]
+    [1 + 2C, H, W] on the same layout (kernel K7), as the JAX package routes
+    them.  psum (spatial mode) sums the shards' exact int64 tables before
+    that one rounding."""
     c = data.shape[0]
     d = data.to(torch.int32)
     if c <= ktally.MAX_CHANNELS:
         return ktally.moment_tally(labels.contiguous(), d.contiguous(), num_labels, psum)
-    d = d.reshape(c, -1)
-    rows = torch.cat([torch.ones_like(d[:1]), d, d * d]).T
-    return label_tally(labels.reshape(-1).contiguous(), rows, num_labels, psum).T.contiguous()
+    rows = torch.cat([torch.ones_like(d[:1]), d, d * d])
+    return ktally.label_tally(labels.contiguous(), rows, num_labels, psum)
 
 
 def relax(labels: torch.Tensor, feature_data: Sequence[torch.Tensor],

@@ -18,10 +18,13 @@ def label_tally(labels: torch.Tensor, values: torch.Tensor, num_labels: int,
     """Per-label sums out[l, c] = sum of values[b, c] over labels[b] == l:
     float32 [L, C] from labels int [B] and integer values [B, C] (kernel
     K7).  Each entry is the exact integer sum, rounded to float32 once;
-    labels outside [0, L) drop.  reduce: applied to the int64 sums before
-    the rounding (the spatial mode's psum)."""
-    return ktally.label_tally(labels.reshape(-1).to(torch.int32).contiguous(),
-                              values.to(torch.int32).contiguous(), num_labels, reduce)
+    labels outside [0, L) drop.  reduce: applied to the int64 sums (the
+    kernel's channel-major [C, L] table) before the rounding (the spatial
+    mode's psum).  The kernel reads the values channel-major: the transposes
+    to and from it are this function's."""
+    table = ktally.label_tally(labels.reshape(-1).to(torch.int32).contiguous(),
+                               values.to(torch.int32).T.contiguous(), num_labels, reduce)
+    return table.T.contiguous()
 
 
 def table_gather(table: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -5,10 +5,10 @@ Phases (each raises on failure; none is caught):
   1. device   - require CUDA; print the card's name and power limit.
   2. build    - compile the CUDA kernels from csrc/ with nvcc (sm_90a); print
                 ptxas's registers, shared memory and spill bytes of the SGM
-                path and WTA kernels, the relax kernels and the K2 / K4
-                tally kernels, and fail if the flagship's instantiation of
-                the fused relax kernel, or a tally kernel a path runs,
-                spills.
+                path and WTA kernels (K6's accumulate forms among them), the
+                relax kernels and the K2 / K4 / K7 tally kernels, and fail if
+                the flagship's instantiation of the fused relax kernel, or a
+                tally kernel a path runs, spills.
   3. kernels  - each kernel against its plain PyTorch version on the card, at
                 the flagship's shapes (376x1248, 256 disparities, 3329
                 labels), with its time, the plain version's, the time of one
@@ -30,6 +30,17 @@ Phases (each raises on failure; none is caught):
                 launch, a fresh K2 table each) and a shard with row0 < 0
                 against the plain versions, 0 differing labels; a
                 'phase'-mode launch timed.
+                K6 array_equal to its plain version at the flagship's shape
+                (p2 120 and p2 8000) and on odd and even crops (an odd W's
+                middle cell, an odd H's middle row, D = 15, 33, 100, 50 with
+                masked scalar stores), synthetic and random census; its time
+                and the peak device memory of a call.
+                K7 array_equal to its plain version at 19 and 50 columns on
+                the image and flat layouts of two label images, +-2^30 in
+                every column, random labels that overflow the slot map, an
+                unaligned ragged flat N and the psum of two halves; its
+                device time (graph replay, as K2's) beside index_add_
+                int64's device time.
                 K2 and K4 array_equal to their plain versions on the
                 flagship's labels and on hard layouts
                 (random labels over [-2, L+2), one label, every label
@@ -455,28 +466,52 @@ def kernel_phase(dev, tag):
         n = int((agg_k != agg_p).sum())
         raise AssertionError(f"K6 sgm_aggregate: {n} of {agg_p.numel()} cells differ")
     err = (agg_k.int() - agg_p.int()).abs().max()
-    del agg_p
+    del agg_p, agg_k
+    torch.cuda.empty_cache()
     ms = cuda_ms(lambda: ksgm.sgm_aggregate(*cl, *cr, **akw), 10)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    agg_k = ksgm.sgm_aggregate(*cl, *cr, **akw)
+    torch.cuda.synchronize()
+    peak_mb = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+    del agg_k
     pms = cuda_ms(lambda: ksgm.sgm_aggregate_plain(*cl, *cr, **akw), 1)
     record("sgm_aggregate", err, ms, pms, None, 4 * H * W * 4 + H * W * D * 2,
            H * W * D * SGM_AGGREGATE_OPS_PER_CELL)
     log(f"K6 sgm_aggregate: array_equal int16 [{H},{W},{D}] (p1 10, p2 120, min 4); "
-        f"kernel {ms:.3f} ms, plain {pms:.3f} ms  [{tag}]")
-    del agg_k
-    # The JAX op's whole p2 range (int16 path storage; K1 stops at 193), on
-    # the first 64 rows.
-    crop = [x[:64].contiguous() for x in (*cl, *cr)]
+        f"kernel {ms:.4f} ms, plain {pms:.3f} ms; peak device memory of a call "
+        f"{peak_mb:.1f} MiB (the output: {H * W * D * 2 / 2**20:.1f})  [{tag}]")
+    torch.cuda.empty_cache()
+    # The JAX op's whole p2 range (int16 sums; K1 stops at 193), at full size.
     big = dict(akw, p2=8000)
-    hk, hp = ksgm.sgm_aggregate(*crop, **big), ksgm.sgm_aggregate_plain(*crop, **big)
+    hk = ksgm.sgm_aggregate(*cl, *cr, **big)
+    hp = ksgm.sgm_aggregate_plain(*cl, *cr, **big)
     if not torch.equal(hk, hp) or int(hp.max()) <= 255:
         raise AssertionError("K6 sgm_aggregate at p2=8000 differs from its plain version")
-    log(f"K6 sgm_aggregate at p2=8000: array_equal on [64,{W},{D}], max {int(hp.max())}")
-    # H*W*D odd: the summing kernel's one-value-per-thread form.
-    odd = [x[:37, :61].contiguous() for x in (*cl, *cr)]
-    okw = dict(min_disparity=3, num_disparities=15, p1=7, p2=86)
-    if not torch.equal(ksgm.sgm_aggregate(*odd, **okw), ksgm.sgm_aggregate_plain(*odd, **okw)):
-        raise AssertionError("K6 sgm_aggregate at [37,61] D=15 differs from its plain version")
-    log("K6 sgm_aggregate at [37,61] D=15 (odd volume): array_equal")
+    log(f"K6 sgm_aggregate at p2=8000: array_equal on [{H},{W},{D}], max {int(hp.max())}")
+    del hk, hp
+    torch.cuda.empty_cache()
+    # Odd and even H and W (the midpoints of both passes: an odd W's middle
+    # cell, an odd H's middle row), D not a multiple of a lane's run (masked
+    # scalar stores) and each run length, on the synthetic and on uniform
+    # random census words.
+    k6_cases = [((37, 61), dict(min_disparity=3, num_disparities=15, p1=7, p2=86)),
+                ((38, 60), dict(min_disparity=0, num_disparities=33, p1=10, p2=8000)),
+                ((23, 64), dict(min_disparity=2, num_disparities=64, p1=10, p2=120)),
+                ((40, 101), dict(min_disparity=1, num_disparities=100, p1=10, p2=120)),
+                ((16, 44), dict(min_disparity=2, num_disparities=8, p1=7, p2=86)),
+                ((1, 61), dict(min_disparity=0, num_disparities=50, p1=10, p2=120)),
+                ((9, 1), dict(min_disparity=0, num_disparities=16, p1=10, p2=120))]
+    for (h, w), ckw in k6_cases:
+        for name, words in (("synthetic", (*cl, *cr)), ("random", rand)):
+            part = [x[:h, :w].contiguous() for x in words]
+            if not torch.equal(ksgm.sgm_aggregate(*part, **ckw),
+                               ksgm.sgm_aggregate_plain(*part, **ckw)):
+                raise AssertionError(f"K6 sgm_aggregate on {name} [{h},{w}], {ckw} differs "
+                                     "from its plain version")
+    log("K6 sgm_aggregate array_equal on synthetic and random census at "
+        + "; ".join(f"[{h},{w}] D={c['num_disparities']} p2 {c['p2']}" for (h, w), c in k6_cases))
     census_ms = cuda_ms(lambda: (stereo.census_transform(gl), stereo.census_transform(gr)), 10)
     log(f"SGM stages at [{H},{W}] D={D}: census x2 {census_ms:.3f} ms, "
         f"K6 aggregate {results['sgm_aggregate']['ms']:.3f} ms, "
@@ -595,33 +630,10 @@ def kernel_phase(dev, tag):
     relax_phase_checks(dev, tag, t)
     tally_phase(dev, tag, t, results)
 
-    # K7: the rows [1, d, d^2] of a 9-channel init_stats (the 7 flagship
-    # channels, gray and disparity), then 50 random int16-range columns.
+    # The 9 channels of an init_stats that routes to K7: the 7 flagship
+    # channels, gray and disparity.
     data9 = torch.cat([data, gl[None].float(), (disp.float() / 16).round()[None]])
-    d9 = data9.reshape(9, -1).to(torch.int32)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    inputs = {19: torch.cat([torch.ones_like(d9[:1]), d9, d9 * d9]).T.contiguous(),
-              50: torch.randint(-32768, 32768, (n, 50), generator=gen, device=dev,
-                                dtype=torch.int32)}
-    for width in LABEL_TALLY_WIDTHS:
-        vals = inputs[width]
-        lk7 = ktally.label_tally(flat, vals, num_labels)
-        lp7 = ktally.label_tally_plain(flat, vals, num_labels)
-        if not torch.equal(lk7, lp7):
-            raise AssertionError(f"K7 label_tally C={width}: {int((lk7 != lp7).sum())} differ")
-        ms = cuda_ms(lambda: ktally.label_tally(flat, vals, num_labels), 50)
-        pms = cuda_ms(lambda: ktally.label_tally_plain(flat, vals, num_labels), 10)
-        vals64 = vals.long()
-        acc = torch.zeros((num_labels, width), dtype=torch.int64, device=dev)
-        idx64 = flat.long()
-        lms = cuda_ms(lambda: acc.index_add_(0, idx64, vals64), 50)
-        bms, by = bound(4 * n + 4 * n * width + 4 * num_labels * width, n * width)
-        log(f"K7 label_tally C={width}: array_equal [{num_labels},{width}] from B={n}; kernel "
-            f"{ms:.3f} ms, plain {pms:.3f} ms, index_add_ int64 {lms:.3f} ms, bound "
-            f"{bms:.4f} ms ({by})  [{tag}]")
-        if width == LABEL_TALLY_WIDTHS[0]:
-            record("label_tally", (lk7 - lp7).abs().max(), ms, pms, lms,
-                   4 * n + 4 * n * width + 4 * num_labels * width, n * width)
+    label_tally_phase(dev, tag, t, data9, results)
     paths = dict(census=(cl, cr), labels=labels, data9=data9, num_labels=num_labels,
                  k1_disparity=out_k, votes=votes, feats=feats)
     return results, paths
@@ -900,6 +912,95 @@ def tally_phase(dev, tag, t, results) -> None:
             f"(graph replay of 100 wrapper calls), wrapper {ms:.4f} ms, plain {pms:.4f} ms, "
             f"{library_name} {lms:.4f} ms, bound {bms:.4f} ms ({by}), {bms / dms:.0%} of it  "
             f"[{tag}]")
+
+
+def label_tally_phase(dev, tag, t, data9, results) -> None:
+    """K7 against its plain version, array_equal, at 19 and 50 columns:
+      * the rows [1, d, d^2] [19, H, W] of a 9-channel init_stats (data9),
+        and 50 random columns over
+        the whole int32 range, on the block grid and on the labels after 24
+        sweeps, each in the image layout [H, W] and flat [N];
+      * +2^30 and -2^30 in every column (alternating by pixel), the
+        invalid derivative's square and its negative;
+      * random labels over [-2, L + 2) (a tile holds more labels than
+        slots: the device-memory route);
+      * a flat N that is not a multiple of the tile nor of 4 from pixel 1
+        (unaligned: masked scalar loads);
+      * the psum path: the two halves' int64 tables summed, then rounded.
+    Then times K7 at 19 columns on the block grid's image layout (init_stats's
+    route) as K2 is timed: device ms a call (graph replay of 100 wrapper
+    calls), the wrapper's ms, the plain version's and index_add_ int64's
+    (device ms, the same way), and records it."""
+    from cartslam_tpu_torch.kernels import tally as ktally
+
+    num, n = t["num_labels"], H * W
+    labels, labels24 = t["labels"], t["labels24"]
+    d9 = data9.to(torch.int32)
+    rows = torch.cat([torch.ones_like(d9[:1]), d9, d9 * d9]).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    wide = torch.randint(-2**31, 2**31, (50, H, W), generator=gen, device=dev,
+                         dtype=torch.int64).to(torch.int32)
+    sign = 1 - 2 * (torch.arange(n, device=dev) % 2).to(torch.int32).reshape(H, W)
+    big = {c: (sign * 2**30).expand(c, H, W).contiguous() for c in LABEL_TALLY_WIDTHS}
+    rand_labels = torch.randint(-2, num + 2, (H, W), generator=gen, device=dev,
+                                dtype=torch.int32)
+    values = {19: rows, 50: wide}
+    ragged = slice(1, 1 + H // SHARDS * W + 37)
+
+    def plain(lab, v):
+        c = v.shape[0]
+        return ktally.label_tally_plain(lab.reshape(-1), v.reshape(c, -1).T, num).T
+
+    layouts = []
+    for c in LABEL_TALLY_WIDTHS:
+        for lname, lab in (("the block grid", labels), ("the labels after 24 sweeps", labels24)):
+            layouts += [(f"C={c}, {lname} [H, W]", lab, values[c]),
+                        (f"C={c}, {lname} flat", lab.reshape(-1), values[c].reshape(c, -1))]
+        layouts += [(f"C={c}, +-2^30", labels24, big[c]),
+                     (f"C={c}, random labels over [-2, L+2)", rand_labels, values[c]),
+                     (f"C={c}, a flat N = {ragged.stop - 1} from pixel 1",
+                      labels24.reshape(-1)[ragged], values[c].reshape(c, -1)[:, ragged])]
+    err = None
+    for name, lab, v in layouts:
+        lab, v = lab.contiguous(), v.contiguous()
+        got, want = ktally.label_tally(lab, v, num), plain(lab, v)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K7 label_tally on {name}: {int((got != want).sum())} of "
+                                 f"{want.numel()} entries differ from the plain version")
+        if lab is labels and v is rows:
+            err = float((got - want).abs().max())
+    half = H // 2
+    bottom = []
+    ktally.label_tally(labels24[half:].contiguous(), rows[:, half:].contiguous(), num,
+                       reduce=lambda acc: bottom.append(acc) or acc)
+    summed = ktally.label_tally(labels24[:half].contiguous(), rows[:, :half].contiguous(), num,
+                                reduce=lambda acc: acc + bottom[0])
+    if not torch.equal(summed, plain(labels24, rows)):
+        raise AssertionError("K7: the halves' int64 tables, summed and rounded, differ from the "
+                             "full frame's plain table")
+    log(f"K7 label_tally array_equal to its plain version on {len(layouts)} layouts ("
+        + "; ".join(name for name, _, _ in layouts) + ") and on the psum path")
+
+    width = LABEL_TALLY_WIDTHS[0]
+    flat_rows = rows.reshape(width, -1)
+    idx64, vals64 = labels.reshape(-1).long(), flat_rows.T.long().contiguous()
+    acc = torch.zeros((num, width), dtype=torch.int64, device=dev)
+    fn = lambda: ktally.label_tally(labels, rows, num)
+    dms, ms = graph_ms(fn), cuda_ms(fn, 50)
+    flat_dms = graph_ms(lambda: ktally.label_tally(labels.reshape(-1), flat_rows, num))
+    dms24 = graph_ms(lambda: ktally.label_tally(labels24, rows, num))
+    pms = cuda_ms(lambda: plain(labels, rows), 10)
+    lms = graph_ms(lambda: acc.index_add_(0, idx64, vals64))
+    wide_dms = graph_ms(lambda: ktally.label_tally(labels, wide, num))
+    nbytes, ops = 4 * n + 4 * n * width + 4 * num * width, n * width
+    bms, by = bound(nbytes, ops)
+    results["label_tally"] = dict(max_abs_err=err, ms=dms, plain_ms=pms, library_ms=lms,
+                                  bound_ms=bms, bound_by=by, wrapper_ms=ms)
+    log(f"K7 label_tally C={width} at [{H},{W}] (the block grid, image layout): device "
+        f"{dms:.4f} ms a call (graph replay of 100 wrapper calls), wrapper {ms:.4f} ms, plain "
+        f"{pms:.4f} ms, index_add_ int64 device {lms:.4f} ms, bound {bms:.4f} ms ({by}), "
+        f"{bms / dms:.0%} of it; device {flat_dms:.4f} ms flat, {dms24:.4f} ms on the labels "
+        f"after 24 sweeps; C=50 device {wide_dms:.4f} ms  [{tag}]")
 
 
 def all_shards_carries(settle, sp):
@@ -1636,21 +1737,23 @@ def spatial_profile(frames, intrinsics, dev, tag) -> None:
 
 def ptxas_report(build, info) -> None:
     """Registers, static shared memory and spill bytes (ptxas -v) of K1's
-    path and WTA kernels, K3's kernels and K2's and K4's tally kernels;
-    fails if the flagship's instantiation of the fused relax kernel, or a
-    tally kernel a path runs (K2 with 7 and 5 channels, K4), spills."""
+    and K6's path kernels, the WTA, K3's kernels and the K2, K4 and K7
+    tally kernels; fails if the flagship's instantiation of the fused relax
+    kernel, or a tally kernel a path runs (K2 with 7 and 5 channels, K4,
+    K7), spills."""
     import re
 
     kernels = build.kernel_resources(info.report.read_text())
     flagship_relax = []
     for k in kernels:
         name = k["name"]
-        if not re.search(r"sgm_[hv]paths|sgm_settle|sgm_wta|relax_|moment_tally|vote_tally",
-                         name):
+        if not re.search(r"sgm_[hv]paths|sgm_settle|sgm_wta|relax_|moment_tally|vote_tally|"
+                         r"label_tally", name):
             continue
         if re.search(r"relax_sweeps_kernel(<true>|<\(bool\)1>|ILb1E)", name):
             flagship_relax.append(k)
-        if re.search(r"moment_tally_kernel<\(int\)[57]>|vote_tally_kernel", name) and (
+        if re.search(r"moment_tally_kernel<\(int\)[57]>|vote_tally_kernel|label_tally_kernel",
+                     name) and (
                 k["spill_stores"] or k["spill_loads"]):
             raise AssertionError(f"ptxas: the tally kernel {name} spills: {k}")
         log(f"ptxas: {name}: {k['registers']} registers, {k['smem']} bytes static smem, "
