@@ -6,7 +6,9 @@ CUDA kernels (sm_90a) where the JAX package used Pallas kernels.  It imports
 no JAX and nothing of the JAX package.
 
 Layout (file names follow the JAX package, so counterparts are easy to find):
-    runtime/   module contracts, pipeline composer, run loop, state mapping
+    runtime/   module contracts, pipeline composer, the System loop and its
+               captured step (CUDA graphs), run loop, checkpoints, timing
+               CSVs, state mapping
     ops/       plain tensor ops (color, stereo, disparity, derivative, depth,
                superpixels, planeseg)
     models/    pipeline modules with the reference's data contracts
@@ -14,6 +16,8 @@ Layout (file names follow the JAX package, so counterparts are easy to find):
                and the kernel wrappers with their plain PyTorch versions
     csrc/      the CUDA C++ sources
     sources/   host-side data sources (synthetic, KITTI, preloaded)
-    utils/     host-side plane-parameter providers and peak finding
+    utils/     host-side plane-parameter providers, peak finding, colors,
+               image files, fetch watchdog
     config/    JSON config reader with the JAX package's schema and defaults
+    viz/       host visualization modules and image sinks
 """

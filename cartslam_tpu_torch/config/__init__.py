@@ -1,1 +1,7 @@
-from .registry import build_pipeline, create_data_source, read_config  # noqa: F401
+from .registry import (  # noqa: F401
+    build_pipeline,
+    build_system,
+    create_data_source,
+    read_config,
+    read_system_config,
+)

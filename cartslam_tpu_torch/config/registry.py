@@ -2,10 +2,14 @@
 
 Same schema ({"data_source": {...}, "modules": [...]}, or a source file and
 a modules file) and the same per-type defaults.  The flagship's device
-module types and the pixel plane segmentation (``disparity_planeseg``) are
-built; any other type raises.  A ``parallel`` block with
-``"mode": "spatial"`` builds the height-sharded SpatialPipeline over the
-same modules; the multi-sequence modes raise "not ported yet".
+module types, the pixel plane segmentation (``disparity_planeseg``) and
+the visualization types (host modules, viz/host_modules.py) are built; any
+other type raises.  ``build_system`` / ``read_system_config`` return the
+System (runtime/system.py), as the JAX functions do;
+``build_pipeline`` / ``read_config`` return the pipeline and its source
+alone.  A ``parallel`` block with ``"mode": "spatial"`` builds the
+height-sharded SpatialPipeline over the same modules; the multi-sequence
+modes raise "not ported yet".
 """
 
 from __future__ import annotations
@@ -17,9 +21,10 @@ import os
 import numpy as np
 
 from .. import models
-from ..runtime.module import Module, PipelineContext, checked_device
+from ..runtime.module import HostModule, Module, PipelineContext, checked_device
 from ..parallel.spatial_flagship import SpatialPipeline
 from ..runtime.pipeline import Pipeline
+from ..runtime.system import System
 from ..sources import DataSource, KITTIDataSource, SyntheticDataSource
 from ..utils.plane_params import (
     HistogramPeakPlaneParameterProvider,
@@ -71,7 +76,7 @@ class ConfigState:
         return self.superpixel_module.num_labels
 
 
-def build_module(cfg: dict, st: ConfigState) -> Module:
+def build_module(cfg: dict, st: ConfigState) -> Module | HostModule:
     mtype = cfg["type"]
     g = cfg.get
     if mtype == "disparity":
@@ -140,6 +145,27 @@ def build_module(cfg: dict, st: ConfigState) -> Module:
             max_warp_y=g("max_warp_y", 32),
             max_warp_x=g("max_warp_x", 64),
         )
+
+    # Visualization modules are host-side.
+    from ..viz import host_modules as vm
+
+    if mtype == "disparity_visualization":
+        return vm.DisparityVisualization()
+    if mtype == "disparity_derivative_visualization":
+        return vm.DerivativeVisualization()
+    if mtype == "depth_visualization":
+        return vm.DepthVisualization()
+    if mtype == "optflow_visualization":
+        return vm.OpticalFlowVisualization(points=g("points", 10))
+    if mtype == "superpixels_visualization":
+        return vm.SuperPixelVisualization()
+    if mtype == "disparity_planeseg_visualization":
+        return vm.PlaneSegmentationVisualization(
+            show_histogram=g("show_histogram", True),
+            show_unsmoothed=g("show_unsmoothed", True),
+        )
+    if mtype == "bev_planeseg_visualization":
+        return vm.BEVVisualization()
     raise ValueError(f"module type '{mtype}' is not ported yet")
 
 
@@ -182,12 +208,9 @@ def _build_spatial_pipeline(parallel: dict, ctx: PipelineContext, modules) -> Sp
     return SpatialPipeline(ctx, modules, n)
 
 
-def build_pipeline(source_cfg, modules_cfg: list[dict], *, device="cuda",
-                   grayscale: bool = False,
-                   parallel: dict | None = None) -> tuple[Pipeline | SpatialPipeline, DataSource]:
-    """(Pipeline on `device`, its data source) from config dicts.  The
-    device defaults to the card; without a GPU that raises.  `parallel`:
-    a config's parallel block (only ``"mode": "spatial"`` is ported)."""
+def _build(source_cfg, modules_cfg: list[dict], device, grayscale: bool,
+           parallel: dict | None):
+    """(pipeline, source, host modules) from config dicts."""
     device = checked_device(device)
     if parallel is not None:
         mode = parallel.get("mode", "multiseq")
@@ -200,7 +223,11 @@ def build_pipeline(source_cfg, modules_cfg: list[dict], *, device="cuda",
     source = create_data_source(source_cfg)
     h, w = source.get_image_size()
     st = ConfigState((h, w))
-    modules = [build_module(cfg, st) for cfg in modules_cfg]
+    modules: list[Module] = []
+    host_modules: list[HostModule] = []
+    for cfg in modules_cfg:
+        m = build_module(cfg, st)
+        (host_modules if isinstance(m, HostModule) else modules).append(m)
     _warn_warp_bound(modules, spatial=parallel is not None)
     ctx = PipelineContext(
         height=h,
@@ -210,15 +237,44 @@ def build_pipeline(source_cfg, modules_cfg: list[dict], *, device="cuda",
         grayscale=grayscale,
     )
     if parallel is not None:
-        return _build_spatial_pipeline(parallel, ctx, modules), source
-    return Pipeline(ctx, modules), source
+        return _build_spatial_pipeline(parallel, ctx, modules), source, host_modules
+    return Pipeline(ctx, modules), source, host_modules
 
 
-def read_config(*paths: str, device="cuda",
-                source: DataSource | None = None) -> tuple[Pipeline | SpatialPipeline, DataSource]:
-    """One combined config, or a (source config, modules config) pair.
-    source: a DataSource that replaces the config's data_source (e.g.
-    preloaded frames standing in for a dataset that is not on disk)."""
+def build_pipeline(source_cfg, modules_cfg: list[dict], *, device="cuda",
+                   grayscale: bool = False,
+                   parallel: dict | None = None) -> tuple[Pipeline | SpatialPipeline, DataSource]:
+    """(Pipeline on `device`, its data source) from config dicts.  The
+    device defaults to the card; without a GPU that raises.  `parallel`:
+    a config's parallel block (only ``"mode": "spatial"`` is ported).
+    Visualization types are host modules, which only a System drives:
+    here they are refused."""
+    pipeline, source, host_modules = _build(source_cfg, modules_cfg, device, grayscale,
+                                            parallel)
+    if host_modules:
+        raise ValueError(f"host modules {[m.name for m in host_modules]} need a System: "
+                         "use build_system")
+    return pipeline, source
+
+
+def build_system(source_cfg, modules_cfg: list[dict], *, grayscale: bool = False,
+                 timing=None, image_sink=None, max_frames: int | None = None,
+                 max_in_flight: int = 4, extra_fetch_keys=(), parallel: dict | None = None,
+                 device="cuda", **system_kwargs) -> System:
+    """The System (runtime/system.py) over the configured modules, with the
+    JAX build_system's arguments plus `device` (default the card).  The
+    spatial mode goes through the System too, with the eager step."""
+    pipeline, source, host_modules = _build(source_cfg, modules_cfg, device, grayscale,
+                                            parallel)
+    return System(source, pipeline, host_modules, timing=timing, image_sink=image_sink,
+                  max_frames=max_frames, max_in_flight=max_in_flight,
+                  extra_fetch_keys=extra_fetch_keys, **system_kwargs)
+
+
+def _read(paths) -> tuple[dict, list[dict], dict]:
+    """(source config, module configs, the combined config's "grayscale"
+    and "parallel" as keywords) of one combined config or a (source
+    config, modules config) pair."""
 
     def load(p):
         with open(os.path.expanduser(p)) as f:
@@ -228,11 +284,31 @@ def read_config(*paths: str, device="cuda",
         data = load(paths[0])
         if "data_source" not in data or "modules" not in data:
             raise ValueError("config must contain data_source and modules")
-        src = data["data_source"] if source is None else source
-        return build_pipeline(src, data["modules"], device=device,
-                              grayscale=bool(data.get("grayscale", False)),
-                              parallel=data.get("parallel"))
+        kw = {"grayscale": True} if data.get("grayscale") else {}
+        if "parallel" in data:
+            kw["parallel"] = data["parallel"]
+        return data["data_source"], data["modules"], kw
     if len(paths) == 2:
-        src = load(paths[0]) if source is None else source
-        return build_pipeline(src, load(paths[1]), device=device)
+        return load(paths[0]), load(paths[1]), {}
     raise ValueError("expected 1 or 2 config paths")
+
+
+def read_config(*paths: str, device="cuda",
+                source: DataSource | None = None) -> tuple[Pipeline | SpatialPipeline, DataSource]:
+    """One combined config, or a (source config, modules config) pair.
+    source: a DataSource that replaces the config's data_source (e.g.
+    preloaded frames standing in for a dataset that is not on disk)."""
+    src, mods, kw = _read(paths)
+    return build_pipeline(src if source is None else source, mods, device=device, **kw)
+
+
+def read_system_config(*paths: str, **kwargs) -> System:
+    """One combined config, or a (source config, modules config) pair, as
+    a System; keyword arguments as build_system's (a config's own
+    "grayscale": true wins, its "parallel" block is the default)."""
+    src, mods, kw = _read(paths)
+    if kw.get("grayscale"):
+        kwargs["grayscale"] = True
+    if "parallel" in kw:
+        kwargs.setdefault("parallel", kw["parallel"])
+    return build_system(src, mods, **kwargs)

@@ -24,10 +24,10 @@ class DepthModule(Module):
         return {KEY_DEPTH: TensorSpec((ctx.height, ctx.width, 3), torch.float32)}
 
     def compute(self, ctx, step, deps, state, params, variant):
-        return {KEY_DEPTH: dops.reproject_to_3d(deps[KEY_DISPARITY], ctx.q)}, {}
+        return {KEY_DEPTH: dops.reproject_to_3d(deps[KEY_DISPARITY], ctx.q_tensor)}, {}
 
     def compute_spatial(self, ctx, step, deps, state, params, variant, sp):
         # Pointwise in the disparity; only the reprojection's y needs the
         # shard's global row offset.
-        return {KEY_DEPTH: dops.reproject_to_3d(deps[KEY_DISPARITY], ctx.q,
+        return {KEY_DEPTH: dops.reproject_to_3d(deps[KEY_DISPARITY], ctx.q_tensor,
                                                 row_offset=sp.row0)}, {}

@@ -6,6 +6,10 @@ frame lives in module state; frame 1 emits zero flow.  Output: int16
 
 The height-sharded knobs (``spatial_mode``, ``spatial_halo``) are set from
 a config's ``parallel`` block (config/registry.py).
+
+Frame 1 is not a variant of its own: the flow runs against the zero
+initial frame and ``torch.where`` on the device frame id keeps zeros, as
+the JAX module's ``jnp.where`` does, so one captured step serves frame 1.
 """
 
 from __future__ import annotations
@@ -65,10 +69,8 @@ class ImageOpticalFlowModule(Module):
     def compute(self, ctx, step, deps, state, params, variant):
         left = step.frame["left"]
         gray = left if ctx.grayscale else color.bgr_to_gray(left)
-        if step.frame_id > 1:
-            out = fops.to_s10_5(self._flow(gray, state["prev_gray"]))
-        else:  # no previous frame yet
-            out = torch.zeros((ctx.height, ctx.width, 2), dtype=torch.int16, device=gray.device)
+        out = fops.to_s10_5(self._flow(gray, state["prev_gray"]))
+        out = torch.where(step.frame_id > 1, out, 0)  # no previous frame on frame 1
         return {KEY_OPTFLOW: out}, {"prev_gray": gray}
 
     def spatial_validate(self, ctx, n, h_local):
@@ -84,9 +86,9 @@ class ImageOpticalFlowModule(Module):
         full pair (bit-exact) or on a per-shard apron (spatial_mode)."""
         left = step.frame["left"]
         gray = left if ctx.grayscale else color.bgr_to_gray(left)
-        if step.frame_id <= 1:  # the same on every shard: no collective skipped
-            out = torch.zeros((sp.h_local, ctx.width, 2), dtype=torch.int16, device=gray.device)
-        elif self.spatial_mode == "global":
+        # Every shard runs the same collectives on every frame, frame 1
+        # included (its flow is masked to zeros below).
+        if self.spatial_mode == "global":
             full = self._flow(sp.all_gather_rows(gray), sp.all_gather_rows(state["prev_gray"]))
             out = fops.to_s10_5(sp.slice_rows(full))
         else:
@@ -94,4 +96,5 @@ class ImageOpticalFlowModule(Module):
             flow_ext = self._flow(sp.exchange(gray, fh, fh),
                                   sp.exchange(state["prev_gray"], fh, fh))
             out = fops.to_s10_5(flow_ext[fh : fh + sp.h_local])
+        out = torch.where(step.frame_id > 1, out, 0)
         return {KEY_OPTFLOW: out}, {"prev_gray": gray}

@@ -11,8 +11,9 @@ gathers from the flow history (``"faithful"``).
 Host step: every frame's histogram adds to a running total; at frame ids
 == 1 (mod update_interval) the provider re-derives the class ranges from
 it, and the total resets at frame ids == 1 (mod update_interval *
-reset_interval).  The run loop is synchronous, so the new ranges apply from
-the next frame.
+reset_interval).  The new ranges apply from the first frame dispatched
+after the host step ran: with the System's default 4 frames in flight,
+frame t's update applies from frame t + 4 (runtime/system.py).
 """
 
 from __future__ import annotations
@@ -107,7 +108,7 @@ class DisparityPlaneSegmentationModule(Module):
             vertical_center=(v[0] + v[1]) // 2,
         )
 
-    def host_update(self, ctx, frame_id, fetched):
+    def host_update(self, ctx, frame_id, fetched, system=None):
         self._running += fetched[KEY_FRAME_HIST].astype(np.int64)
         if frame_id % self.update_interval != 1:
             return None
@@ -118,9 +119,8 @@ class DisparityPlaneSegmentationModule(Module):
         return {"ranges": self.provider.get().ranges_array()}
 
     def compute(self, ctx, step, deps, state, params, variant):
-        ranges = torch.as_tensor(params["ranges"], dtype=torch.int32, device=ctx.device)
         deriv, hist = dops.planeseg_derivative(deps[KEY_DISPARITY])
-        planes = pops.classify(deriv, ranges)
+        planes = pops.classify(deriv, params["ranges"])
         outputs = {KEY_FRAME_HIST: hist}
         if not self.temporal:
             outputs[KEY_PLANES] = planes
@@ -131,9 +131,8 @@ class DisparityPlaneSegmentationModule(Module):
                 planes, step, deps[KEY_OPTFLOW], self.distance, KEY_OPTFLOW,
                 KEY_PLANES_UNSMOOTHED, current_weight=1, compare_unknown=False)
             return outputs, {}
-        prev = step.history(KEY_PLANES_UNSMOOTHED, -1)
-        if step.frame_id <= 1:
-            prev = torch.full_like(prev, pops.WARP_INVALID)
+        prev = torch.where(step.frame_id > 1, step.history(KEY_PLANES_UNSMOOTHED, -1),
+                           pops.WARP_INVALID)
         outputs[KEY_PLANES], warp_votes = pops.temporal_vote_warped(
             planes, prev, state["warp_votes"], deps[KEY_OPTFLOW],
             current_weight=1, compare_unknown=False, warp_mode=self.warp_mode,
@@ -162,7 +161,6 @@ class DisparityPlaneSegmentationModule(Module):
         on rows 0 and H-1.)  The histogram re-tallies the core rows' raw
         values and psums.  The temporal vote takes `max_warp_y`-row halos
         and the 'select' warp, as models/sp_planeseg.py does."""
-        ranges = torch.as_tensor(params["ranges"], dtype=torch.int32, device=ctx.device)
         halo, hl = 3, sp.h_local
         smoothed = dops.planeseg_smooth(sp.exchange(deps[KEY_DISPARITY], halo, halo))
         rows = torch.arange(sp.row0 - halo, sp.row0 + hl + halo, device=ctx.device)
@@ -171,15 +169,14 @@ class DisparityPlaneSegmentationModule(Module):
         raw, ok = raw[halo : halo + hl], ok[halo : halo + hl]
         hist = sp.psum(dops.hist256(raw, ok))
         planes = pops.classify(torch.where(ok, raw, dops.DERIVATIVE_INVALID).to(torch.int16),
-                               ranges)
+                               params["ranges"])
         outputs = {KEY_FRAME_HIST: hist}
         if not self.temporal:
             outputs[KEY_PLANES] = planes
             return outputs, {}
         ry = min(self.max_warp_y, sp.h_local)
-        prev = step.history(KEY_PLANES_UNSMOOTHED, -1)
-        if step.frame_id <= 1:
-            prev = torch.full_like(prev, pops.WARP_INVALID)
+        prev = torch.where(step.frame_id > 1, step.history(KEY_PLANES_UNSMOOTHED, -1),
+                           pops.WARP_INVALID)
         inv = pops.WARP_INVALID
         votes_ext = sp.exchange(state["warp_votes"].transpose(0, 1), ry, ry, fill=inv)
         smoothed_ext, warp_ext = pops.temporal_vote_warped(

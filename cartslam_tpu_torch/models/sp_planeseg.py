@@ -113,7 +113,7 @@ class SuperPixelDisparityPlaneSegmentationModule(Module):
             vertical_center=(v[0] + v[1]) // 2,
         )
 
-    def host_update(self, ctx, frame_id, fetched):
+    def host_update(self, ctx, frame_id, fetched, system=None):
         hist = fetched[KEY_DERIVATIVE_HISTOGRAM][:, 0].astype(np.int64)  # vertical
         if self._running is None:
             # The reference drops the first contribution.
@@ -130,8 +130,7 @@ class SuperPixelDisparityPlaneSegmentationModule(Module):
         return {"ranges": self.provider.get().ranges_array()}
 
     def compute(self, ctx, step, deps, state, params, variant):
-        ranges = torch.as_tensor(params["ranges"], dtype=torch.int32, device=ctx.device)
-        pixel_planes = pops.classify(deps[KEY_DERIVATIVE][..., 0], ranges)
+        pixel_planes = pops.classify(deps[KEY_DERIVATIVE][..., 0], params["ranges"])
         if not self.temporal:
             planes = pops.superpixel_vote(pixel_planes, deps[KEY_SUPERPIXELS], self.num_labels)
             return {KEY_PLANES: planes}, {}
@@ -141,9 +140,8 @@ class SuperPixelDisparityPlaneSegmentationModule(Module):
                 KEY_PLANES_UNSMOOTHED, current_weight=2, compare_unknown=True)
             planes = pops.superpixel_vote(voted, deps[KEY_SUPERPIXELS], self.num_labels)
             return {KEY_PLANES: planes, KEY_PLANES_UNSMOOTHED: pixel_planes}, {}
-        prev = step.history(KEY_PLANES_UNSMOOTHED, -1)
-        if step.frame_id <= 1:
-            prev = torch.full_like(prev, pops.WARP_INVALID)
+        prev = torch.where(step.frame_id > 1, step.history(KEY_PLANES_UNSMOOTHED, -1),
+                           pops.WARP_INVALID)
         voted, warp_votes = pops.temporal_vote_warped(
             pixel_planes, prev, state["warp_votes"], deps[KEY_OPTFLOW],
             current_weight=2, compare_unknown=True, warp_mode=self.warp_mode,
@@ -180,16 +178,14 @@ class SuperPixelDisparityPlaneSegmentationModule(Module):
         source row is present locally and the result is the full frame's
         (with warp_mode='select' there) for any shard count.  The per-label
         tally counts core rows once, psum'd."""
-        ranges = torch.as_tensor(params["ranges"], dtype=torch.int32, device=ctx.device)
-        pixel_planes = pops.classify(deps[KEY_DERIVATIVE][..., 0], ranges)
+        pixel_planes = pops.classify(deps[KEY_DERIVATIVE][..., 0], params["ranges"])
         if not self.temporal:
             planes = pops.superpixel_vote(pixel_planes, deps[KEY_SUPERPIXELS], self.num_labels,
                                           psum=sp.psum)
             return {KEY_PLANES: planes}, {}
         ry = min(self.max_warp_y, sp.h_local)
-        prev = step.history(KEY_PLANES_UNSMOOTHED, -1)
-        if step.frame_id <= 1:
-            prev = torch.full_like(prev, pops.WARP_INVALID)
+        prev = torch.where(step.frame_id > 1, step.history(KEY_PLANES_UNSMOOTHED, -1),
+                           pops.WARP_INVALID)
         inv = pops.WARP_INVALID
         votes_ext = sp.exchange(state["warp_votes"].transpose(0, 1), ry, ry, fill=inv)
         voted_ext, warp_ext = pops.temporal_vote_warped(

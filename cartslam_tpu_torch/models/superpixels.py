@@ -63,6 +63,7 @@ class SuperPixelModule(Module):
         # maxLabelId = nBlocksX * nBlocksY; stat tables hold maxLabelId + 1.
         self.max_label_id = bx * by
         self.num_labels = self.max_label_id + 1
+        self._max_label: tuple | None = None  # (device, int32 scalar on it)
 
     def provides(self):
         return [KEY_SUPERPIXELS, KEY_MAX_LABEL]
@@ -121,10 +122,11 @@ class SuperPixelModule(Module):
         return self.initial_iterations if variant in ("initial", "reset") else self.iterations
 
     def _outputs(self, ctx, labels):
-        return {
-            KEY_SUPERPIXELS: labels,
-            KEY_MAX_LABEL: torch.tensor(self.max_label_id, dtype=torch.int32, device=ctx.device),
-        }, {"labels": labels}
+        # The constant is made once (a fill on the device), not every step.
+        if self._max_label is None or self._max_label[0] != ctx.device:
+            self._max_label = (ctx.device, torch.full((), self.max_label_id,
+                                                      dtype=torch.int32, device=ctx.device))
+        return {KEY_SUPERPIXELS: labels, KEY_MAX_LABEL: self._max_label[1]}, {"labels": labels}
 
     def compute(self, ctx, step, deps, state, params, variant):
         feature_data, specs = self._features(ctx, step, deps)

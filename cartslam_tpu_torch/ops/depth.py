@@ -14,7 +14,9 @@ import torch
 
 def reproject_to_3d(disparity: torch.Tensor, q, row_offset: int = 0) -> torch.Tensor:
     """int16 x16 disparity [H,W] + Q [4,4] -> XYZ float32 [H,W,3].
-    row_offset: global row of the first row (height-sharded mode)."""
+    row_offset: global row of the first row (height-sharded mode).  A Q
+    already on the disparity's device as float32 (PipelineContext.q_tensor)
+    is used as it is: no host copy."""
     h, w = disparity.shape
     dev = disparity.device
     q = torch.as_tensor(q, dtype=torch.float32, device=dev)

@@ -27,10 +27,14 @@ def _clamped_shift(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
 
 
 def hist256(values: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """int32 [256] histogram of `values` in [-128, 127] where valid."""
-    v = values.to(torch.int64)
-    keep = valid & (v >= -128) & (v <= 127)
-    return torch.bincount((v + 128)[keep], minlength=256).to(torch.int32)
+    """int32 [256] histogram of `values` in [-128, 127] where valid.  One
+    ``torch.histc`` over [-128, 128] with every other value moved out of
+    range: bin v + 128 exactly, float32 counts exact below 2^24.  (A
+    bincount of the masked values would read their count back to the
+    host, which a captured step cannot do.)"""
+    keep = valid & (values >= -128) & (values <= 127)
+    v = torch.where(keep, values, -1024).to(torch.float32)
+    return torch.histc(v, bins=256, min=-128, max=128).to(torch.int32)
 
 
 def directional_derivatives(disparity: torch.Tensor):

@@ -71,7 +71,8 @@ def temporal_vote(current: torch.Tensor, prev_planes: torch.Tensor, flow_stack: 
 
     current: uint8 [H, W]; prev_planes: uint8 [K, H, W], the k-th previous
     frame's unsmoothed planes; flow_stack as warp_coords; num_prev: the
-    valid history entries (min(frame_id - 1, K)).  current_weight 1 with
+    valid history entries (min(frame_id - 1, K)), an int or a device
+    scalar.  current_weight 1 with
     compare_unknown False is the pixel module's rule (planeseg.cu:203-238),
     2 with True the superpixel module's (sp_planeseg.cu:82-116)."""
     h, w = current.shape
@@ -105,11 +106,13 @@ def temporal_dependencies(mode: str, distance: int, flow_key: str, planes_key: s
 def temporal_vote_from_history(current, step, flow, distance: int, flow_key: str,
                                planes_key: str, current_weight: int, compare_unknown: bool):
     """temporal_vote over the step's history rings: the flows now and at
-    -1..-(K-1), the planes at -1..-K, and num_prev = min(frame_id - 1, K)."""
+    -1..-(K-1), the planes at -1..-K, and num_prev = min(frame_id - 1, K),
+    clamped on the device."""
     flows = [flow] + [step.history(flow_key, -i) for i in range(1, distance)]
     prevs = [step.history(planes_key, -i) for i in range(1, distance + 1)]
     return temporal_vote(current, torch.stack(prevs), torch.stack(flows),
-                         min(step.frame_id - 1, distance), current_weight, compare_unknown)
+                         torch.clamp(step.frame_id - 1, max=distance), current_weight,
+                         compare_unknown)
 
 
 WARP_INVALID = 3  # 2-bit sentinel: "no vote" (out of the image or before frame 1)

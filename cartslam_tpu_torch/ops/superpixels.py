@@ -113,7 +113,10 @@ def relax(labels: torch.Tensor, feature_data: Sequence[torch.Tensor],
 
     prog = None
     if prog_value > 0.0:
-        gh = torch.tensor(float(global_h or h), dtype=torch.float32, device=dev)
+        # The height as a float32 scalar made on the device by a fill (no
+        # host copy): divided by a Python float, CUDA would multiply by the
+        # reciprocal and round otherwise than the CPU and the kernel.
+        gh = torch.full((), float(global_h or h), dtype=torch.float32, device=dev)
         prog = (1.0 + prog_value * (gh - rows) / gh).contiguous()
 
     top, bottom = halo_rows

@@ -6,7 +6,7 @@ runs on every shard through each module's ``compute_spatial``: ``ppermute``
 row halos stand in for the reference's tiled shared-memory aprons and
 ``psum`` for its global reductions (label statistics, vote tallies,
 histograms).  The stage math is the production ``Pipeline``'s: the shard
-step is ``Pipeline.step`` over the same modules with a SpatialContext.
+step is ``Pipeline.compute_step`` over the same modules with a SpatialContext.
 Seams, module by module:
 
   * SGM (models/disparity.py): bit-exact for any shard count; horizontal
@@ -54,8 +54,9 @@ def _infer_row_dim(shape, height: int) -> int | None:
 
 class SpatialPipeline:
     """Pipeline-compatible height-sharded composer over real modules: the
-    surface `runtime/loop.run` and `host_step` drive (ctx, modules,
-    init_state, init_host_params, host_fetch_keys, variant, step)."""
+    surface the System, `runtime/loop.run` and `host_step` drive (ctx,
+    modules, init_state, init_host_params, device_params, host_fetch_keys,
+    variant, step)."""
 
     def __init__(self, ctx: PipelineContext, modules, n: int):
         self.ctx = ctx
@@ -89,6 +90,9 @@ class SpatialPipeline:
 
     def init_host_params(self):
         return self.inner.init_host_params()
+
+    def device_params(self, host_params):
+        return self.inner.device_params(host_params)
 
     def variant(self, frame_id: int) -> tuple:
         return self.inner.variant(frame_id)
@@ -145,10 +149,12 @@ class SpatialPipeline:
         """One frame on n row shards: (new full-height state, full-height
         outputs).  Replicated keys (the histogram, superpixels_max_label)
         come from shard 0."""
+        frame, params = self.inner.prepare(frame, host_params)
 
         def shard(i: int):
-            return self.inner.step(self._shard_state(state, i), self._shard_frame(frame, i),
-                                   host_params, variant, spatial=self.sp)
+            return self.inner.compute_step(self._shard_state(state, i),
+                                           self._shard_frame(frame, i), params, variant,
+                                           spatial=self.sp)
 
         results = self.group.run(shard)
         rd = self._row_dims

@@ -1,12 +1,16 @@
 """Run loop: frames from a source through the pipeline, plus the host step.
 
-The per-frame host step follows cartslam_tpu/runtime/system.py
-(``_host_post_frame``): fetch each module's host keys, call its
-``host_update`` and merge the returned params (e.g. new plane ``ranges``)
-into ``host_params`` for the next frame.  The loop is synchronous: frame t+1
-sees the params that frame t's host step produced.  With the context's
-``grayscale`` switch, BGR frames are converted at the source boundary, as
-cartslam_tpu/runtime/system.py does.
+The synchronous form of the System loop (runtime/system.py), equal to
+``System(max_in_flight=1)``: the eager step, then the host step of
+cartslam_tpu/runtime/system.py (``_host_post_frame``): fetch each module's
+host keys, call its ``host_update`` and merge the returned params (e.g. new
+plane ``ranges``) into ``host_params``, so frame t+1 sees the params that
+frame t's host step produced.  At the System's default of 4 frames in
+flight they apply from frame t+4 instead, so the two differ there; the
+System is the loop to build on (it captures the step on the card), this
+loop is for tests and tools that want each frame's outputs as tensors.
+With the context's ``grayscale`` switch, BGR frames are converted at the
+source boundary, as cartslam_tpu/runtime/system.py does.
 """
 
 from __future__ import annotations

@@ -2,9 +2,14 @@
 
 A module is a function over named tensors on the pipeline's device:
 ``compute(ctx, step, deps, state, params, variant) -> (outputs, new_state)``.
-PyTorch runs eagerly, so ``compute`` executes directly instead of being
-traced into one program.  Cross-frame dependencies (``offset < 0``) are ring
-buffers in the explicit pipeline state.
+PyTorch runs eagerly, so ``compute`` executes directly; on the card the
+System captures a whole step into one CUDA graph per variant
+(runtime/graphs.py), the counterpart of tracing it into one program.  So
+``compute`` reads nothing back to the host and copies nothing to the
+device: the frame id is a device scalar and the host params are device
+tensors, and a branch on either is a ``torch.where``.  Cross-frame
+dependencies (``offset < 0``) are ring buffers in the explicit pipeline
+state.  A ``HostModule`` consumes fetched numpy outputs on the host.
 """
 
 from __future__ import annotations
@@ -55,6 +60,9 @@ class PipelineContext:
 
     def __post_init__(self):
         object.__setattr__(self, "device", checked_device(self.device))
+        # Q on the device, made once: a step copies nothing from the host.
+        object.__setattr__(self, "q_tensor", torch.as_tensor(
+            np.asarray(self.q, np.float32)).to(self.device))
 
 
 class StepContext:
@@ -65,9 +73,10 @@ class StepContext:
         self._history = history
 
     @property
-    def frame_id(self) -> int:
-        """1-based frame id (reference run ids are 1-based)."""
-        return int(self.frame["frame_id"])
+    def frame_id(self) -> torch.Tensor:
+        """1-based frame id, an int32 scalar on the device (reference run
+        ids are 1-based)."""
+        return self.frame["frame_id"]
 
     def history(self, key: str, offset: int) -> torch.Tensor:
         """Value of `key` from `offset` frames ago (offset <= -1)."""
@@ -144,14 +153,25 @@ class Module:
         return []
 
     def host_update(
-        self, ctx: PipelineContext, frame_id: int, fetched: Mapping[str, np.ndarray]
+        self, ctx: PipelineContext, frame_id: int, fetched: Mapping[str, np.ndarray],
+        system=None,
     ) -> dict[str, np.ndarray] | None:
-        """Host-side per-frame hook; may return updated host params."""
+        """Host-side per-frame hook; may return updated host params.
+        `system` (when provided) allows global-data insertion, as
+        System::insertGlobalData (include/cartslam.hpp:84)."""
         return None
 
     def variant(self, frame_id: int) -> Hashable:
-        """Per-frame variant (e.g. superpixel reset)."""
+        """Per-frame variant (e.g. superpixel reset): one captured graph
+        each."""
         return None
+
+    def host_state(self) -> dict:
+        """Checkpointable host-side state (running histograms etc.)."""
+        return {}
+
+    def restore_host_state(self, state: dict) -> None:
+        pass
 
     def compute(
         self,
@@ -189,3 +209,36 @@ class Module:
 
     def spatial_validate(self, ctx: PipelineContext, n: int, h_local: int) -> None:
         """Raise if this module cannot run at `h_local` rows per shard."""
+
+
+class HostModule:
+    """A host-side consumer (visualization, recording) of fetched outputs.
+
+    Mirrors the reference's VisualizationModule family
+    (include/modules/visualization.hpp): runs off the device path, consumes
+    numpy copies of selected keys, and produces BGR images for the viewer.
+    """
+
+    name: str = "hostmodule"
+
+    def requires(self) -> list[Dependency]:
+        return []
+
+    def provides_data(self) -> list[str]:
+        """Per-run data keys this module computes on the host: the keys
+        `process` returns are merged into the frame's fetched dict, so
+        retained runs (System.get_run_by_id) and later host modules see
+        them."""
+        return []
+
+    def process(self, ctx: PipelineContext, frame_id: int, frame: Mapping[str, np.ndarray],
+                fetched: Mapping[str, np.ndarray],
+                globals_: Mapping[str, Any]) -> dict[str, Any] | None:
+        """Compute per-run host data (keys listed by provides_data)."""
+        return None
+
+    def render(self, ctx: PipelineContext, frame_id: int, frame: Mapping[str, np.ndarray],
+               fetched: Mapping[str, np.ndarray],
+               globals_: Mapping[str, Any]) -> np.ndarray | None | dict[str, np.ndarray]:
+        """Return a BGR uint8 image (or a dict window name -> image)."""
+        return None

@@ -18,12 +18,23 @@ import numpy as np
 import torch
 
 
+def host_to_device(arr: Any, device) -> torch.Tensor:
+    """An array (numpy or array-like) as a tensor of its own on `device`.
+    To a card it goes through pinned memory with a non-blocking copy, which
+    does not wait for the stream (PyTorch's pinned-memory cache keeps the
+    staging block until the copy is done)."""
+    device = torch.device(device)
+    t = torch.from_numpy(np.array(arr, copy=True, order="C"))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def state_from_reference(tree: Any, device) -> Any:
     """Nested dict of arrays (numpy or array-likes) -> tensors on `device`."""
     if isinstance(tree, dict):
         return {k: state_from_reference(v, device) for k, v in tree.items()}
-    arr = np.ascontiguousarray(np.asarray(tree))
-    return torch.from_numpy(arr.copy()).to(device)
+    return host_to_device(tree, device)
 
 
 def state_to_numpy(tree: Any) -> Any:

@@ -90,6 +90,9 @@ class DecodePrefetcher:
     def take(self, key):
         return [f.result() for f in self._pending.pop(key)]
 
+    def clear(self) -> None:
+        self._pending.clear()
+
 
 def resize_bgr(img: np.ndarray, size_hw: tuple[int, int]) -> np.ndarray:
     """Bilinear resize (cv2 when available, else numpy)."""

@@ -128,3 +128,9 @@ class KITTIDataSource(DataSource):
         left = resize_bgr(left, self.image_size)
         right = resize_bgr(right, self.image_size)
         return {"left": left, "right": right}
+
+    def skip(self, n: int) -> None:
+        """Seek past the first n frames (checkpoint resume)."""
+        self.current_frame = n
+        if hasattr(self, "_decode"):
+            self._decode.clear()

@@ -69,5 +69,9 @@ class PreloadedSource(DataSource):
         self._i += 1
         return frame
 
+    def skip(self, n: int) -> None:
+        """Seek past the first n frames (checkpoint resume)."""
+        self._i = min(int(n), self.total)
+
 
 __all__ = ["PreloadedSource"]

@@ -109,3 +109,7 @@ class SyntheticDataSource(DataSource):
         left, right, _ = self._render(self._frame)
         self._frame += 1
         return {"left": left, "right": right}
+
+    def skip(self, n: int) -> None:
+        """Seek past the first n frames (checkpoint resume)."""
+        self._frame = n

@@ -94,6 +94,19 @@ Phases (each raises on failure; none is caught):
                     x(launches(24) + 9 launches(8)) x 8, K4 x80, K1 0, no
                     plain call), and the same with 'phase' statistics for 4
                     frames.
+  4b. system - one warm eager flagship step under
+                torch.cuda.set_sync_debug_mode("error"); then the temporal
+                flagship and the faithful flagship (65 frames each) through
+                the System (build_system, the CLI's host loop) at
+                max_in_flight=4: with the captured step (a CUDA graph per
+                variant, replayed) and with module_timing (the eager step),
+                every key of the step fetched, every output of every frame
+                and the final state equal (NaN equal to NaN), the replayed
+                launches equal to the plan with no plain call; and a
+                captured run fetching the host keys only.  Per-frame
+                medians (CUDA events between frame ends), the graphs with
+                their capture seconds, peak device memory.  The replayed
+                flagship's launches are the kernels line's.
   5. parity   - the small temporal slice (64x128, 6 frames) on the card and on
                 the CPU, every output and the final state equal, and the same
                 with the reference-faithful modes; the full-size flow of one
@@ -102,8 +115,13 @@ Phases (each raises on failure; none is caught):
                 torch.profiler: per-module CUDA-event spans, device busy time
                 and idle share, device time by kernel name and K2's and K4's
                 a frame; the same for the faithful flagship, and for a fresh
-                spatial run over frames 3..6 with K5's kernels by name.
-  7. cli      - configs/synthetic-planeseg.json through the CLI entry point.
+                spatial run over frames 3..6 with K5's kernels by name; and a
+                captured System run of each flagship over frames 3..12.
+  7. cli      - configs/synthetic-planeseg.json through the CLI entry point,
+                then configs/sources/synthetic.json with
+                configs/modules/kitti-planeseg.json, --timing and
+                --save-samples: a timing CSV with the JAX columns and a PNG
+                of both plane-segmentation visualizations.
   8. times    - per-frame ms and each kernel's numbers.
 The last two lines of standard output are the kernels JSON line and the
 result line ``{"ok": true, "device": {...}}``.
@@ -1735,6 +1753,228 @@ def spatial_profile(frames, intrinsics, dev, tag) -> None:
         f"[{tag}]")
 
 
+SYSTEM_DEPTH = 4  # the System's default max_in_flight
+SYSTEM_PROFILE_FRAMES = (3, 12)
+# Every key the flagship's step provides: the system phase fetches them all.
+SYSTEM_KEYS = ("disparity", "disparity_derivative", "disparity_derivative_histogram", "depth",
+               "optflow", "superpixels", "superpixels_max_label", "planes", "planes_unsmoothed")
+
+
+def sync_free_step_check(frames, intrinsics, dev) -> None:
+    """One warm eager step of the flagship under
+    torch.cuda.set_sync_debug_mode("error"): any read back to the host or
+    copy from pageable host memory inside the step body raises (such a call
+    is also illegal while a stream captures)."""
+    from cartslam_tpu_torch.config import build_pipeline
+    from cartslam_tpu_torch.runtime.loop import frame_to_device
+    from cartslam_tpu_torch.sources import PreloadedSource
+
+    pipe, _ = build_pipeline(PreloadedSource(frames[:2], intrinsics=intrinsics),
+                             flagship_modules(), device=dev)
+    state = pipe.init_state()
+    params = pipe.device_params(pipe.init_host_params())
+    for fid in (1, 2):
+        frame, _ = pipe.prepare(frame_to_device(frames[fid - 1], fid, dev), params)
+        torch.cuda.synchronize()
+        if fid == 2:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, _ = pipe.compute_step(state, frame, params, pipe.variant(fid))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("system: a warm eager flagship step ran under set_sync_debug_mode('error'): no "
+        "synchronising call in the step body")
+
+
+def _frame_end_events(system, ends: list, on_dispatch=None):
+    """Record a CUDA event after each frame's dispatch (its step and its
+    fetch copies) on the System's stream: the frame's end on the device.
+    on_dispatch(frame count) runs before each event is recorded."""
+    stage = system._stage
+
+    def staged(outputs):
+        slot = stage(outputs)
+        if on_dispatch is not None:
+            on_dispatch(len(ends) + 1)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        ends.append(ev)
+        return slot
+    system._stage = staged
+
+
+def _fetched_equal(a: dict, b: dict) -> list:
+    """Keys whose arrays differ (shape, dtype or values; NaN equal to NaN)."""
+    bad = []
+    for k in sorted(set(a) | set(b)):
+        x, y = a.get(k), b.get(k)
+        if x is None or y is None or x.shape != y.shape or x.dtype != y.dtype or not \
+                np.array_equal(x, y, equal_nan=x.dtype.kind == "f"):
+            bad.append(k)
+    return bad
+
+
+def system_phase(frames, intrinsics, dev, tag, plan, modules, label, plan_key) -> dict:
+    """`modules` for FRAMES frames through the System (build_system, the
+    CLI's host loop) at max_in_flight=SYSTEM_DEPTH: once with module_timing
+    (the eager step, module by module) and once with the captured step (a
+    CUDA graph per variant, replayed).  Every fetched output of every frame
+    (all of the step's keys) and the final state must be equal, the replayed
+    run's launches equal to the plan with no plain call.  Prints both runs'
+    per-frame medians (CUDA events between frame ends, frames 3..FRAMES),
+    the graphs with their capture seconds and the peak device memory."""
+    from cartslam_tpu_torch.config import build_system
+    from cartslam_tpu_torch.kernels import build
+    from cartslam_tpu_torch.sources import PreloadedSource
+
+    runs = {}
+    for mode in ("eager", "captured", "host keys"):
+        system = build_system(PreloadedSource(frames[:FRAMES], intrinsics=intrinsics), modules,
+                              device=dev, module_timing=mode == "eager",
+                              max_in_flight=SYSTEM_DEPTH,
+                              extra_fetch_keys=() if mode == "host keys" else SYSTEM_KEYS)
+        provided = {k for m in system.pipeline.modules for k in m.provides()}
+        if provided != set(SYSTEM_KEYS):
+            raise AssertionError(f"{label}: the step provides {sorted(provided)}")
+        if system.captured != (mode != "eager"):
+            raise AssertionError(f"{label}: System.captured is {system.captured} in the "
+                                 f"{mode} run")
+        ends, seen = [], {}
+        _frame_end_events(system, ends)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        build.reset_counts()
+        n = system.run(on_frame=lambda fid, out: seen.update({fid: out}))
+        torch.cuda.synchronize()
+        counts = {c.name: (c.launches, c.plain_calls) for c in build.COUNTERS.values()}
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        if n != FRAMES or sorted(seen) != list(range(1, FRAMES + 1)) or system.failed_frames:
+            raise AssertionError(f"{label} {mode}: {n} frames, failed {system.failed_frames}")
+        for name, want in plan[plan_key].items():
+            if counts[name] != (want, 0):
+                raise AssertionError(f"{label} {mode}: kernel {name} (launches, plain calls) "
+                                     f"{counts[name]}, expected ({want}, 0)")
+        if any(p for _, p in counts.values()):
+            raise AssertionError(f"{label} {mode}: a plain version ran on the card: {counts}")
+        ms = [ends[i - 1].elapsed_time(ends[i]) for i in range(1, len(ends))]
+        graphs = {str(v.variant): round(v.capture_s, 3)
+                  for v in system.pipeline.captured_steps.values()}
+        runs[mode] = dict(seen=seen, state=system.final_state, ms=ms, peak=peak,
+                          graphs=graphs, counts={k: v[0] for k, v in counts.items()})
+        del system
+        torch.cuda.empty_cache()
+    eager, cap, host = runs["eager"], runs["captured"], runs["host keys"]
+    for fid in range(1, FRAMES + 1):
+        bad = _fetched_equal(cap["seen"][fid], eager["seen"][fid])
+        bad += _fetched_equal(host["seen"][fid],
+                              {k: eager["seen"][fid][k] for k in host["seen"][fid]})
+        if bad:
+            raise AssertionError(f"{label} frame {fid}: captured != eager on {bad}")
+    for r in (cap, host):
+        _assert_state_equal(r["state"], eager["state"], f"{label} final state")
+    med = {m: float(np.median(r["ms"][1:])) for m, r in runs.items()}
+    log(f"system {label}: {FRAMES} frames at max_in_flight={SYSTEM_DEPTH}, the captured run "
+        f"equal to the eager (module_timing) run on every fetched output of every frame "
+        f"({', '.join(sorted(cap['seen'][1]))}) and on the final state; replayed launches "
+        f"{cap['counts']} (plan '{plan_key}', no plain call); graphs {len(cap['graphs'])} "
+        f"(variant: capture s) {cap['graphs']}; peak device memory captured "
+        f"{cap['peak']:.1f} MiB, eager {eager['peak']:.1f} MiB")
+    log(f"system {label} per-frame ms (CUDA events between frame ends, frames 3..{FRAMES}): "
+        f"captured median {med['captured']:.3f} (min {min(cap['ms'][1:]):.3f}, max "
+        f"{max(cap['ms'][1:]):.3f}); eager module_timing median {med['eager']:.3f}; captured "
+        f"fetching the host keys only ({', '.join(sorted(host['seen'][1]))}) median "
+        f"{med['host keys']:.3f} (min {min(host['ms'][1:]):.3f}, max "
+        f"{max(host['ms'][1:]):.3f}), graphs {host['graphs']}  [{tag}]")
+    return {"median_ms": med, "counts": cap["counts"], "graphs": cap["graphs"],
+            "peak_mib": cap["peak"]}
+
+
+def _assert_state_equal(a, b, where):
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"{where}: keys differ")
+        for k in a:
+            _assert_state_equal(a[k], b[k], f"{where}/{k}")
+    elif a.shape != b.shape or a.dtype != b.dtype or not np.array_equal(
+            a, b, equal_nan=a.dtype.kind == "f"):
+        raise AssertionError(f"{where}: differs")
+
+
+def system_profile(frames, intrinsics, dev, tag, modules=None, label="captured profile"):
+    """A fresh captured System run of the flagship with frames
+    SYSTEM_PROFILE_FRAMES (dispatch counts) under torch.profiler: wall
+    time a frame, device busy time and idle share, device time by kernel."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from cartslam_tpu_torch.config import build_system
+    from cartslam_tpu_torch.sources import PreloadedSource
+
+    first, last = SYSTEM_PROFILE_FRAMES
+    system = build_system(PreloadedSource(frames[:last], intrinsics=intrinsics),
+                          modules or flagship_modules(), device=dev,
+                          max_in_flight=SYSTEM_DEPTH)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = {}
+
+    def on_dispatch(k):
+        if k == first - 1:
+            torch.cuda.synchronize()
+            prof.start()
+            window["t0"] = time.perf_counter()
+        elif k == last:
+            torch.cuda.synchronize()
+            window["wall_ms"] = (time.perf_counter() - window["t0"]) * 1e3
+            prof.stop()
+
+    ends = []
+    _frame_end_events(system, ends, on_dispatch)
+    system.run()
+    n = last - first + 1
+    _device_report(prof, n, window["wall_ms"] / n, f"{label} frames {first}..{last}", tag)
+
+
+def cli_phase() -> None:
+    """The CLI: configs/synthetic-planeseg.json, then the flagship's module
+    config (its two plane-segmentation visualizations) with --timing and
+    --save-samples in a temporary directory: a timing CSV with the JAX
+    columns and a PNG sample of both visualization modules."""
+    import tempfile
+
+    from cartslam_tpu_torch.__main__ import main as cli_main
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            cfg = os.path.join(REPO, "configs", "synthetic-planeseg.json")
+            if cli_main([cfg, "--device", "cuda", "--max-frames", "5"]) != 0:
+                raise AssertionError("CLI run failed")
+            args = [os.path.join(REPO, "configs", "sources", "synthetic.json"),
+                    os.path.join(REPO, "configs", "modules", "kitti-planeseg.json"),
+                    "--device", "cuda", "--max-frames", "5", "--timing", "--save-samples"]
+            if cli_main(args) != 0:
+                raise AssertionError("CLI run of the flagship's module config failed")
+            timing = os.listdir("timing")
+            with open(os.path.join("timing", timing[0])) as f:
+                rows = [line.strip().split(";") for line in f]
+            samples = sorted(os.listdir("samples"))
+        finally:
+            os.chdir(cwd)
+    if rows[0] != ["name", "run_id", "time_init", "time_start", "time_end", "duration_ms"] \
+            or sorted(int(r[1]) for r in rows[1:] if r[0] == "frame") != [1, 2, 3, 4, 5]:
+        raise AssertionError(f"CLI timing CSV: {rows[:3]}")
+    want = ["PlaneSegmentationBEVVisualization-000005.png", "Plane_Segmentation-000005.png"]
+    if samples != want:
+        raise AssertionError(f"CLI samples {samples}, expected {want}")
+    log("cli: configs/synthetic-planeseg.json --device cuda --max-frames 5 OK; "
+        "configs/sources/synthetic.json configs/modules/kitti-planeseg.json --device cuda "
+        f"--max-frames 5 --timing --save-samples OK: {timing[0]} with the JAX columns, "
+        f"samples {samples}")
+
+
 def ptxas_report(build, info) -> None:
     """Registers, static shared memory and spill bytes (ptxas -v) of K1's
     and K6's path kernels, the WTA, K3's kernels and the K2, K4 and K7
@@ -1827,6 +2067,15 @@ def main() -> int:
         f"{float(np.median(nt_ms[2:])):.3f} ms over frames 3..{NONTEMPORAL_FRAMES}  [{tag}]")
     intrinsics = source.get_camera_intrinsics()
     faithful_ms = faithful_paths(source.frames, intrinsics, gen, dev, tag, plan)
+
+    # 4b. the System: captured step against the eager one
+    sync_free_step_check(source.frames, intrinsics, dev)
+    system = {"flagship": system_phase(source.frames, intrinsics, dev, tag, plan,
+                                       flagship_modules(), "temporal flagship", "flagship"),
+              "faithful": system_phase(source.frames, intrinsics, dev, tag, plan,
+                                       faithful_modules(), "faithful flagship", "faithful")}
+    for name in plan["flagship"]:
+        launches[name] = system["flagship"]["counts"][name]
     launches["sgm_sharded"], _ = spatial_phase(source.frames, intrinsics, dev, tag, plan)
     spatial_phase(source.frames, intrinsics, dev, tag, plan, n_frames=SPATIAL_PHASE_FRAMES,
                   superpixels={"stats_refresh": "phase"},
@@ -1841,14 +2090,12 @@ def main() -> int:
     profile_phase(source.frames, intrinsics, dev, tag)
     profile_phase(source.frames, intrinsics, dev, tag, faithful_modules(), "faithful profile")
     spatial_profile(source.frames, intrinsics, dev, tag)
+    system_profile(source.frames, intrinsics, dev, tag)
+    system_profile(source.frames, intrinsics, dev, tag, faithful_modules(),
+                   "faithful captured profile")
 
     # 7. the CLI path
-    from cartslam_tpu_torch.__main__ import main as cli_main
-
-    cfg = os.path.join(REPO, "configs", "synthetic-planeseg.json")
-    if cli_main([cfg, "--device", "cuda", "--max-frames", "5"]) != 0:
-        raise AssertionError("CLI run failed")
-    log("cli: configs/synthetic-planeseg.json --device cuda --max-frames 5 OK")
+    cli_phase()
 
     # 8. times
     steady = frame_ms[2:]
@@ -1859,6 +2106,13 @@ def main() -> int:
     log(f"faithful flagship per-frame ms: median {float(np.median(steady)):.3f} over frames "
         f"3..{FRAMES} (min {min(steady):.3f}, max {max(steady):.3f}); frame 1 "
         f"{faithful_ms[0]:.3f}, frame 64 (reset) {faithful_ms[63]:.3f}  [{tag}]")
+    for name, r in system.items():
+        eager = float(np.median((frame_ms if name == "flagship" else faithful_ms)[2:]))
+        log(f"{name} per-frame ms, frames 3..{FRAMES}, one call: System captured "
+            f"{r['median_ms']['captured']:.3f} (every key fetched) / "
+            f"{r['median_ms']['host keys']:.3f} (host keys), System eager with module_timing "
+            f"{r['median_ms']['eager']:.3f}, eager run loop {eager:.3f}; {len(r['graphs'])} "
+            f"graphs, capture s {r['graphs']}, peak {r['peak_mib']:.1f} MiB  [{tag}]")
     for name, r in results.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {lib} ms, "

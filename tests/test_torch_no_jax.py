@@ -1,7 +1,9 @@
 """The port imports neither JAX nor the JAX package.
 
 The card's machine has no JAX, so nothing the port (or chip_smoke.py)
-imports may pull it in.
+imports may pull it in: the child below runs the pipelines, the System
+with its host modules, sinks and checkpoints, and imports the CLI, with
+any ``import jax`` made to fail.
 """
 
 import pathlib
@@ -55,6 +57,28 @@ for cfg, gray in ((faithful, False), (pixel, False),
     pipeline, source = build_pipeline(src, cfg, device="cpu", grayscale=gray)
     result = run(pipeline, source, on_frame=lambda fid, out: seen.update(out))
     assert result.frames == 2 and seen["planes"].shape == (32, 64)
+# The System through the config reader, with the host visualizations
+# and a PNG sink (runtime/system, graphs, checkpoint, timing, the viz
+# package and the CLI's module).
+import json, os, tempfile
+import cartslam_tpu_torch.__main__
+from cartslam_tpu_torch.config import read_system_config
+from cartslam_tpu_torch.runtime.graphs import CapturedStep
+from cartslam_tpu_torch.viz.ui import SampleSink
+with tempfile.TemporaryDirectory() as tmp:
+    cfg = os.path.join(tmp, "modules.json")
+    with open(cfg, "w") as f:
+        json.dump(mods + [{{"type": "disparity_planeseg_visualization"}},
+                          {{"type": "bev_planeseg_visualization"}}], f)
+    with open(os.path.join(tmp, "source.json"), "w") as f:
+        json.dump(src, f)
+    system = read_system_config(os.path.join(tmp, "source.json"), cfg, device="cpu",
+                                image_sink=SampleSink(os.path.join(tmp, "samples"), interval=1),
+                                checkpoint_path=os.path.join(tmp, "ck.npz"),
+                                checkpoint_interval=2)
+    assert system.run() == 2 and not system.failed_frames
+    assert len(os.listdir(os.path.join(tmp, "samples"))) == 4  # 2 windows x 2 frames
+    assert os.path.exists(os.path.join(tmp, "ck.npz"))
 from cartslam_tpu_torch.models.planeseg import DisparityPlaneSegmentationModule
 from cartslam_tpu_torch.sources.base import to_grayscale
 # The wrappers of the op-level kernels K6 and K7 import without JAX too.

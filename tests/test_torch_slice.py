@@ -169,9 +169,12 @@ def test_registry_rejects_unported_types(tmp_path):
     src = {"type": "synthetic", "image_size": [16, 32], "num_frames": 1}
     with pytest.raises(ValueError, match="module type 'zed_disparity' is not ported yet"):
         build_pipeline(src, [{"type": "zed_disparity"}], device="cpu")
-    # The host visualizations are not ported yet; the faithful temporal mode
-    # is, and an unknown one is refused.
-    with pytest.raises(ValueError, match="'disparity_planeseg_visualization' is not ported yet"):
+    # The flagship's host visualizations are ported, as host modules that only
+    # a System drives; the feature visualization waits for its device module.
+    # The faithful temporal mode is ported, and an unknown one is refused.
+    with pytest.raises(ValueError, match="'features_visualization' is not ported yet"):
+        build_pipeline(src, [{"type": "features_visualization"}], device="cpu")
+    with pytest.raises(ValueError, match="need a System: use build_system"):
         build_pipeline(src, [{"type": "disparity_planeseg_visualization"}], device="cpu")
     with pytest.raises(ValueError, match="unknown temporal_mode 'exact'"):
         build_pipeline(src, [{"type": "superpixels"},
