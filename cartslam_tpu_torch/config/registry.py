@@ -1,15 +1,15 @@
 """JSON config reader (counterpart of cartslam_tpu/config/registry.py).
 
 Same schema ({"data_source": {...}, "modules": [...]}, or a source file and
-a modules file) and the same per-type defaults.  The flagship's device
-module types, the pixel plane segmentation (``disparity_planeseg``) and
-the visualization types (host modules, viz/host_modules.py) are built; any
-other type raises.  ``build_system`` / ``read_system_config`` return the
-System (runtime/system.py), as the JAX functions do;
-``build_pipeline`` / ``read_config`` return the pipeline and its source
-alone.  A ``parallel`` block with ``"mode": "spatial"`` builds the
-height-sharded SpatialPipeline over the same modules; the multi-sequence
-modes raise "not ported yet".
+a modules file), the same module and source types and the same per-type
+defaults.  The host module types (visualizations, ``planefit``,
+``planecluster``) run only under a System.  ``build_system`` /
+``read_system_config`` return the System (runtime/system.py), as the JAX
+functions do; ``build_pipeline`` / ``read_config`` return the pipeline and
+its source alone.  A ``parallel`` block with ``"mode": "spatial"`` builds
+the height-sharded SpatialPipeline over the same modules; the
+multi-sequence modes (``"mode": "multiseq"``, ``"sequences"`` > 1) raise
+"not ported yet".
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from ..runtime.module import HostModule, Module, PipelineContext, checked_device
 from ..parallel.spatial_flagship import SpatialPipeline
 from ..runtime.pipeline import Pipeline
 from ..runtime.system import System
-from ..sources import DataSource, KITTIDataSource, SyntheticDataSource
+from ..sources import DataSource, KITTIDataSource, SyntheticDataSource, ZEDDataSource
 from ..utils.plane_params import (
     HistogramPeakPlaneParameterProvider,
     StaticPlaneParameterProvider,
@@ -52,6 +52,14 @@ def create_data_source(cfg) -> DataSource:
     if stype == "kitti":
         return KITTIDataSource(
             cfg["path"], cfg.get("sequence", 0),
+            decode_workers=cfg.get("decode_workers", 6),
+        )
+    if stype == "zed":
+        return ZEDDataSource(
+            cfg["path"],
+            cfg.get("include_disparity", False),
+            real_time_mode=cfg.get("svo_real_time_mode", False),
+            fps=cfg.get("fps", 15.0),
             decode_workers=cfg.get("decode_workers", 6),
         )
     if stype == "synthetic":
@@ -85,6 +93,11 @@ def build_module(cfg: dict, st: ConfigState) -> Module | HostModule:
             min_disparity=g("min_disparity", 4),
             num_disparities=g("num_disparities", 256),
             block_size=g("block_size", 3),
+            smoothing_radius=g("smoothing_radius", -1),
+            smoothing_iterations=g("smoothing_iterations", 5),
+        )
+    if mtype == "zed_disparity":
+        return models.ZEDImageDisparityModule(
             smoothing_radius=g("smoothing_radius", -1),
             smoothing_iterations=g("smoothing_iterations", 5),
         )
@@ -145,6 +158,17 @@ def build_module(cfg: dict, st: ConfigState) -> Module | HostModule:
             max_warp_y=g("max_warp_y", 32),
             max_warp_x=g("max_warp_x", 64),
         )
+    if mtype == "features":
+        ftype = g("feature_type", "orb")
+        if ftype != "orb":
+            raise ValueError(f"unknown feature type '{ftype}'")
+        return models.ImageFeatureDetectorModule(max_keypoints=g("keypoints", 5000))
+    if mtype == "planefit":
+        return models.SuperPixelPlaneFitModule(num_labels=st.num_superpixel_labels(),
+                                               fit_method=g("fit_method", "ransac"))
+    if mtype == "planecluster":
+        return models.SuperPixelPlaneClusterModule(num_labels=st.num_superpixel_labels(),
+                                                   fit_method=g("fit_method", "ransac"))
 
     # Visualization modules are host-side.
     from ..viz import host_modules as vm
@@ -166,7 +190,11 @@ def build_module(cfg: dict, st: ConfigState) -> Module | HostModule:
         )
     if mtype == "bev_planeseg_visualization":
         return vm.BEVVisualization()
-    raise ValueError(f"module type '{mtype}' is not ported yet")
+    if mtype == "features_visualization":
+        return vm.FeatureVisualization()
+    if mtype == "planefit_visualization":
+        return vm.PlaneFitVisualization()
+    raise ValueError(f"unknown module type '{mtype}'")
 
 
 def _warn_warp_bound(modules: list[Module], spatial: bool) -> None:

@@ -1,9 +1,14 @@
-"""ImageDisparityModule (counterpart of cartslam_tpu/models/disparity.py).
+"""Disparity modules (counterpart of cartslam_tpu/models/disparity.py).
 
-Gray conversion, census + SGM (kernel K1 on the device; K5 on a row shard
-in the spatial mode), and the optional iterative interpolation smoothing.
-`block_size` is accepted for config parity; the census window plays that
-role.
+ImageDisparityModule: gray conversion, census + SGM (kernel K1 on the
+device; K5 on a row shard in the spatial mode), and the optional iterative
+interpolation smoothing.  `block_size` is accepted for config parity; the
+census window plays that role.
+
+ZEDImageDisparityModule: converts an SDK-style float disparity measure to
+the common int16 x(-16) fixed-point contract
+(src/modules/disparity/disparity.cu:18-45; the scale is NEGATIVE because
+ZED disparities are negative, so -16 lands them positive).
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from ..ops import disparity as dops
 from ..runtime.module import Module, PipelineContext, TensorSpec
 
 KEY_DISPARITY = "disparity"
+DISPARITY_INVALID = -32768
 
 
 class ImageDisparityModule(Module):
@@ -99,3 +105,43 @@ def _spatial_smooth(disp, sp, *, radius, iterations, min_disparity, max_disparit
                                  min_disparity=min_disparity, max_disparity=max_disparity)
         disp = d_ext[hr:-hr] if hr else d_ext
     return disp
+
+
+def _from_measure(measure: torch.Tensor) -> torch.Tensor:
+    """The SDK measure (float32, inf where invalid) as int16 x(-16):
+    clipped to int16, truncated, non-finite values to -32768."""
+    vals = torch.clamp(measure * -16.0, -32768, 32767)
+    return torch.where(torch.isfinite(measure), vals.to(torch.int32),
+                       torch.full((), DISPARITY_INVALID, dtype=torch.int32,
+                                  device=measure.device)).to(torch.int16)
+
+
+class ZEDImageDisparityModule(Module):
+    name = "ZEDImageDisparity"
+
+    def __init__(self, smoothing_radius: int = -1, smoothing_iterations: int = 5):
+        self.smoothing_radius = smoothing_radius
+        self.smoothing_iterations = smoothing_iterations
+
+    def provides(self):
+        return [KEY_DISPARITY]
+
+    def output_spec(self, ctx: PipelineContext):
+        return {KEY_DISPARITY: TensorSpec((ctx.height, ctx.width), torch.int16)}
+
+    def compute(self, ctx, step, deps, state, params, variant):
+        disp = _from_measure(step.frame["zed_disparity"])
+        if self.smoothing_radius > 0:
+            disp = dops.interpolate(disp, radius=self.smoothing_radius,
+                                    iterations=self.smoothing_iterations, min_disparity=1,
+                                    max_disparity=257)  # disparity.cu:110 passes (1, 256 + 1)
+        return {KEY_DISPARITY: disp}, {}
+
+    def compute_spatial(self, ctx, step, deps, state, params, variant, sp):
+        """The conversion is pointwise, so the ZED chain height-shards too;
+        only the smoothing stencil needs halos."""
+        disp = _spatial_smooth(_from_measure(step.frame["zed_disparity"]), sp,
+                               radius=self.smoothing_radius,
+                               iterations=self.smoothing_iterations, min_disparity=1,
+                               max_disparity=257)
+        return {KEY_DISPARITY: disp}, {}

@@ -33,6 +33,7 @@ work unchanged.  Halos must fit in one neighbour shard (each module's
 
 from __future__ import annotations
 
+import time
 from typing import Any, Mapping
 
 import torch
@@ -96,6 +97,22 @@ class SpatialPipeline:
 
     def variant(self, frame_id: int) -> tuple:
         return self.inner.variant(frame_id)
+
+    def run_step_instrumented(self, state, frame, host_params, variant,
+                              fetch_keys: frozenset[str] | None = None):
+        """The module-timing mode's step: the spatial step is one program
+        over the shards, so there is no per-module attribution; one
+        'spatial_step' row a frame (the JAX method's row), ended by a sync
+        on a card.  Returns (new_state, outputs, timings) as
+        ``Pipeline.run_step_instrumented``."""
+        t0 = time.perf_counter()
+        new_state, outputs = self.step(state, frame, host_params, variant)
+        if self.ctx.device.type == "cuda":
+            torch.cuda.synchronize(self.ctx.device)
+        t1 = time.perf_counter()
+        if fetch_keys is not None:
+            outputs = {k: v for k, v in outputs.items() if k in fetch_keys}
+        return new_state, outputs, [("spatial_step", t0, t0, t1)]
 
     # ------------------------------------------------------ row dimensions
 

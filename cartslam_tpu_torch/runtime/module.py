@@ -14,6 +14,7 @@ state.  A ``HostModule`` consumes fetched numpy outputs on the host.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Hashable, Mapping
 
@@ -220,9 +221,21 @@ class HostModule:
     """
 
     name: str = "hostmodule"
+    _stream = None  # the module's own CUDA stream, made at its first device work
 
     def requires(self) -> list[Dependency]:
         return []
+
+    def device_work(self, ctx: PipelineContext):
+        """Context for device work done from ``process``: on a card it runs
+        on a CUDA stream of the module's own, so a read back to the host
+        waits for the module's work only, not for the frames in flight on
+        the step's stream; on the CPU it does nothing."""
+        if ctx.device.type != "cuda":
+            return contextlib.nullcontext()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device=ctx.device)
+        return torch.cuda.stream(self._stream)
 
     def provides_data(self) -> list[str]:
         """Per-run data keys this module computes on the host: the keys

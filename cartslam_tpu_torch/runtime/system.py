@@ -141,8 +141,6 @@ class System:
         # timing and the spatial mode (threads over row shards) run eagerly.
         self.captured = (self.device.type == "cuda" and not module_timing
                          and isinstance(pipeline, Pipeline))
-        if module_timing and not hasattr(pipeline, "run_step_instrumented"):
-            raise ValueError("module_timing needs a Pipeline (not the spatial mode)")
 
         self._prefetch_queue: queue.Queue = queue.Queue(maxsize=prefetch_depth)
         self._prefetch_error: BaseException | None = None

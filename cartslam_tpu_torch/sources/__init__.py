@@ -8,3 +8,4 @@ from .base import CameraIntrinsics, DataSource, to_grayscale  # noqa: F401
 from .kitti import KITTIDataSource  # noqa: F401
 from .preloaded import PreloadedSource  # noqa: F401
 from .synthetic import SyntheticDataSource  # noqa: F401
+from .zed import ZEDDataSource  # noqa: F401

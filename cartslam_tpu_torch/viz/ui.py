@@ -36,15 +36,18 @@ class ImageStore:
 
 
 class SampleSink(ImageStore):
-    """Writes every `interval`-th frame per window to samples/ as PNG, and
-    on close each window's latest frame if it was not written yet (so a
-    run shorter than the interval leaves a sample; the JAX sink writes
-    only the interval's frames)."""
+    """Writes every `interval`-th frame per window to samples/ as PNG (the
+    frames with frame_id % interval == 0, as the JAX sink does).  With
+    `write_last_on_close`, close() also writes each window's latest frame
+    if it was not written yet, so a run shorter than the interval leaves a
+    sample; off by default."""
 
-    def __init__(self, directory: str = "samples", interval: int = 30):
+    def __init__(self, directory: str = "samples", interval: int = 30,
+                 write_last_on_close: bool = False):
         super().__init__()
         self.directory = directory
         self.interval = interval
+        self.write_last_on_close = write_last_on_close
         self._written: dict[str, int] = {}
         os.makedirs(directory, exist_ok=True)
 
@@ -61,6 +64,8 @@ class SampleSink(ImageStore):
             self._write(window, image, frame_id)
 
     def close(self):
+        if not self.write_last_on_close:
+            return
         for window, (fid, image) in self.snapshot().items():
             if self._written.get(window) != fid:
                 self._write(window, image, fid)

@@ -107,6 +107,34 @@ Phases (each raises on failure; none is caught):
                 medians (CUDA events between frame ends), the graphs with
                 their capture seconds, peak device memory.  The replayed
                 flagship's launches are the kernels line's.
+  4c. paths of the plane fits, the features and the ZED recording, 10
+                frames each through the System on the card (build_system,
+                captured step):
+                  * configs/modules/kitti-planefit.json and
+                    kitti-planecluster.json at 376x1248 (K1, K2, K3: 24 then
+                    12 sweeps): planes_eq on every frame; frame 3's equal to
+                    the port's on the CPU from the same fetched arrays and to
+                    a second card run; the planecluster's native route taken
+                    and equal to its Python route; K2 and K3 equal to their
+                    plain versions on frame 1's inputs; the host module's process
+                    ms and the share of its device span (its own stream) that
+                    overlaps a replay;
+                  * configs/kitti-features.json at 376x1248: captured equal
+                    to eager (module_timing) on every output, a warm step
+                    under set_sync_debug_mode("error"), level-0 keypoints
+                    equal to the CPU port's, levels 1-2 and the descriptor
+                    bits within a stated share;
+                  * a 720x1280 ZED npz recording written from synthetic frames
+                    and an SDK-style measure: configs/zed-disparity.json
+                    (card == CPU port), the top-level configs/zed-planeseg.json
+                    (SGM, K1-K4) and configs/modules/zed-planeseg.json
+                    (zed_disparity, K2-K4), captured equal to eager on every
+                    output of every frame; K2, K3 and K4 equal to their plain
+                    versions on frame 1's inputs of each planeseg (about
+                    6,400 and 3,600 labels); K1 at 720x1280 equal to its
+                    plain version.
+                Their K1-K4 launches join the flagship's in the kernels line
+                (launches_by_path).
   5. parity   - the small temporal slice (64x128, 6 frames) on the card and on
                 the CPU, every output and the final state equal, and the same
                 with the reference-faithful modes; the full-size flow of one
@@ -119,9 +147,9 @@ Phases (each raises on failure; none is caught):
                 captured System run of each flagship over frames 3..12.
   7. cli      - configs/synthetic-planeseg.json through the CLI entry point,
                 then configs/sources/synthetic.json with
-                configs/modules/kitti-planeseg.json, --timing and
-                --save-samples: a timing CSV with the JAX columns and a PNG
-                of both plane-segmentation visualizations.
+                configs/modules/kitti-planeseg.json for 30 frames, --timing
+                and --save-samples: a timing CSV with the JAX columns and a
+                PNG of both plane-segmentation visualizations at frame 30.
   8. times    - per-frame ms and each kernel's numbers.
 The last two lines of standard output are the kernels JSON line and the
 result line ``{"ok": true, "device": {...}}``.
@@ -129,6 +157,7 @@ result line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -201,13 +230,13 @@ GRAY_FRAMES = 10
 # name -> (source, the TPU kernel it replaces (file:line), the path that runs it)
 KERNELS = {
     "sgm": ("cartslam_tpu_torch/csrc/sgm.cu", "cartslam_tpu/ops/pallas/sgm.py:654",
-            "flagship"),
+            "the System paths"),
     "moment_tally": ("cartslam_tpu_torch/csrc/tally.cu", "cartslam_tpu/ops/pallas/tally.py:231",
-                     "flagship"),
+                     "the System paths"),
     "relax": ("cartslam_tpu_torch/csrc/relax.cu", "cartslam_tpu/ops/pallas/relax.py:240",
-              "flagship"),
+              "the System paths"),
     "vote_tally": ("cartslam_tpu_torch/csrc/tally.cu", "cartslam_tpu/ops/pallas/tally.py:102",
-                   "flagship"),
+                   "the System paths"),
     "sgm_aggregate": ("cartslam_tpu_torch/csrc/sgm.cu", "cartslam_tpu/ops/pallas/sgm.py:510",
                       "sgm_aggregate entry point"),
     "label_tally": ("cartslam_tpu_torch/csrc/tally.cu", "cartslam_tpu/ops/pallas/tally.py:318",
@@ -1358,12 +1387,7 @@ def drive(pipe, source, expected, keep=None):
     res = run(pipe, source, on_frame=on_frame)
     torch.cuda.synchronize()
     counts = {c.name: (c.launches, c.plain_calls) for c in build.COUNTERS.values()}
-    for name, n in expected.items():
-        if counts[name] != (n, 0):
-            raise AssertionError(f"kernel {name}: (launches, plain calls) {counts[name]}, "
-                                 f"expected ({n}, 0)")
-    if any(plain for _, plain in counts.values()):
-        raise AssertionError(f"a plain version ran on the card: {counts}")
+    _counts_equal("run loop", counts, expected)
     frame_ms = [start.elapsed_time(events[0])]
     frame_ms += [events[i - 1].elapsed_time(events[i]) for i in range(1, len(events))]
     return pipe, res, frame_ms, last, {k: v[0] for k, v in counts.items()}
@@ -1824,45 +1848,23 @@ def system_phase(frames, intrinsics, dev, tag, plan, modules, label, plan_key) -
     run's launches equal to the plan with no plain call.  Prints both runs'
     per-frame medians (CUDA events between frame ends, frames 3..FRAMES),
     the graphs with their capture seconds and the peak device memory."""
-    from cartslam_tpu_torch.config import build_system
-    from cartslam_tpu_torch.kernels import build
     from cartslam_tpu_torch.sources import PreloadedSource
 
     runs = {}
     for mode in ("eager", "captured", "host keys"):
-        system = build_system(PreloadedSource(frames[:FRAMES], intrinsics=intrinsics), modules,
-                              device=dev, module_timing=mode == "eager",
-                              max_in_flight=SYSTEM_DEPTH,
-                              extra_fetch_keys=() if mode == "host keys" else SYSTEM_KEYS)
+        r = run_system(PreloadedSource(frames[:FRAMES], intrinsics=intrinsics), modules, dev,
+                       f"{label} {mode}", plan[plan_key], frames=FRAMES,
+                       module_timing=mode == "eager", max_in_flight=SYSTEM_DEPTH,
+                       extra_fetch_keys=() if mode == "host keys" else SYSTEM_KEYS)
+        system = r.pop("system")
         provided = {k for m in system.pipeline.modules for k in m.provides()}
         if provided != set(SYSTEM_KEYS):
             raise AssertionError(f"{label}: the step provides {sorted(provided)}")
         if system.captured != (mode != "eager"):
             raise AssertionError(f"{label}: System.captured is {system.captured} in the "
                                  f"{mode} run")
-        ends, seen = [], {}
-        _frame_end_events(system, ends)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        build.reset_counts()
-        n = system.run(on_frame=lambda fid, out: seen.update({fid: out}))
-        torch.cuda.synchronize()
-        counts = {c.name: (c.launches, c.plain_calls) for c in build.COUNTERS.values()}
-        peak = torch.cuda.max_memory_allocated(dev) / 2**20
-        if n != FRAMES or sorted(seen) != list(range(1, FRAMES + 1)) or system.failed_frames:
-            raise AssertionError(f"{label} {mode}: {n} frames, failed {system.failed_frames}")
-        for name, want in plan[plan_key].items():
-            if counts[name] != (want, 0):
-                raise AssertionError(f"{label} {mode}: kernel {name} (launches, plain calls) "
-                                     f"{counts[name]}, expected ({want}, 0)")
-        if any(p for _, p in counts.values()):
-            raise AssertionError(f"{label} {mode}: a plain version ran on the card: {counts}")
-        ms = [ends[i - 1].elapsed_time(ends[i]) for i in range(1, len(ends))]
-        graphs = {str(v.variant): round(v.capture_s, 3)
-                  for v in system.pipeline.captured_steps.values()}
-        runs[mode] = dict(seen=seen, state=system.final_state, ms=ms, peak=peak,
-                          graphs=graphs, counts={k: v[0] for k, v in counts.items()})
-        del system
+        runs[mode] = dict(r, state=system.final_state)
+        del system, r
         torch.cuda.empty_cache()
     eager, cap, host = runs["eager"], runs["captured"], runs["host keys"]
     for fid in range(1, FRAMES + 1):
@@ -1936,11 +1938,546 @@ def system_profile(frames, intrinsics, dev, tag, modules=None, label="captured p
     _device_report(prof, n, window["wall_ms"] / n, f"{label} frames {first}..{last}", tag)
 
 
+# ---------------------------------------------------------------- new paths
+# The plane fits, the ORB features and the ZED paths: 10 frames each
+# through the System on the card.
+PATH_FRAMES = 10
+PLANE_ATOL = 1e-4  # planes card vs CPU: float32 sums in another order
+ZH, ZW = 720, 1280  # the ZED recording's geometry
+FEATURE_DESC_BITS = 0.01  # share of descriptor bits card vs CPU may differ
+FEATURE_LEVEL_ROWS = 0.02  # share of keypoint rows of levels 1-2 that may differ
+
+
+def module_config(name: str) -> list[dict]:
+    with open(os.path.join(REPO, "configs", *name.split("/"))) as f:
+        data = json.load(f)
+    return data["modules"] if isinstance(data, dict) else data
+
+
+def _span_ms(ref, spans) -> list[tuple[float, float]]:
+    return [(ref.elapsed_time(a), ref.elapsed_time(b)) for a, b in spans]
+
+
+def _overlap_ms(spans, others) -> float:
+    """Length of the parts of `spans` that intersect the union of `others`
+    (all (start_ms, end_ms))."""
+    total = 0.0
+    for s, e in spans:
+        cut = sorted((max(s, a), min(e, b)) for a, b in others if min(e, b) > max(s, a))
+        total += _union_ms((a * 1e3, b * 1e3) for a, b in cut)
+    return total
+
+
+def _instrument(system, replays: list, host_spans: list, process_ms: list, hm=None):
+    """Record CUDA events around each replay of the captured step (the
+    step's stream) and around a host module's device work (its own stream),
+    and the host ms of each `process` call."""
+    import contextlib
+    import time
+
+    pipe = system.pipeline
+    captured = pipe.captured_step
+
+    def captured_step(variant, keys):
+        step = captured(variant, keys)
+
+        def call():
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = step()
+            b.record()
+            replays.append((a, b))
+            return out
+        return call
+    if system.captured:
+        pipe.captured_step = captured_step
+    if hm is None:
+        return
+    work, process = hm.device_work, hm.process
+
+    @contextlib.contextmanager
+    def device_work(ctx):
+        with work(ctx):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            yield
+            b.record()
+            host_spans.append((a, b))
+
+    def timed_process(*args, **kw):
+        t0 = time.perf_counter()
+        out = process(*args, **kw)
+        process_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+    hm.device_work = device_work
+    hm.process = timed_process
+
+
+def _counts_equal(label, counts, want):
+    for name, n in want.items():
+        if counts[name] != (n, 0):
+            raise AssertionError(f"{label}: kernel {name} (launches, plain calls) "
+                                 f"{counts[name]}, expected ({n}, 0)")
+    if any(p for _, p in counts.values()):
+        raise AssertionError(f"{label}: a plain version ran on the card: {counts}")
+
+
+def run_system(source, modules, dev, label, want, *, frames=None, hm_type=None, spans=False,
+               **kw) -> dict:
+    """`modules` over `source` (`frames` frames, default PATH_FRAMES)
+    through build_system on the card, counts from 0 just before and read
+    just after, checked against `want` with no plain call; returns the
+    System, every frame's fetched dict, the per-frame ms (CUDA events
+    between frame ends), the counts, the peak device memory, the graphs'
+    capture seconds and the host module of type `hm_type`.  With `spans`,
+    also the replay and host-module spans and the host module's process ms
+    (CUDA events around each replay and the module's device work: host
+    work a frame that the runs without `spans` do not have)."""
+    from cartslam_tpu_torch.config import build_system
+    from cartslam_tpu_torch.kernels import build
+
+    frames = frames or PATH_FRAMES
+    system = build_system(source, modules, device=dev, **kw)
+    hm = next((m for m in system.host_modules if isinstance(m, hm_type)), None) \
+        if hm_type else None
+    if hm_type is not None and hm is None:
+        raise AssertionError(f"{label}: no {hm_type.__name__} in the System")
+    ends, seen, replays, host_spans, process_ms = [], {}, [], [], []
+    _frame_end_events(system, ends)
+    ref = torch.cuda.Event(enable_timing=True)
+    if spans:
+        _instrument(system, replays, host_spans, process_ms, hm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ref.record()
+    build.reset_counts()
+    n = system.run(on_frame=lambda fid, out: seen.update({fid: out}))
+    torch.cuda.synchronize()
+    counts = {c.name: (c.launches, c.plain_calls) for c in build.COUNTERS.values()}
+    if n != frames or sorted(seen) != list(range(1, frames + 1)) or system.failed_frames:
+        raise AssertionError(f"{label}: {n} frames, failed {system.failed_frames}")
+    _counts_equal(label, counts, want)
+    ms = [ends[i - 1].elapsed_time(ends[i]) for i in range(1, len(ends))]
+    graphs = {str(v.variant): round(v.capture_s, 3)
+              for v in getattr(system.pipeline, "captured_steps", {}).values()}
+    return dict(system=system, hm=hm, seen=seen, ms=ms, counts={k: v[0] for k, v in counts.items()},
+                peak=torch.cuda.max_memory_allocated(dev) / 2**20, graphs=graphs,
+                replays=_span_ms(ref, replays), host_spans=_span_ms(ref, host_spans),
+                process_ms=process_ms)
+
+
+PATH_KERNELS = ("moment_tally", "relax_sweeps", "vote_tally")
+
+
+@contextlib.contextmanager
+def first_calls():
+    """Clones of the arguments of each of K2's, K3's and K4's wrappers'
+    first call outside a capture while the block runs: frame 1's inputs,
+    from an eager step or a captured step's eager warm-up."""
+    from cartslam_tpu_torch.kernels import relax as krelax
+    from cartslam_tpu_torch.kernels import tally as ktally
+
+    owners = {"moment_tally": ktally, "relax_sweeps": krelax, "vote_tally": ktally}
+    calls, orig = {}, {name: getattr(mod, name) for name, mod in owners.items()}
+    clone = lambda x: x.clone() if isinstance(x, torch.Tensor) else x
+
+    def recorder(name, fn):
+        def call(*args, **kw):
+            if name not in calls and not torch.cuda.is_current_stream_capturing():
+                calls[name] = ([clone(a) for a in args], {k: clone(v) for k, v in kw.items()})
+            return fn(*args, **kw)
+        return call
+    for name, mod in owners.items():
+        setattr(mod, name, recorder(name, orig[name]))
+    try:
+        yield calls
+    finally:
+        for name, mod in owners.items():
+            setattr(mod, name, orig[name])
+
+
+def check_path_kernels(label, calls, names=PATH_KERNELS) -> str:
+    """K2, K3 and K4 (those of `names`) on the card against their plain
+    versions on the inputs of their first call on a path (first_calls):
+    the tables and counts equal, the labels within RELAX_LABEL_BOUND."""
+    from cartslam_tpu_torch.kernels import relax as krelax
+    from cartslam_tpu_torch.kernels import tally as ktally
+
+    missing = [n for n in names if n not in calls]
+    if missing:
+        raise AssertionError(f"{label}: no call of {missing} was recorded")
+    said = []
+    if "moment_tally" in names:
+        (lab, d, num, *rest), kw = calls["moment_tally"]
+        if any(r is not None for r in (*rest, *kw.values())):
+            raise AssertionError(f"{label}: K2 was called with a reduce")
+        got = ktally.moment_tally(lab, d, num)
+        if not torch.equal(got, ktally.moment_tally_plain(lab.reshape(-1),
+                                                          d.reshape(d.shape[0], -1), num)):
+            raise AssertionError(f"{label}: K2 differs from its plain version on frame 1's "
+                                 "labels and data")
+        said.append(f"K2 ({d.shape[0]} channels, {num} labels)")
+    if "relax_sweeps" in names:
+        args, kw = calls["relax_sweeps"]
+        lab, table, data, feats, c_total, iterations, direct, diagonal = args[:8]
+        prog = args[8] if len(args) > 8 else kw.get("prog")
+        phases, row0 = kw.get("phases", 1), kw.get("row0", 0)
+        got = krelax.relax_sweeps(*args, **kw)
+        want = krelax.relax_sweeps_plain(lab, table, data, feats, c_total, iterations, direct,
+                                         diagonal, prog, phases=phases, row0=row0)
+        ndiff = int((got != want).sum())
+        if ndiff > RELAX_LABEL_BOUND or torch.equal(got, lab):
+            raise AssertionError(f"{label}: K3 ({iterations} sweeps) differs from its plain "
+                                 f"version on {ndiff} pixels (bound {RELAX_LABEL_BOUND}), or "
+                                 "moved nothing")
+        said.append(f"K3 ({iterations} sweeps x {phases} phase(s), "
+                    f"{krelax.instantiation(feats, c_total)}: {ndiff} labels differ)")
+    if "vote_tally" in names:
+        (lab, v, num, classes), _ = calls["vote_tally"]
+        if not torch.equal(ktally.vote_tally(lab, v, num, classes),
+                           ktally.vote_tally_plain(lab.reshape(-1), v.reshape(-1), num, classes)):
+            raise AssertionError(f"{label}: K4 differs from its plain version on frame 1's "
+                                 "labels and votes")
+        said.append(f"K4 ({num} labels, {classes} classes)")
+    shape = "x".join(map(str, calls[names[0]][0][0].shape))
+    return f"{', '.join(said)} at {shape} equal to their plain versions on frame 1's inputs"
+
+
+def _median(xs) -> float:
+    return float(np.median(xs[1:])) if len(xs) > 1 else float(xs[0])
+
+
+def path_plan(sweeps: int, sgm: bool = True, vote: bool = True) -> dict:
+    """K1-K4 over PATH_FRAMES frames: superpixels with 24 sweeps on frame 1
+    and `sweeps` on the others (no reset within 10 frames)."""
+    from cartslam_tpu_torch.kernels.relax import launches
+
+    k3 = launches(24, 1, "frame") + (PATH_FRAMES - 1) * launches(sweeps, 1, "frame")
+    return {"sgm": PATH_FRAMES if sgm else 0, "moment_tally": PATH_FRAMES, "relax": k3,
+            "vote_tally": PATH_FRAMES if vote else 0, "sgm_sharded": 0}
+
+
+def planes_phase(frames, intrinsics, dev, tag) -> dict:
+    """configs/modules/kitti-planefit.json and kitti-planecluster.json at
+    376x1248 on the synthetic frames through build_system on the card
+    (captured step + the plane module on its own stream), PATH_FRAMES
+    frames: every frame's fetched dict holds planes_eq; for frame 3 the
+    card's planes_eq equals the port's on the CPU from the same fetched
+    labels and depth (assignments equal, planes within PLANE_ATOL) and a
+    second card run of the same frame gives the same result; the
+    planecluster took its native route, which equals the Python route; K2
+    and K3 equal to their plain versions on the inputs of their first call
+    (the warm-up of frame 1's capture).
+    Prints the per-frame ms, the plane module's process ms a frame and the
+    share of its device span that overlapped a replay."""
+    import copy
+
+    from cartslam_tpu_torch.models.planecluster import (SuperPixelPlaneClusterModule,
+                                                         _adjacency_edges, grow_clusters_python)
+    from cartslam_tpu_torch.models.planefit import SuperPixelPlaneFitModule
+    from cartslam_tpu_torch import native
+    from cartslam_tpu_torch.runtime.module import PipelineContext
+    from cartslam_tpu_torch.sources import PreloadedSource
+
+    out = {}
+    check_fid = 3
+    for name, cls in (("planefit", SuperPixelPlaneFitModule),
+                      ("planecluster", SuperPixelPlaneClusterModule)):
+        modules = module_config(f"modules/kitti-{name}.json")
+        rng_states = []
+        if cls is SuperPixelPlaneFitModule:
+            # Keep the sampler's state before each frame, to replay one.
+            orig_process = cls.process
+
+            def process(self, ctx, fid, *a, _p=orig_process, **kw):
+                rng_states.append((fid, copy.deepcopy(self.rng)))
+                return _p(self, ctx, fid, *a, **kw)
+            cls.process = process
+        try:
+            with first_calls() as calls:
+                r = run_system(PreloadedSource(frames[:PATH_FRAMES], intrinsics=intrinsics),
+                               modules, dev, name, path_plan(12, vote=False), hm_type=cls,
+                               spans=True)
+        finally:
+            if cls is SuperPixelPlaneFitModule:
+                cls.process = orig_process
+        kernels_note = check_path_kernels(name, calls, ("moment_tally", "relax_sweeps"))
+        del calls
+        hm = r["hm"]
+        missing = [fid for fid, f in r["seen"].items() if "planes_eq" not in f]
+        if missing:
+            raise AssertionError(f"{name}: frames {missing} have no planes_eq (the host module "
+                                 "failed; see the log)")
+        fetched = r["seen"][check_fid]
+        card = fetched["planes_eq"]
+        cpu_ctx = PipelineContext(height=H, width=W, q=intrinsics.q, device="cpu")
+        card_ctx = r["system"].pipeline.ctx
+        replay = []
+        for ctx in (cpu_ctx, card_ctx):
+            mod = cls(num_labels=hm.num_labels)
+            if cls is SuperPixelPlaneFitModule:
+                mod.rng = copy.deepcopy(dict(rng_states)[check_fid])
+            replay.append(mod.process(ctx, check_fid, {}, fetched, {})["planes_eq"])
+            if cls is SuperPixelPlaneClusterModule and mod.route != "native":
+                raise AssertionError(f"{name}: the {ctx.device} run took the {mod.route} route")
+        on_cpu, again = replay
+        for other, what in ((on_cpu, "the CPU port"), (again, "a second card run")):
+            atol = PLANE_ATOL if other is on_cpu else 0.0
+            if not np.array_equal(card["assignments"], other["assignments"]) or \
+                    len(card["planes"]) != len(other["planes"]) or not np.allclose(
+                        np.asarray(card["planes"], np.float64),
+                        np.asarray(other["planes"], np.float64), rtol=0, atol=atol):
+                raise AssertionError(
+                    f"{name} frame {check_fid}: the card's planes_eq differs from {what}: "
+                    f"{int((card['assignments'] != other['assignments']).sum())} assignments, "
+                    f"{len(card['planes'])} vs {len(other['planes'])} planes")
+        note = ""
+        if cls is SuperPixelPlaneClusterModule:
+            if hm.route != "native" or not native.available():
+                raise AssertionError(f"planecluster took the {hm.route} route on the card")
+            planes, npts = hm.fit(card_ctx, fetched["superpixels"], fetched["depth"])
+            ok = (npts >= hm.min_points) & (np.linalg.norm(planes[:, :3], axis=-1) > 0)
+            a_nat, p_nat = native.grow_clusters(hm.num_labels,
+                                                _adjacency_edges(fetched["superpixels"],
+                                                                 hm.num_labels),
+                                                planes.astype(np.float64), ok)
+            a_py, p_py = grow_clusters_python(fetched["superpixels"], planes, ok, hm.num_labels)
+            if not np.array_equal(a_nat, a_py) or not np.allclose(
+                    p_nat, np.asarray(p_py, np.float64), rtol=0, atol=1e-7):
+                raise AssertionError("planecluster: the native route differs from the Python "
+                                     "route on the card's planes")
+            note = (f"; native route == Python route ({len(p_nat)} clusters, "
+                    f"{int((a_nat > 0).sum())} labels)")
+        # The plane module's device spans (its own stream) against the
+        # replays, and the replays against those of the same step without
+        # the plane module (frames 2.., frame 1 holds the captures).
+        spans, replays = r["host_spans"][1:], r["replays"][1:]
+        dev_ms = float(np.median([e - s for s, e in spans]))
+        overlap = _overlap_ms(spans, replays) / max(sum(e - s for s, e in spans), 1e-9)
+        alone = run_system(PreloadedSource(frames[:PATH_FRAMES], intrinsics=intrinsics),
+                           [m for m in modules if m["type"] not in (name, "planefit_visualization")],
+                           dev, f"{name} without the host module", path_plan(12, vote=False),
+                           spans=True)
+        replay_ms = float(np.median([e - s for s, e in replays]))
+        alone_ms = float(np.median([e - s for s, e in alone["replays"][1:]]))
+        err = float(np.abs(np.asarray(card["planes"], np.float64)
+                           - np.asarray(on_cpu["planes"], np.float64)).max(initial=0.0))
+        med = _median(r["ms"])
+        out[name] = dict(ms=med, process_ms=_median(r["process_ms"]), device_span_ms=dev_ms,
+                         overlap=overlap, replay_ms=replay_ms, alone_replay_ms=alone_ms,
+                         alone_ms=_median(alone["ms"]), counts=r["counts"])
+        del alone
+        log(f"planes {name}: {PATH_FRAMES} frames at {H}x{W}, planes_eq on every frame "
+            f"({len(card['planes'])} planes, {int((card['assignments'] > 0).sum())} of "
+            f"{hm.num_labels} labels assigned on frame {check_fid}); frame {check_fid} equal to "
+            f"the CPU port (assignments equal, planes within {err:.3g} of atol {PLANE_ATOL}) and "
+            f"to a second card run{note}; launches {r['counts']}; {kernels_note}")
+        log(f"planes {name} per-frame ms (CUDA events between frame ends, frames "
+            f"3..{PATH_FRAMES}): median {med:.3f} (min {min(r['ms'][1:]):.3f}, max "
+            f"{max(r['ms'][1:]):.3f}), {out[name]['alone_ms']:.3f} without the host module; "
+            f"host module process median {out[name]['process_ms']:.3f} ms a frame; its device "
+            f"span median {dev_ms:.3f} ms a frame on its own stream, {overlap:.4f} of it "
+            f"overlapping a replay; replay span median {replay_ms:.3f} ms against "
+            f"{alone_ms:.3f} without the host module  [{tag}]")
+        del r
+        torch.cuda.empty_cache()
+    return out
+
+
+def features_phase(frames, intrinsics, dev, tag) -> dict:
+    """configs/kitti-features.json's modules (the features module, left and
+    right, and its visualization) at 376x1248 through the System for
+    PATH_FRAMES frames, captured and eager (module_timing), every output of
+    every frame equal; a warm eager step under set_sync_debug_mode("error");
+    frame 2's keypoints equal to the CPU port's at level 0 (levels 1-2: at
+    most FEATURE_LEVEL_ROWS of the rows), descriptors within
+    FEATURE_DESC_BITS of the bits."""
+    from cartslam_tpu_torch.config import build_pipeline
+    from cartslam_tpu_torch.ops.features import level_budgets
+    from cartslam_tpu_torch.runtime.loop import frame_to_device
+    from cartslam_tpu_torch.sources import PreloadedSource
+
+    modules = module_config("kitti-features.json")
+    keys = ("features", "feature_descriptors")
+    runs = {}
+    for mode in ("eager", "captured"):
+        runs[mode] = run_system(PreloadedSource(frames[:PATH_FRAMES], intrinsics=intrinsics),
+                                modules, dev, f"features {mode}", {}, module_timing=mode == "eager",
+                                extra_fetch_keys=keys)
+    for fid in range(1, PATH_FRAMES + 1):
+        bad = _fetched_equal({k: runs["captured"]["seen"][fid][k] for k in keys},
+                             {k: runs["eager"]["seen"][fid][k] for k in keys})
+        if bad:
+            raise AssertionError(f"features frame {fid}: captured != eager on {bad}")
+    # A warm eager step reads nothing back to the host.
+    pipe, _ = build_pipeline(PreloadedSource(frames[:2], intrinsics=intrinsics),
+                             [m for m in modules if m["type"] == "features"], device=dev)
+    state, params = pipe.init_state(), pipe.device_params(pipe.init_host_params())
+    for fid in (1, 2):
+        frame, _ = pipe.prepare(frame_to_device(frames[fid - 1], fid, dev), params)
+        torch.cuda.synchronize()
+        if fid == 2:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, _ = pipe.compute_step(state, frame, params, pipe.variant(fid))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    cpu_pipe, _ = build_pipeline(PreloadedSource(frames[:2], intrinsics=intrinsics),
+                                 [m for m in modules if m["type"] == "features"], device="cpu")
+    fid = 2
+    _, cpu_out = cpu_pipe.step(cpu_pipe.init_state(), frame_to_device(frames[fid - 1], fid, "cpu"),
+                               cpu_pipe.init_host_params(), cpu_pipe.variant(fid))
+    card = runs["captured"]["seen"][fid]
+    k0 = int(level_budgets(card["features"].shape[1], 3, 1.4142135)[0])
+    cf, cd = cpu_out["features"].numpy(), cpu_out["feature_descriptors"].numpy()
+    gf, gd = card["features"], card["feature_descriptors"]
+    if not np.array_equal(gf[:, :k0], cf[:, :k0]):
+        raise AssertionError(f"features: level-0 keypoints differ card vs CPU on "
+                             f"{int((gf[:, :k0] != cf[:, :k0]).any(-1).sum())} rows")
+    rows = float((gf[:, k0:] != cf[:, k0:]).any(-1).mean())
+    bits = int(np.unpackbits((gd ^ cd).view(np.uint8)).sum())
+    if rows > FEATURE_LEVEL_ROWS or bits > FEATURE_DESC_BITS * gd.size * 32:
+        raise AssertionError(f"features: card vs CPU, {rows:.4f} of the level 1-2 rows and "
+                             f"{bits} descriptor bits differ")
+    med = {m: _median(r["ms"]) for m, r in runs.items()}
+    log(f"features: {PATH_FRAMES} frames at {H}x{W}, {card['features'].shape[1]} keypoints a "
+        f"view ({int((gf[..., 2] > 0).sum())} valid on frame {fid}); captured == eager on every "
+        f"output of every frame; a warm step under set_sync_debug_mode('error'); card vs CPU: "
+        f"level-0 keypoints equal, {rows:.4f} of the level 1-2 rows and {bits} of {gd.size * 32} "
+        f"descriptor bits differ")
+    log(f"features per-frame ms (CUDA events between frame ends, frames 3..{PATH_FRAMES}): "
+        f"captured median {med['captured']:.3f} (min {min(runs['captured']['ms'][1:]):.3f}); "
+        f"eager module_timing median {med['eager']:.3f}  [{tag}]")
+    return {"ms": med}
+
+
+def write_zed_recording(path: str):
+    """A 720x1280 ZED npz recording of PATH_FRAMES frames: synthetic frames and an SDK-style
+    measure (minus the true disparity, inf where it is invalid: the top
+    rows and 2% of the pixels), with ZED-like intrinsics (fx 700, 0.12 m
+    baseline).  Returns the measure [n, H, W]."""
+    from cartslam_tpu_torch.sources import SyntheticDataSource
+
+    n = PATH_FRAMES
+    gen = SyntheticDataSource(image_size=(ZH, ZW), num_frames=n, seed=1, fx=700.0,
+                              baseline=0.12, max_disparity=80.0)
+    rng = np.random.default_rng(1)
+    left = np.empty((n, ZH, ZW, 3), np.uint8)
+    right = np.empty((n, ZH, ZW, 3), np.uint8)
+    measure = np.empty((n, ZH, ZW), np.float32)
+    for i in range(n):
+        f = gen.get_next()
+        left[i], right[i] = f["left"], f["right"]
+        m = -gen.ground_truth_disparity(i).astype(np.float32)
+        m[m == 0] = np.inf
+        m[:8] = np.inf
+        m[rng.random((ZH, ZW)) < 0.02] = np.inf
+        measure[i] = m
+    np.savez(path, left=left, right=right, disparity=measure, fx=700.0, cx=ZW / 2, cy=ZH / 2,
+             baseline=0.12)
+    return measure
+
+
+def zed_phase(dev, tag) -> dict:
+    """A 720x1280 npz recording through configs/zed-disparity.json, the
+    top-level configs/zed-planeseg.json (SGM: K1-K4) and
+    configs/modules/zed-planeseg.json (zed_disparity: K2-K4) on the card,
+    PATH_FRAMES frames each: zed_disparity equal to the CPU port on frame 1;
+    each planeseg System captured equal to its eager (module_timing) run on
+    every output of every frame; K2, K3 and K4 equal to their plain versions
+    on the inputs of their first call in each planeseg's eager run (frame 1,
+    at the path's label count); K1 at 720x1280 equal to its plain version
+    once.  Prints the per-frame ms."""
+    import tempfile
+
+    from cartslam_tpu_torch.config import build_system
+    from cartslam_tpu_torch.kernels import sgm as ksgm
+    from cartslam_tpu_torch.ops import color, stereo
+    from cartslam_tpu_torch.sources import ZEDDataSource
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = os.path.join(tmp, "rec.npz")
+        measure = write_zed_recording(rec)
+        src = lambda disp: {"type": "zed", "path": rec, "include_disparity": disp}
+
+        # configs/zed-disparity.json, and its zed_disparity on the CPU.
+        mods = module_config("zed-disparity.json")
+        r = run_system(src(True), mods, dev, "zed-disparity", {"sgm": 0},
+                       extra_fetch_keys=("disparity",))
+        cpu = build_system(src(True), mods, device="cpu", max_frames=1,
+                           extra_fetch_keys=("disparity",))
+        seen = {}
+        cpu.run(on_frame=lambda fid, o: seen.update({fid: o}))
+        if not np.array_equal(r["seen"][1]["disparity"], seen[1]["disparity"]):
+            raise AssertionError("zed_disparity: card != CPU port on frame 1")
+        d = r["seen"][1]["disparity"]
+        inv = ~np.isfinite(measure[0])
+        if not (d[:8] == -32768).all():
+            raise AssertionError("zed_disparity: the measure's inf rows are not -32768")
+        out["zed-disparity"] = _median(r["ms"])
+        log(f"zed-disparity: {PATH_FRAMES} frames at {ZH}x{ZW} from an npz recording "
+            f"({inv.mean():.3f} of frame 1's measure inf); card == CPU port on frame 1; "
+            f"per-frame ms median {out['zed-disparity']:.3f} (frames 3..{PATH_FRAMES})  [{tag}]")
+        del r, cpu
+
+        for label, cfg, disp, plan in (
+                ("zed-planeseg", "zed-planeseg.json", False, path_plan(8)),
+                ("modules/zed-planeseg", "modules/zed-planeseg.json", True,
+                 path_plan(8, sgm=False))):
+            mods = [m for m in module_config(cfg) if not m["type"].endswith("_visualization")]
+            with first_calls() as calls:
+                runs = {"eager": run_system(src(disp), mods, dev, f"{label} eager", plan,
+                                            module_timing=True, extra_fetch_keys=SYSTEM_KEYS)}
+            kernels_note = check_path_kernels(label, calls)
+            del calls
+            runs["captured"] = run_system(src(disp), mods, dev, f"{label} captured", plan,
+                                          extra_fetch_keys=SYSTEM_KEYS)
+            for fid in range(1, PATH_FRAMES + 1):
+                bad = _fetched_equal(runs["captured"]["seen"][fid], runs["eager"]["seen"][fid])
+                if bad:
+                    raise AssertionError(f"{label} frame {fid}: captured != eager on {bad}")
+            med = {m: _median(rr["ms"]) for m, rr in runs.items()}
+            out[label] = dict(ms=med, counts=runs["captured"]["counts"])
+            planes = runs["captured"]["seen"][PATH_FRAMES]["planes"]
+            log(f"{label}: {PATH_FRAMES} frames at {ZH}x{ZW}, captured == eager on every output "
+                f"of every frame; launches {runs['captured']['counts']}; planes on frame "
+                f"{PATH_FRAMES}: {', '.join(f'{(planes == v).mean():.3f}' for v in (0, 1, 2))} "
+                f"(ground / wall / unknown); {kernels_note}")
+            log(f"{label} per-frame ms (frames 3..{PATH_FRAMES}): captured median "
+                f"{med['captured']:.3f} (min {min(runs['captured']['ms'][1:]):.3f}); eager "
+                f"module_timing median {med['eager']:.3f}  [{tag}]")
+            del runs
+            torch.cuda.empty_cache()
+
+        # K1 at 720x1280 against its plain version, once.
+        f = ZEDDataSource(rec).get_next()
+        gl = color.bgr_to_gray(torch.from_numpy(f["left"]).to(dev))
+        gr = color.bgr_to_gray(torch.from_numpy(f["right"]).to(dev))
+        words = [*stereo.census_transform(gl), *stereo.census_transform(gr)]
+        kw = dict(min_disparity=4, num_disparities=D, p1=10, p2=120, uniqueness=12,
+                  subpixel=True, lr_check=True)
+        a = ksgm.sgm_fused(*words, **kw)
+        b = stereo.sgm_from_census_plain(*words, **kw)
+        if not torch.equal(a, b):
+            raise AssertionError(f"K1 at {ZH}x{ZW}: {int((a != b).sum())} pixels differ from "
+                                 "the plain version")
+        log(f"K1 sgm at {ZH}x{ZW}, D={D}: array_equal to its plain version (valid share "
+            f"{float((a != stereo.DISPARITY_INVALID).float().mean()):.3f})")
+        del a, b, words
+        torch.cuda.empty_cache()
+    return out
+
+
+CLI_FRAMES = 30
+
+
 def cli_phase() -> None:
     """The CLI: configs/synthetic-planeseg.json, then the flagship's module
-    config (its two plane-segmentation visualizations) with --timing and
-    --save-samples in a temporary directory: a timing CSV with the JAX
-    columns and a PNG sample of both visualization modules."""
+    config (its two plane-segmentation visualizations) for 30 frames with
+    --timing and --save-samples in a temporary directory: a timing CSV with
+    the JAX columns and a PNG sample of both visualization modules at frame
+    30 (the sink writes the frames with frame_id % 30 == 0)."""
     import tempfile
 
     from cartslam_tpu_torch.__main__ import main as cli_main
@@ -1954,7 +2491,8 @@ def cli_phase() -> None:
                 raise AssertionError("CLI run failed")
             args = [os.path.join(REPO, "configs", "sources", "synthetic.json"),
                     os.path.join(REPO, "configs", "modules", "kitti-planeseg.json"),
-                    "--device", "cuda", "--max-frames", "5", "--timing", "--save-samples"]
+                    "--device", "cuda", "--max-frames", str(CLI_FRAMES), "--timing",
+                    "--save-samples"]
             if cli_main(args) != 0:
                 raise AssertionError("CLI run of the flagship's module config failed")
             timing = os.listdir("timing")
@@ -1964,14 +2502,17 @@ def cli_phase() -> None:
         finally:
             os.chdir(cwd)
     if rows[0] != ["name", "run_id", "time_init", "time_start", "time_end", "duration_ms"] \
-            or sorted(int(r[1]) for r in rows[1:] if r[0] == "frame") != [1, 2, 3, 4, 5]:
+            or sorted(int(r[1]) for r in rows[1:] if r[0] == "frame") != \
+            list(range(1, CLI_FRAMES + 1)):
         raise AssertionError(f"CLI timing CSV: {rows[:3]}")
-    want = ["PlaneSegmentationBEVVisualization-000005.png", "Plane_Segmentation-000005.png"]
+    want = [f"PlaneSegmentationBEVVisualization-{CLI_FRAMES:06d}.png",
+            f"Plane_Segmentation-{CLI_FRAMES:06d}.png"]
     if samples != want:
         raise AssertionError(f"CLI samples {samples}, expected {want}")
     log("cli: configs/synthetic-planeseg.json --device cuda --max-frames 5 OK; "
         "configs/sources/synthetic.json configs/modules/kitti-planeseg.json --device cuda "
-        f"--max-frames 5 --timing --save-samples OK: {timing[0]} with the JAX columns, "
+        f"--max-frames {CLI_FRAMES} --timing --save-samples OK: {timing[0]} with the "
+        "JAX columns, "
         f"samples {samples}")
 
 
@@ -2081,6 +2622,14 @@ def main() -> int:
                   superpixels={"stats_refresh": "phase"},
                   keys=("spatial_phase_full", "spatial_phase"))
 
+    # 4c. the plane fits, the ORB features and the ZED paths
+    planes = planes_phase(source.frames, intrinsics, dev, tag)
+    features = features_phase(source.frames, intrinsics, dev, tag)
+    zed = zed_phase(dev, tag)
+    by_path = {"temporal flagship (System)": system["flagship"]["counts"],
+               **{f"kitti-{k}": v["counts"] for k, v in planes.items()},
+               **{k: v["counts"] for k, v in zed.items() if isinstance(v, dict)}}
+
     # 5. card against CPU
     small_temporal_check(dev)
     small_temporal_check(dev, faithful=True)
@@ -2113,16 +2662,39 @@ def main() -> int:
             f"{r['median_ms']['host keys']:.3f} (host keys), System eager with module_timing "
             f"{r['median_ms']['eager']:.3f}, eager run loop {eager:.3f}; {len(r['graphs'])} "
             f"graphs, capture s {r['graphs']}, peak {r['peak_mib']:.1f} MiB  [{tag}]")
+    for name, r in planes.items():
+        log(f"kitti-{name} per-frame ms, frames 3..{PATH_FRAMES}: System captured "
+            f"{r['ms']:.3f} ({r['alone_ms']:.3f} without {name}); {name} process "
+            f"{r['process_ms']:.3f} ms a frame on the host, device span {r['device_span_ms']:.3f} "
+            f"ms on its own stream, {r['overlap']:.4f} of it overlapping a replay; replay span "
+            f"{r['replay_ms']:.3f} ms ({r['alone_replay_ms']:.3f} without {name})  [{tag}]")
+    log(f"kitti-features per-frame ms, frames 3..{PATH_FRAMES}: System captured "
+        f"{features['ms']['captured']:.3f}, eager module_timing {features['ms']['eager']:.3f}  "
+        f"[{tag}]")
+    log(f"zed-disparity per-frame ms at {ZH}x{ZW}: System captured {zed['zed-disparity']:.3f}  "
+        f"[{tag}]")
+    for label in ("zed-planeseg", "modules/zed-planeseg"):
+        log(f"{label} per-frame ms at {ZH}x{ZW}, frames 3..{PATH_FRAMES}: System captured "
+            f"{zed[label]['ms']['captured']:.3f}, eager module_timing "
+            f"{zed[label]['ms']['eager']:.3f}  [{tag}]")
+    launches_by_path = {}
+    for name in plan["flagship"]:
+        launches_by_path[name] = {p: c[name] for p, c in by_path.items() if c.get(name)}
+        launches[name] = sum(launches_by_path[name].values())
     for name, r in results.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {lib} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), launches {launches[name]} "
-            f"({KERNELS[name][2]})  [{tag}]")
+            f"({KERNELS[name][2]}{': ' + str(launches_by_path[name]) if name in launches_by_path else ''})"
+            f"  [{tag}]")
 
     kernels = []
     for name, (src, replaces, _) in KERNELS.items():
-        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": launches[name], **results[name]})
+        entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                 "launches": launches[name], **results[name]}
+        if name in launches_by_path:
+            entry["launches_by_path"] = launches_by_path[name]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

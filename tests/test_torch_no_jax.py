@@ -2,8 +2,9 @@
 
 The card's machine has no JAX, so nothing the port (or chip_smoke.py)
 imports may pull it in: the child below runs the pipelines, the System
-with its host modules, sinks and checkpoints, and imports the CLI, with
-any ``import jax`` made to fail.
+with its host modules, sinks and checkpoints, the plane fits with the
+native build, the ORB features and the ZED source, and imports the CLI,
+with any ``import jax`` made to fail.
 """
 
 import pathlib
@@ -79,6 +80,39 @@ with tempfile.TemporaryDirectory() as tmp:
     assert system.run() == 2 and not system.failed_frames
     assert len(os.listdir(os.path.join(tmp, "samples"))) == 4  # 2 windows x 2 frames
     assert os.path.exists(os.path.join(tmp, "ck.npz"))
+# The plane fits (host modules on the device, the native region growing and
+# its Python route), the ORB features, the ZED source and zed_disparity.
+import numpy as np
+from cartslam_tpu_torch import native
+from cartslam_tpu_torch.config import build_system
+from cartslam_tpu_torch.models import planecluster
+sp_mods = [{{"type": "superpixels", "block_size": 8, "initial_iterations": 2}},
+           {{"type": "disparity", "num_disparities": 16, "min_disparity": 1}},
+           {{"type": "disparity_derivative"}}, {{"type": "depth"}}]
+for mtype in ("planefit", "planecluster"):
+    system = build_system(src, sp_mods + [{{"type": mtype}}, {{"type": "planefit_visualization"}}],
+                          device="cpu")
+    got = {{}}
+    assert system.run(on_frame=lambda fid, out: got.update(out)) == 2
+    assert "planes_eq" in got and not system.failed_frames
+assert native.available() and system.host_modules[0].route == "native"
+planecluster.grow_clusters_python(np.zeros((4, 4), np.int32), np.zeros((1, 4)),
+                                  np.zeros(1, bool), 1)
+system = build_system(src, [{{"type": "features", "keypoints": 200}},
+                            {{"type": "features_visualization"}}], device="cpu")
+assert system.run() == 2 and not system.failed_frames
+with tempfile.TemporaryDirectory() as tmp:
+    rng = np.random.default_rng(0)
+    np.savez(os.path.join(tmp, "rec.npz"),
+             left=rng.integers(0, 255, (2, 32, 64, 3), dtype=np.uint8),
+             right=rng.integers(0, 255, (2, 32, 64, 3), dtype=np.uint8),
+             disparity=rng.uniform(-6, -1, (2, 32, 64)).astype(np.float32),
+             fx=100.0, cx=32.0, cy=16.0, baseline=0.1)
+    system = build_system({{"type": "zed", "path": os.path.join(tmp, "rec.npz"),
+                            "include_disparity": True}},
+                          [{{"type": "zed_disparity", "smoothing_radius": 2}},
+                           {{"type": "disparity_visualization"}}], device="cpu")
+    assert system.run() == 2 and not system.failed_frames
 from cartslam_tpu_torch.models.planeseg import DisparityPlaneSegmentationModule
 from cartslam_tpu_torch.sources.base import to_grayscale
 # The wrappers of the op-level kernels K6 and K7 import without JAX too.

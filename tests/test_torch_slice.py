@@ -167,15 +167,14 @@ def test_cli_runs_synthetic_config_on_cpu():
 
 def test_registry_rejects_unported_types(tmp_path):
     src = {"type": "synthetic", "image_size": [16, 32], "num_frames": 1}
-    with pytest.raises(ValueError, match="module type 'zed_disparity' is not ported yet"):
-        build_pipeline(src, [{"type": "zed_disparity"}], device="cpu")
-    # The flagship's host visualizations are ported, as host modules that only
-    # a System drives; the feature visualization waits for its device module.
-    # The faithful temporal mode is ported, and an unknown one is refused.
-    with pytest.raises(ValueError, match="'features_visualization' is not ported yet"):
-        build_pipeline(src, [{"type": "features_visualization"}], device="cpu")
-    with pytest.raises(ValueError, match="need a System: use build_system"):
-        build_pipeline(src, [{"type": "disparity_planeseg_visualization"}], device="cpu")
+    # Every module type of the JAX registry is ported; an unknown one is
+    # refused with the JAX message.
+    with pytest.raises(ValueError, match="unknown module type 'stereo_magic'"):
+        build_pipeline(src, [{"type": "stereo_magic"}], device="cpu")
+    # Host modules (the visualizations, the plane fits) need a System.
+    for mtype in ("features_visualization", "disparity_planeseg_visualization"):
+        with pytest.raises(ValueError, match="need a System: use build_system"):
+            build_pipeline(src, [{"type": mtype}], device="cpu")
     with pytest.raises(ValueError, match="unknown temporal_mode 'exact'"):
         build_pipeline(src, [{"type": "superpixels"},
                              {"type": "superpixel_disparity_planeseg",
@@ -188,6 +187,9 @@ def test_registry_rejects_unported_types(tmp_path):
                    '"parallel": {"mode": "multiseq", "batch": 2}}')
     with pytest.raises(ValueError, match="'multiseq' is not ported yet"):
         read_config(str(cfg), device="cpu")
+    with pytest.raises(ValueError, match="'sequences' > 1 .* is not ported yet"):
+        build_pipeline(src, [], device="cpu",
+                       parallel={"mode": "spatial", "devices": 2, "sequences": 2})
 
 
 def test_cuda_device_without_gpu_raises():

@@ -24,6 +24,7 @@ divergences).  Every comparison is array_equal (depth within 2 ulp).
 """
 
 import csv
+import functools
 import logging
 import pathlib
 import time
@@ -49,6 +50,7 @@ from cartslam_tpu_torch.runtime.timing import TimingWriter
 from cartslam_tpu_torch.sources import SyntheticDataSource as TSource
 from cartslam_tpu_torch.utils.plane_params import PlaneParameters as TParams
 from cartslam_tpu_torch.viz import host_modules as tvm
+from cartslam_tpu_torch.viz import ui
 from cartslam_tpu_torch.viz.ui import SampleSink
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -326,7 +328,7 @@ def test_visualization_matches_jax(name, kw, gray):
 
 
 def test_sample_sink_writes_the_last_frame_on_close(tmp_path):
-    sink = SampleSink(directory=str(tmp_path), interval=2)
+    sink = SampleSink(directory=str(tmp_path), interval=2, write_last_on_close=True)
     img = np.full((4, 6, 3), 7, np.uint8)
     for fid in (1, 2, 3):
         sink.set_image_if_later("plane seg", img, fid)
@@ -338,6 +340,9 @@ def test_sample_sink_writes_the_last_frame_on_close(tmp_path):
 
 def test_cli_runs_the_flagship_module_config(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
+    # The CLI's sink writes frames with frame_id % interval == 0 (30): an
+    # interval of 3 puts frame 3 of this short run under that rule.
+    monkeypatch.setattr(ui, "SampleSink", functools.partial(SampleSink, interval=3))
     assert torch_main([str(REPO / "configs" / "sources" / "synthetic.json"),
                        str(REPO / "configs" / "modules" / "kitti-planeseg.json"),
                        "--device", "cpu", "--max-frames", "3", "--timing",
