@@ -9,6 +9,10 @@ graph for its variant; the first frame of each variant includes its
 capture.  ``--module-timing`` runs the eager step module by module instead,
 with a sync and a CSV row per module.  ``--profile DIR`` writes a
 torch.profiler trace of the run (the counterpart of jax.profiler.trace).
+A multi-sequence config (``configs/synthetic-multiseq.json``) runs its B
+sequences through a MultiSeqSystem, one graph replay a round on the card;
+the options that mode does not take (``--module-timing``) are dropped with
+the JAX warning.
 """
 
 from __future__ import annotations

@@ -7,9 +7,11 @@ defaults.  The host module types (visualizations, ``planefit``,
 ``read_system_config`` return the System (runtime/system.py), as the JAX
 functions do; ``build_pipeline`` / ``read_config`` return the pipeline and
 its source alone.  A ``parallel`` block with ``"mode": "spatial"`` builds
-the height-sharded SpatialPipeline over the same modules; the
-multi-sequence modes (``"mode": "multiseq"``, ``"sequences"`` > 1) raise
-"not ported yet".
+the height-sharded SpatialPipeline over the same modules.  The
+multi-sequence modes run only under a System: ``"mode": "multiseq"`` builds
+a MultiSeqSystem over ``batch`` sources (default 1, the device count of one
+card), and ``"mode": "spatial"`` with ``"sequences"`` > 1 a
+SpatialMultiSeqSystem; ``"multihost"`` raises "not ported yet".
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 from .. import models
 from ..runtime.module import HostModule, Module, PipelineContext, checked_device
 from ..parallel.spatial_flagship import SpatialPipeline
+from ..parallel.system import MultiSeqSystem, SpatialMultiSeqSystem
 from ..runtime.pipeline import Pipeline
 from ..runtime.system import System
 from ..sources import DataSource, KITTIDataSource, SyntheticDataSource, ZEDDataSource
@@ -217,12 +220,64 @@ def _warn_warp_bound(modules: list[Module], spatial: bool) -> None:
             )
 
 
+def _replicate_sources(parallel: dict, source_cfg, source, batch: int,
+                       image_size: tuple[int, int]) -> list[DataSource]:
+    """B sources for a lock-step parallel run: `parallel.sources` configs
+    (or DataSources), or the primary config replicated (a synthetic
+    source's seed + i); the primary source is sequence 0's."""
+    src_cfgs = parallel.get("sources")
+    if src_cfgs is None:
+        src_cfgs = []
+        for i in range(batch):
+            c = dict(source_cfg)
+            if c.get("type") == "synthetic":
+                c["seed"] = int(c.get("seed", 0)) + i
+            src_cfgs.append(c)
+    if len(src_cfgs) != batch:
+        raise ValueError("parallel.sources length must equal the sequence count")
+    sources = [source if i == 0 else create_data_source(c) for i, c in enumerate(src_cfgs)]
+    for s in sources:
+        if s.get_image_size() != image_size:
+            raise ValueError("all parallel sources must share image size")
+    return sources
+
+
+_MULTISEQ_KEYS = {"checkpoint_path", "checkpoint_interval", "resume_from", "data_timeout",
+                  "snapshot_interval"}
+
+
+def _split_multiseq_kwargs(system_kwargs: dict) -> dict:
+    """The System options MultiSeqSystem takes; a dropped option that is set
+    is named in a warning."""
+    dropped = sorted(k for k, v in system_kwargs.items() if v and k not in _MULTISEQ_KEYS)
+    if dropped:
+        logging.getLogger("cart.config").warning(
+            "multi-sequence mode ignores system options: %s", dropped)
+    return {k: v for k, v in system_kwargs.items() if k in _MULTISEQ_KEYS}
+
+
+def _sequences(parallel: dict | None) -> int | None:
+    """The sequence count of a multi-sequence parallel block (multiseq's
+    `batch`, the spatial mode's `sequences` > 1); None for one sequence."""
+    if parallel is None:
+        return None
+    if parallel.get("mode", "multiseq") == "multiseq":
+        return int(parallel.get("batch", 1))
+    seqs = int(parallel.get("sequences", 1))
+    return seqs if seqs > 1 else None
+
+
 def _build_spatial_pipeline(parallel: dict, ctx: PipelineContext, modules) -> SpatialPipeline:
     """Height-shard the configured module list: `parallel.devices` is the
-    shard count (default 1), all shards on ctx.device in this version.
-    The flow's seam knobs live under `parallel` (they describe the
-    sharding, not the flow math)."""
+    shard count (default 1), divided by `sequences` in the composed mode,
+    all shards on ctx.device in this version.  The flow's seam knobs live
+    under `parallel` (they describe the sharding, not the flow math)."""
     n = int(parallel.get("devices", 1))
+    seqs = int(parallel.get("sequences", 1))
+    if seqs > 1:
+        if n % seqs:
+            raise ValueError(f"parallel.devices={n} must divide by sequences={seqs}")
+        n //= seqs
     h_local = ctx.height // n if n > 0 and ctx.height % n == 0 else 0
     for m in modules:
         if isinstance(m, models.ImageOpticalFlowModule):
@@ -244,10 +299,8 @@ def _build(source_cfg, modules_cfg: list[dict], device, grayscale: bool,
         mode = parallel.get("mode", "multiseq")
         if mode not in ("multiseq", "spatial"):
             raise ValueError(f"unknown parallel mode '{mode}'")
-        if mode == "multiseq":
-            raise ValueError("parallel mode 'multiseq' is not ported yet")
-        if int(parallel.get("sequences", 1)) > 1:
-            raise ValueError("parallel 'sequences' > 1 (sequences x spatial) is not ported yet")
+        if "multihost" in parallel:
+            raise ValueError("parallel 'multihost' is not ported yet")
     source = create_data_source(source_cfg)
     h, w = source.get_image_size()
     st = ConfigState((h, w))
@@ -256,7 +309,8 @@ def _build(source_cfg, modules_cfg: list[dict], device, grayscale: bool,
     for cfg in modules_cfg:
         m = build_module(cfg, st)
         (host_modules if isinstance(m, HostModule) else modules).append(m)
-    _warn_warp_bound(modules, spatial=parallel is not None)
+    spatial = parallel is not None and parallel.get("mode", "multiseq") == "spatial"
+    _warn_warp_bound(modules, spatial=spatial)
     ctx = PipelineContext(
         height=h,
         width=w,
@@ -264,7 +318,7 @@ def _build(source_cfg, modules_cfg: list[dict], device, grayscale: bool,
         device=device,
         grayscale=grayscale,
     )
-    if parallel is not None:
+    if spatial:
         return _build_spatial_pipeline(parallel, ctx, modules), source, host_modules
     return Pipeline(ctx, modules), source, host_modules
 
@@ -274,9 +328,12 @@ def build_pipeline(source_cfg, modules_cfg: list[dict], *, device="cuda",
                    parallel: dict | None = None) -> tuple[Pipeline | SpatialPipeline, DataSource]:
     """(Pipeline on `device`, its data source) from config dicts.  The
     device defaults to the card; without a GPU that raises.  `parallel`:
-    a config's parallel block (only ``"mode": "spatial"`` is ported).
-    Visualization types are host modules, which only a System drives:
-    here they are refused."""
+    a config's parallel block (``"mode": "spatial"``).  Visualization types
+    are host modules and the multi-sequence modes drive several sources,
+    which only a System does: here they are refused."""
+    if _sequences(parallel) is not None:
+        raise ValueError("the multi-sequence modes run B sources through a System: "
+                         "use build_system")
     pipeline, source, host_modules = _build(source_cfg, modules_cfg, device, grayscale,
                                             parallel)
     if host_modules:
@@ -291,12 +348,22 @@ def build_system(source_cfg, modules_cfg: list[dict], *, grayscale: bool = False
                  device="cuda", **system_kwargs) -> System:
     """The System (runtime/system.py) over the configured modules, with the
     JAX build_system's arguments plus `device` (default the card).  The
-    spatial mode goes through the System too, with the eager step."""
+    spatial mode goes through the System too, with the eager step.  The
+    multi-sequence modes return a MultiSeqSystem (``"mode": "multiseq"``)
+    or a SpatialMultiSeqSystem (``"sequences"`` > 1) over B sources
+    (_replicate_sources), with the System options they take."""
     pipeline, source, host_modules = _build(source_cfg, modules_cfg, device, grayscale,
                                             parallel)
-    return System(source, pipeline, host_modules, timing=timing, image_sink=image_sink,
-                  max_frames=max_frames, max_in_flight=max_in_flight,
-                  extra_fetch_keys=extra_fetch_keys, **system_kwargs)
+    kw = dict(timing=timing, image_sink=image_sink, max_frames=max_frames,
+              max_in_flight=max_in_flight, extra_fetch_keys=extra_fetch_keys)
+    seqs = _sequences(parallel)
+    if seqs is not None:
+        sources = _replicate_sources(parallel, source_cfg, source, seqs,
+                                     (pipeline.ctx.height, pipeline.ctx.width))
+        ms_kwargs = _split_multiseq_kwargs(system_kwargs)
+        cls = SpatialMultiSeqSystem if isinstance(pipeline, SpatialPipeline) else MultiSeqSystem
+        return cls(sources, pipeline, host_modules, **kw, **ms_kwargs)
+    return System(source, pipeline, host_modules, **kw, **system_kwargs)
 
 
 def _read(paths) -> tuple[dict, list[dict], dict]:

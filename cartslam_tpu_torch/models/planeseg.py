@@ -89,6 +89,9 @@ class DisparityPlaneSegmentationModule(Module):
     def host_fetch_keys(self):
         return [KEY_FRAME_HIST]
 
+    def host_fetch_reduce(self):
+        return {KEY_FRAME_HIST: "sum"}  # an additive histogram
+
     def host_state(self):
         p = self.provider.get()
         return {

@@ -91,6 +91,9 @@ class SuperPixelDisparityPlaneSegmentationModule(Module):
     def host_fetch_keys(self):
         return [KEY_DERIVATIVE_HISTOGRAM]
 
+    def host_fetch_reduce(self):
+        return {KEY_DERIVATIVE_HISTOGRAM: "sum"}  # an additive histogram
+
     def host_state(self):
         p = self.provider.get()
         return {

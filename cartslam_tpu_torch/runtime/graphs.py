@@ -23,6 +23,17 @@ outputs are static too: the next replay (of any variant) overwrites them,
 so a caller copies them out (System enqueues the device-to-host copies
 right after the replay, on the same stream).
 
+The multi-sequence System (parallel/system.py) captures B sequences' steps
+into one graph over batched buffers (``StaticBuffers(..., batch=B)``): the
+frame images and every state leaf carry a leading [B] axis (the JAX
+checkpoint layout), the frame id (the round) and the host params are shared.
+Sequence b's step runs on a stream of its own, forked from the capture
+stream and joined before each fetch key's B outputs are stacked, so the
+branches may run side by side on the card; each writes its new state into
+its own slice of the state buffers.  Every module object serves all B
+branches, so what a module keeps between calls outside the state tree must be
+read-only (a constant made once).
+
 All graphs of a pipeline share one memory pool
 (``torch.cuda.graph_pool_handle()``): one private pool each would hold the
 flagship's ~500 MiB of step intermediates three times.  Sharing is safe here
@@ -39,6 +50,8 @@ replayed run are those of the eager run.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import time
 from typing import Any, Mapping
 
@@ -46,6 +59,7 @@ import numpy as np
 import torch
 
 from ..kernels import build
+from .state import map_tree, stack_trees
 
 
 class CaptureError(RuntimeError):
@@ -80,12 +94,6 @@ def _copy_into(dst, src) -> None:
         dst.copy_(src, non_blocking=non_blocking)
 
 
-def _map_tree(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map_tree(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def _torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.zeros(0, dtype)).dtype
 
@@ -94,22 +102,34 @@ class StaticBuffers:
     """The device buffers that every captured variant of one pipeline reads
     and writes.  `frame`: an example host frame (numpy arrays) for the
     images' shapes and dtypes.  The state and the host params start as the
-    pipeline's initial ones."""
+    pipeline's initial ones.  With `batch`=B, the frame's images are
+    already stacked [B, ...], every state leaf is B copies of the initial
+    one, and each sequence has a stream of its own (``streams``)."""
 
-    def __init__(self, pipeline, frame: Mapping[str, Any]):
+    def __init__(self, pipeline, frame: Mapping[str, Any], batch: int | None = None):
         dev = pipeline.ctx.device
         if dev.type != "cuda":
             raise CaptureError(f"a captured step needs a CUDA device, not {dev}")
         self.device = dev
+        self.batch = batch
         self.frame: dict[str, torch.Tensor] = {
             k: torch.empty(v.shape, dtype=_torch_dtype(v.dtype), device=dev)
             for k, v in frame.items() if isinstance(v, np.ndarray)
         }
         self.frame["frame_id"] = torch.zeros((), dtype=torch.int32, device=dev)
-        self.state = _map_tree(torch.Tensor.clone, pipeline.init_state())
+        init = pipeline.init_state()
+        self.state = (map_tree(torch.Tensor.clone, init) if batch is None
+                      else stack_trees([init] * batch))
         self.params = pipeline.device_params(pipeline.init_host_params())
         self.pool = torch.cuda.graph_pool_handle()
+        self.streams = [torch.cuda.Stream(device=dev) for _ in range(batch or 0)]
         self._state_storages = {t.untyped_storage().data_ptr() for t in _leaves(self.state)}
+
+    def sequence(self, b: int) -> tuple[dict, dict]:
+        """(state, frame) of sequence b of batched buffers: views of slice b,
+        the frame id shared."""
+        frame = {k: v if k == "frame_id" else v[b] for k, v in self.frame.items()}
+        return map_tree(lambda t: t[b], self.state), frame
 
     def load_frame(self, images: Mapping[str, torch.Tensor], frame_id: int) -> None:
         """Enqueue the next frame's copies on the current stream: `images`
@@ -142,6 +162,69 @@ def _restore_counters(snap: dict[str, tuple[int, int]]) -> None:
         c.launches, c.plain_calls = snap.get(name, (0, 0))
 
 
+@contextlib.contextmanager
+def _no_gc():
+    """One collection, then Python's cyclic collector off for the block.  A
+    collection during a capture can free an unreachable CUDA graph of an
+    earlier pipeline, and destroying a graph is not permitted while a stream
+    captures: it invalidates the capture."""
+    enabled = gc.isenabled()
+    gc.collect()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
+def _sequence_body(pipeline, bufs: StaticBuffers, state, frame, variant,
+                   fetch_keys: frozenset) -> dict[str, torch.Tensor]:
+    """One sequence's step on its static `state` and `frame`: the new state
+    written back into `state`, the fetch keys' outputs returned."""
+    new_state, available = pipeline.compute_step(state, frame, bufs.params, variant)
+    # The write-back below would change an output that shares memory with
+    # the state.
+    outputs = {k: v.clone() if bufs.aliases_state(v) else v
+               for k, v in available.items() if k in fetch_keys}
+    _copy_into(state, map_tree(lambda t: t.clone() if bufs.aliases_state(t) else t,
+                                new_state))
+    return outputs
+
+
+def _batched_body(pipeline, bufs: StaticBuffers, variant,
+                  fetch_keys: frozenset) -> dict[str, torch.Tensor]:
+    """Sequence b's step on stream b of batched buffers, forked from the
+    current stream and joined back into it: the new states written back,
+    each fetch key's B outputs stacked after the join."""
+    main = torch.cuda.current_stream(bufs.device)
+    per_sequence = []
+    for b, stream in enumerate(bufs.streams):
+        stream.wait_stream(main)
+        with torch.cuda.stream(stream):
+            state, frame = bufs.sequence(b)
+            per_sequence.append(_sequence_body(pipeline, bufs, state, frame, variant,
+                                               fetch_keys))
+    for stream in bufs.streams:
+        main.wait_stream(stream)
+    return {k: torch.stack([o[k] for o in per_sequence]) for k in per_sequence[0]}
+
+
+def _batched_warm_up(pipeline, bufs: StaticBuffers, variant) -> None:
+    """Each sequence's step once on its own stream, one after another, the
+    results dropped.  A warm-up's blocks stay cached on its stream, which
+    runs nothing but captures (in the graphs' pool) later, so they are
+    released before the next sequence's: the peak holds one warm-up, not B."""
+    main = torch.cuda.current_stream(bufs.device)
+    for b, stream in enumerate(bufs.streams):
+        stream.wait_stream(main)
+        with torch.cuda.stream(stream):
+            state, frame = bufs.sequence(b)
+            pipeline.compute_step(state, frame, bufs.params, variant)
+        main.wait_stream(stream)
+        torch.cuda.empty_cache()
+
+
 class CapturedStep:
     """One (variant, fetch keys) of a pipeline's step as a CUDA graph over
     `buffers`.  Calling it replays the graph on the current stream and
@@ -149,9 +232,10 @@ class CapturedStep:
     replay of any variant).
 
     Built in three steps: one eager warm-up run of the step body on a side
-    stream (the kernels' first launches, the allocator's blocks; its
-    results are dropped and the state is not written), the capture with the
-    shared pool, and the counts of each kernel's launches at capture.
+    stream, or of each sequence's on its own stream (the kernels' first
+    launches, the allocator's blocks; its results are dropped and the state
+    is not written), the capture with the shared pool, and the counts of
+    each kernel's launches at capture (B times a sequence's when batched).
     ``capture_error_mode="thread_local"``: the System's prefetch and fetch
     threads keep using CUDA (pinned memory, event waits) while the main
     thread captures, and only the capturing thread's calls are checked."""
@@ -164,25 +248,23 @@ class CapturedStep:
         before = counter_snapshot()
         t0 = time.perf_counter()
         try:
-            side = torch.cuda.Stream(device=bufs.device)
-            side.wait_stream(torch.cuda.current_stream(bufs.device))
-            with torch.cuda.stream(side):
-                pipeline.compute_step(bufs.state, bufs.frame, bufs.params, variant)
-            torch.cuda.current_stream(bufs.device).wait_stream(side)
+            if bufs.batch is None:
+                side = torch.cuda.Stream(device=bufs.device)
+                side.wait_stream(torch.cuda.current_stream(bufs.device))
+                with torch.cuda.stream(side):
+                    pipeline.compute_step(bufs.state, bufs.frame, bufs.params, variant)
+                torch.cuda.current_stream(bufs.device).wait_stream(side)
+            else:
+                _batched_warm_up(pipeline, bufs, variant)
             at_capture = counter_snapshot()
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph, pool=bufs.pool,
-                                  capture_error_mode="thread_local"):
-                new_state, available = pipeline.compute_step(bufs.state, bufs.frame,
-                                                             bufs.params, variant)
-                outputs = {}
-                for k, v in available.items():
-                    if k in self.fetch_keys:
-                        # The write-back below would change an output that
-                        # shares memory with the state.
-                        outputs[k] = v.clone() if bufs.aliases_state(v) else v
-                _copy_into(bufs.state, _map_tree(
-                    lambda t: t.clone() if bufs.aliases_state(t) else t, new_state))
+            with _no_gc(), torch.cuda.graph(self.graph, pool=bufs.pool,
+                                            capture_error_mode="thread_local"):
+                if bufs.batch is None:
+                    outputs = _sequence_body(pipeline, bufs, bufs.state, bufs.frame, variant,
+                                             self.fetch_keys)
+                else:
+                    outputs = _batched_body(pipeline, bufs, variant, self.fetch_keys)
         except Exception as e:
             _restore_counters(before)
             raise CaptureError(f"capturing the step of variant {variant!r} failed: {e}") from e

@@ -153,6 +153,13 @@ class Module:
         """Output keys this module wants back on host each frame."""
         return []
 
+    def host_fetch_reduce(self) -> dict[str, str]:
+        """Batch reduction per host-fetched key for the multi-sequence mode:
+        'sum' marks an additive key (a histogram) that is summed over the
+        sequences; an undeclared key is passed as sequence 0's, with a
+        warning (parallel/system.py, MultiSeqSystem)."""
+        return {}
+
     def host_update(
         self, ctx: PipelineContext, frame_id: int, fetched: Mapping[str, np.ndarray],
         system=None,

@@ -44,3 +44,18 @@ def state_to_numpy(tree: Any) -> Any:
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
     return np.asarray(tree)
+
+
+def map_tree(fn, tree: Any) -> Any:
+    """Nested dict with `fn` applied to each leaf."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def stack_trees(trees: list) -> Any:
+    """Trees of the same structure -> one tree of their leaves stacked on a
+    new leading axis (the multi-sequence batch)."""
+    if isinstance(trees[0], dict):
+        return {k: stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)

@@ -87,6 +87,8 @@ class System:
         run_retention: fetched runs kept reachable by id.
     """
 
+    batch = 1  # frames a round: the multi-sequence System's B
+
     def __init__(
         self,
         source,
@@ -181,25 +183,33 @@ class System:
                 continue
         return False
 
+    def _read(self):
+        """The next frame as (host frame, its images as tensors, pinned on a
+        card), or None at the end of the source.  The grayscale switch
+        converts the frames at the source boundary, as the JAX System does."""
+        if self.source.is_finished():
+            return None
+        frame = self.source.get_next()
+        if frame is None:
+            return None
+        if self.pipeline.ctx.grayscale:
+            frame = to_grayscale(frame)
+        images = {k: torch.from_numpy(np.ascontiguousarray(v))
+                  for k, v in frame.items() if isinstance(v, np.ndarray)}
+        if self.device.type == "cuda":
+            images = {k: v.pin_memory() for k, v in images.items()}
+        return frame, images
+
     def _prefetch_worker(self):
         """Decode ahead; on a card, stage each frame's images in pinned host
         memory, from which the main thread copies them without waiting.
         (PyTorch's pinned-memory cache reuses a block only after the copy
-        that read it is done.)  The grayscale switch converts the frames at
-        the source boundary, as the JAX System does."""
+        that read it is done.)"""
         try:
-            while not self.source.is_finished() and not self._stop.is_set():
-                frame = self.source.get_next()
-                if frame is None:
+            while not self._stop.is_set():
+                item = self._read()
+                if item is None or not self._put(item):
                     break
-                if self.pipeline.ctx.grayscale:
-                    frame = to_grayscale(frame)
-                images = {k: torch.from_numpy(np.ascontiguousarray(v))
-                          for k, v in frame.items() if isinstance(v, np.ndarray)}
-                if self.device.type == "cuda":
-                    images = {k: v.pin_memory() for k, v in images.items()}
-                if not self._put((frame, images)):
-                    return
         except BaseException as e:  # surfaced in run()
             self._prefetch_error = e
         finally:
@@ -265,19 +275,41 @@ class System:
             if thread.is_alive():
                 thread.join(timeout=10)
 
+    # ------------------------------------------- what the multi-sequence
+    # System (parallel/system.py) overrides
+
+    def _sources(self) -> list:
+        return [self.source]
+
+    def _initial_state(self) -> dict:
+        return self.pipeline.init_state()
+
+    def _static_buffers(self, frame_np):
+        return self.pipeline.static_buffers(frame_np)
+
+    def _captured_step(self, variant):
+        return self.pipeline.captured_step(variant, self._fetch_keys)
+
+    def _eager_step(self, state, frame_dev, params, variant):
+        state, outputs = self.pipeline.step(state, frame_dev, params, variant)
+        return state, {k: v for k, v in outputs.items() if k in self._fetch_keys}
+
+    # ------------------------------------------------------------------- run
+
     def _run(self, thread, on_frame):
         pipe = self.pipeline
         dev = self.device
         start_frame = 0
-        state = pipe.init_state()
+        state = self._initial_state()
         if self.resume_from is not None:
             raw, start_frame, host_state = load_checkpoint(self.resume_from, state)
             state = state_from_reference(raw, dev)
             for m in pipe.modules:
                 if m.name in host_state:
                     m.restore_host_state(host_state[m.name])
-            if hasattr(self.source, "skip"):
-                self.source.skip(start_frame)
+            for source in self._sources():
+                if hasattr(source, "skip"):
+                    source.skip(start_frame)
             log.info("resumed from %s at frame %d", self.resume_from, start_frame)
         host_params = pipe.init_host_params()
         # The params the step reads live on the device; they are written
@@ -330,7 +362,7 @@ class System:
                 log.error("frame %d host processing failed:\n%s", fid, traceback.format_exc())
             if on_frame is not None:
                 on_frame(fid, fetched)
-            processed += 1
+            processed += self.batch
             return True
 
         def drain_all():
@@ -349,7 +381,7 @@ class System:
                     set_state(snap_state)
                     log.warning("recovered pipeline state from snapshot")
                 else:
-                    set_state(state_to_numpy(pipe.init_state()))
+                    set_state(state_to_numpy(self._initial_state()))
                     log.warning("no snapshot available; state re-initialized")
 
             item = self._prefetch_queue.get()
@@ -366,14 +398,14 @@ class System:
             try:
                 if self.captured:
                     if bufs is None:
-                        bufs = pipe.static_buffers(frame_np)
+                        bufs = self._static_buffers(frame_np)
                         bufs.load_state(state)
                         state = None
                     if uploaded["version"] != self._params_version:
                         bufs.load_params(host_params)
                         uploaded["version"] = self._params_version
                     bufs.load_frame(images, frame_id)
-                    outputs = pipe.captured_step(variant, self._fetch_keys)()
+                    outputs = self._captured_step(variant)()
                 else:
                     if uploaded["version"] != self._params_version:
                         uploaded["params"] = pipe.device_params(host_params)
@@ -386,9 +418,8 @@ class System:
                             state, frame_dev, uploaded["params"], variant, self._fetch_keys)
                         self._emit_module_rows(frame_id, mod_times)
                     else:
-                        state, outputs = pipe.step(state, frame_dev, uploaded["params"],
-                                                   variant)
-                        outputs = {k: v for k, v in outputs.items() if k in self._fetch_keys}
+                        state, outputs = self._eager_step(state, frame_dev, uploaded["params"],
+                                                          variant)
                 slot = self._stage(outputs)
             except CaptureError:
                 raise
@@ -440,10 +471,18 @@ class System:
             h.end = round(base + t_end * 1000, 3)
             self.timing.end_timing_at(h)
 
+    def _module_fetched(self, m, fetched: dict) -> dict:
+        """The fetched keys that module m's host_update reads."""
+        return {k: fetched[k] for k in m.host_fetch_keys() if k in fetched}
+
+    def _host_view(self, frame_np, fetched: dict):
+        """The frame and fetched dict that the host modules see."""
+        return frame_np, fetched
+
     def _host_post_frame(self, frame_id, frame_np, fetched, host_params):
         for m in self.pipeline.modules:
-            sub = {k: fetched[k] for k in m.host_fetch_keys() if k in fetched}
-            updated = m.host_update(self.pipeline.ctx, frame_id, sub, system=self)
+            updated = m.host_update(self.pipeline.ctx, frame_id,
+                                    self._module_fetched(m, fetched), system=self)
             if updated:
                 host_params[m.name] = {**host_params.get(m.name, {}), **updated}
                 self._params_version += 1
@@ -451,6 +490,7 @@ class System:
         # Host-computed per-run data: merged into the frame's fetched dict
         # (the same object the retention ring holds), so get_run_by_id and
         # later host modules see the keys.
+        frame_np, fetched = self._host_view(frame_np, fetched)
         for hm in self.host_modules:
             if not hm.provides_data():
                 continue

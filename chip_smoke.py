@@ -135,6 +135,21 @@ Phases (each raises on failure; none is caught):
                     plain version.
                 Their K1-K4 launches join the flagship's in the kernels line
                 (launches_by_path).
+  4d. multiseq - the multi-sequence modes (multiseq_phase): 8 synthetic
+                sequences (seeds 0-7) of the flagship for 65 rounds through the
+                MultiSeqSystem, the captured batch (one graph a variant, each
+                sequence on its own stream) equal to the eager batched step on
+                every output of every sequence and round and the final state,
+                K1-K4 8 x the flagship's plan; with a static provider, each
+                sequence of the batch equal to the single-sequence System on
+                its source (12 rounds); configs/synthetic-multiseq.json on the
+                card equal to the CPU port (10 rounds); the composed mode
+                (8 devices, 2 sequences: 4 shards each) equal to the full frame
+                (4 rounds), with K2, K3 and K4 equal to their plain versions on
+                their first calls' inputs on each shard; the ms a round, frames/s against the
+                single-sequence System, replay spans, peak memory, capture
+                seconds and a profile of rounds 3..12.  Their K1-K4 launches
+                join the kernels line ("multiseq (B=8)").
   5. parity   - the small temporal slice (64x128, 6 frames) on the card and on
                 the CPU, every output and the final state equal, and the same
                 with the reference-faithful modes; the full-size flow of one
@@ -158,10 +173,12 @@ result line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import torch
@@ -2044,6 +2061,7 @@ def run_system(source, modules, dev, label, want, *, frames=None, hm_type=None, 
         raise AssertionError(f"{label}: no {hm_type.__name__} in the System")
     ends, seen, replays, host_spans, process_ms = [], {}, [], [], []
     _frame_end_events(system, ends)
+    gc_seen = _watch_gc(system)
     ref = torch.cuda.Event(enable_timing=True)
     if spans:
         _instrument(system, replays, host_spans, process_ms, hm)
@@ -2057,6 +2075,7 @@ def run_system(source, modules, dev, label, want, *, frames=None, hm_type=None, 
     if n != frames or sorted(seen) != list(range(1, frames + 1)) or system.failed_frames:
         raise AssertionError(f"{label}: {n} frames, failed {system.failed_frames}")
     _counts_equal(label, counts, want)
+    _gc_held(label, system, gc_seen)
     ms = [ends[i - 1].elapsed_time(ends[i]) for i in range(1, len(ends))]
     graphs = {str(v.variant): round(v.capture_s, 3)
               for v in getattr(system.pipeline, "captured_steps", {}).values()}
@@ -2070,21 +2089,32 @@ PATH_KERNELS = ("moment_tally", "relax_sweeps", "vote_tally")
 
 
 @contextlib.contextmanager
-def first_calls():
+def first_calls(by_shard: bool = False):
     """Clones of the arguments of each of K2's, K3's and K4's wrappers'
     first call outside a capture while the block runs: frame 1's inputs,
-    from an eager step or a captured step's eager warm-up."""
+    from an eager step or a captured step's eager warm-up.  With
+    `by_shard`, the first call on each thread (a spatial path's shard
+    threads, parallel/group.py) at each label shape and row offset.
+    Yields {name: [(args, kwargs), ...]}."""
     from cartslam_tpu_torch.kernels import relax as krelax
     from cartslam_tpu_torch.kernels import tally as ktally
 
     owners = {"moment_tally": ktally, "relax_sweeps": krelax, "vote_tally": ktally}
-    calls, orig = {}, {name: getattr(mod, name) for name, mod in owners.items()}
+    calls, seen, orig = {}, set(), {name: getattr(mod, name) for name, mod in owners.items()}
     clone = lambda x: x.clone() if isinstance(x, torch.Tensor) else x
+    lock = threading.Lock()
 
     def recorder(name, fn):
         def call(*args, **kw):
-            if name not in calls and not torch.cuda.is_current_stream_capturing():
-                calls[name] = ([clone(a) for a in args], {k: clone(v) for k, v in kw.items()})
+            key = (name, threading.current_thread().name, tuple(args[0].shape),
+                   kw.get("row0")) if by_shard else name
+            if not torch.cuda.is_current_stream_capturing():
+                with lock:
+                    new = key not in seen
+                    seen.add(key)
+                if new:
+                    calls.setdefault(name, []).append(
+                        ([clone(a) for a in args], {k: clone(v) for k, v in kw.items()}))
             return fn(*args, **kw)
         return call
     for name, mod in owners.items():
@@ -2098,27 +2128,28 @@ def first_calls():
 
 def check_path_kernels(label, calls, names=PATH_KERNELS) -> str:
     """K2, K3 and K4 (those of `names`) on the card against their plain
-    versions on the inputs of their first call on a path (first_calls):
-    the tables and counts equal, the labels within RELAX_LABEL_BOUND."""
+    versions on the inputs of each call first_calls recorded on a path:
+    the tables and counts equal, the labels within RELAX_LABEL_BOUND.  A K2
+    call that took a reduce (the spatial psum) runs again with the identity
+    reduce: the int64 table and rounding step it ran, on its shard."""
     from cartslam_tpu_torch.kernels import relax as krelax
     from cartslam_tpu_torch.kernels import tally as ktally
 
     missing = [n for n in names if n not in calls]
     if missing:
         raise AssertionError(f"{label}: no call of {missing} was recorded")
-    said = []
-    if "moment_tally" in names:
-        (lab, d, num, *rest), kw = calls["moment_tally"]
-        if any(r is not None for r in (*rest, *kw.values())):
-            raise AssertionError(f"{label}: K2 was called with a reduce")
-        got = ktally.moment_tally(lab, d, num)
+    todo, said = {n: calls[n] for n in names}, []
+    for (lab, d, num, *rest), kw in todo.get("moment_tally", ()):
+        reduce = rest[0] if rest else kw.get("reduce")
+        got = ktally.moment_tally(lab, d, num, None if reduce is None else (lambda t: t))
         if not torch.equal(got, ktally.moment_tally_plain(lab.reshape(-1),
                                                           d.reshape(d.shape[0], -1), num)):
-            raise AssertionError(f"{label}: K2 differs from its plain version on frame 1's "
-                                 "labels and data")
-        said.append(f"K2 ({d.shape[0]} channels, {num} labels)")
-    if "relax_sweeps" in names:
-        args, kw = calls["relax_sweeps"]
+            raise AssertionError(f"{label}: K2 differs from its plain version on a first "
+                                 f"call's labels and data ({'x'.join(map(str, lab.shape))})")
+        said.append(f"K2 ({d.shape[0]} channels, {num} labels"
+                    f"{'' if reduce is None else ', int64 table'}) at "
+                    f"{'x'.join(map(str, lab.shape))}")
+    for args, kw in todo.get("relax_sweeps", ()):
         lab, table, data, feats, c_total, iterations, direct, diagonal = args[:8]
         prog = args[8] if len(args) > 8 else kw.get("prog")
         phases, row0 = kw.get("phases", 1), kw.get("row0", 0)
@@ -2127,20 +2158,41 @@ def check_path_kernels(label, calls, names=PATH_KERNELS) -> str:
                                          diagonal, prog, phases=phases, row0=row0)
         ndiff = int((got != want).sum())
         if ndiff > RELAX_LABEL_BOUND or torch.equal(got, lab):
-            raise AssertionError(f"{label}: K3 ({iterations} sweeps) differs from its plain "
-                                 f"version on {ndiff} pixels (bound {RELAX_LABEL_BOUND}), or "
-                                 "moved nothing")
+            raise AssertionError(f"{label}: K3 ({iterations} sweeps, row0 {row0}) differs from "
+                                 f"its plain version on {ndiff} pixels (bound "
+                                 f"{RELAX_LABEL_BOUND}), or moved nothing")
         said.append(f"K3 ({iterations} sweeps x {phases} phase(s), "
-                    f"{krelax.instantiation(feats, c_total)}: {ndiff} labels differ)")
-    if "vote_tally" in names:
-        (lab, v, num, classes), _ = calls["vote_tally"]
+                    f"{krelax.instantiation(feats, c_total)}, row0 {row0}: {ndiff} labels "
+                    f"differ) at {'x'.join(map(str, lab.shape))}")
+    for (lab, v, num, classes), _ in todo.get("vote_tally", ()):
         if not torch.equal(ktally.vote_tally(lab, v, num, classes),
                            ktally.vote_tally_plain(lab.reshape(-1), v.reshape(-1), num, classes)):
-            raise AssertionError(f"{label}: K4 differs from its plain version on frame 1's "
-                                 "labels and votes")
-        said.append(f"K4 ({num} labels, {classes} classes)")
-    shape = "x".join(map(str, calls[names[0]][0][0].shape))
-    return f"{', '.join(said)} at {shape} equal to their plain versions on frame 1's inputs"
+            raise AssertionError(f"{label}: K4 differs from its plain version on a first "
+                                 f"call's labels and votes ({'x'.join(map(str, lab.shape))})")
+        said.append(f"K4 ({num} labels, {classes} classes) at {'x'.join(map(str, lab.shape))}")
+    return f"{', '.join(said)}: equal to their plain versions on their first calls' inputs"
+
+
+def _watch_gc(system) -> list:
+    """Records gc.isenabled() at each call of a captured System's
+    Pipeline.compute_step made while a stream captures: a collection during
+    a capture can destroy an earlier System's graph and invalidate it."""
+    seen = []
+    if system.captured:
+        step = system.pipeline.compute_step
+
+        def compute_step(*args, **kw):
+            if torch.cuda.is_current_stream_capturing():
+                seen.append(gc.isenabled())
+            return step(*args, **kw)
+        system.pipeline.compute_step = compute_step
+    return seen
+
+
+def _gc_held(label, system, seen) -> None:
+    if system.captured and (not seen or any(seen)):
+        raise AssertionError(f"{label}: the step was captured with Python's cyclic collector "
+                             f"on, or not captured ({len(seen)} captured step bodies)")
 
 
 def _median(xs) -> float:
@@ -2472,6 +2524,354 @@ def zed_phase(dev, tag) -> dict:
 CLI_FRAMES = 30
 
 
+# ------------------------------------------------------------- multiseq
+# The multi-sequence modes: B sequences in lock-step through one pipeline
+# (parallel/system.MultiSeqSystem), and sequences x spatial.
+MULTISEQ_B = 8
+MULTISEQ_ROUNDS = FRAMES  # 65: the initial, normal and reset variants
+BLEED_ROUNDS = 12
+SHIPPED_ROUNDS = 10
+COMPOSED = {"mode": "spatial", "devices": 8, "sequences": 2}
+COMPOSED_ROUNDS = 4
+MULTISEQ_PROFILE_ROUNDS = (3, 12)
+# A static provider (configs/modules/zed-planeseg.json's ranges): the
+# sequences do not interact through the host params.
+STATIC_PROVIDER = {"type": "static", "horizontal_range_min": 1, "horizontal_range_max": 30,
+                   "vertical_range_min": -3, "vertical_range_max": 1}
+
+
+def multiseq_frames(first: list, n: int) -> list[list]:
+    """The frames of synthetic sequences 0..n-1 (seed i, the flagship's
+    source parameters) preloaded in host memory; sequence 0's are `first`."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cartslam_tpu_torch.sources import PreloadedSource, SyntheticDataSource
+
+    def make(seed):
+        return PreloadedSource.wrap(SyntheticDataSource(
+            image_size=(H, W), num_frames=len(first), seed=seed, max_disparity=80.0,
+            baseline=20.0)).frames
+    with ThreadPoolExecutor(max_workers=n - 1) as pool:
+        return [first] + list(pool.map(make, range(1, n)))
+
+
+def _digests(fetched: dict, batch: int | None) -> list[dict]:
+    """SHA-1 of each key's array (NaN made canonical), per sequence of a
+    batched fetch (or of one fetch when batch is None): compares runs whose
+    outputs are too large to keep (8 x 13 MB a round)."""
+    import hashlib
+
+    def one(x):
+        if x.dtype.kind == "f":
+            x = np.where(np.isnan(x), np.array(np.nan, x.dtype), x)
+        h = hashlib.sha1(f"{x.shape} {x.dtype}".encode())
+        h.update(np.ascontiguousarray(x).tobytes())
+        return h.hexdigest()
+    if batch is None:
+        return [{k: one(v) for k, v in fetched.items()}]
+    return [{k: one(v[b]) for k, v in fetched.items()} for b in range(batch)]
+
+
+def run_multiseq(frames_by_seq, intrinsics, modules, dev, label, want, *, rounds,
+                 parallel=None, captured=True, keys=SYSTEM_KEYS, spans=False, keep=False):
+    """`modules` over the sequences `frames_by_seq` (`rounds` rounds) through
+    build_system with a multi-sequence parallel block (default multiseq, B =
+    the sequences), on the card: counts from 0 just before the run and read
+    just after, checked against `want` with no plain call.  captured=False
+    runs the eager batched step (one sequence after another on one stream).
+    Returns the System, each round's per-sequence digests (or, with `keep`,
+    the fetched arrays), the ms a round (CUDA events between round ends), the
+    counts, the peak device memory allocated and reserved (the B branches'
+    intermediates stay reserved apart, since each stream reuses only its own
+    blocks), the capture seconds by variant and, with `spans`, the replays'
+    spans (CUDA events around each replay)."""
+    from cartslam_tpu_torch.config import build_system
+    from cartslam_tpu_torch.kernels import build
+    from cartslam_tpu_torch.sources import PreloadedSource
+
+    srcs = [PreloadedSource(f[:rounds], intrinsics=intrinsics) for f in frames_by_seq]
+    parallel = {**(parallel or {"mode": "multiseq", "batch": len(srcs)}), "sources": srcs}
+    system = build_system(srcs[0], modules, device=dev, parallel=parallel,
+                          extra_fetch_keys=keys, max_in_flight=SYSTEM_DEPTH)
+    system.captured = captured and system.captured
+    ends, seen, replays = [], {}, []
+    _frame_end_events(system, ends)
+    gc_seen = _watch_gc(system)
+    if spans:
+        step_of = system._captured_step
+
+        def captured_step(variant):
+            step = step_of(variant)
+
+            def call():
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                out = step()
+                b.record()
+                replays.append((a, b))
+                return out
+            return call
+        system._captured_step = captured_step
+    batch = len(srcs)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    build.reset_counts()
+    n = system.run(on_frame=lambda fid, out: seen.update(
+        {fid: dict(out) if keep else _digests(out, batch)}))
+    torch.cuda.synchronize()
+    counts = {c.name: (c.launches, c.plain_calls) for c in build.COUNTERS.values()}
+    if (n != rounds * batch or sorted(seen) != list(range(1, rounds + 1))
+            or system.failed_frames):
+        raise AssertionError(f"{label}: {n} frames, failed {system.failed_frames}")
+    _counts_equal(label, counts, want)
+    _gc_held(label, system, gc_seen)
+    return dict(system=system, seen=seen, counts={k: v[0] for k, v in counts.items()},
+                ms=[ends[i - 1].elapsed_time(ends[i]) for i in range(1, len(ends))],
+                peak=torch.cuda.max_memory_allocated(dev) / 2**20,
+                reserved=torch.cuda.max_memory_reserved(dev) / 2**20,
+                graphs={str(v.variant): round(v.capture_s, 3)
+                        for v in system.captured_steps.values()},
+                replays=[a.elapsed_time(b) for a, b in replays])
+
+
+def _digests_equal(label, got: dict, want: dict, seqs=None) -> None:
+    """Every round's per-sequence digests of `got` equal `want`'s (on the
+    keys `got` fetched); `seqs`: the sequences of `want` to compare with."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{label}: rounds {sorted(got)} vs {sorted(want)}")
+    for fid in got:
+        for b, g in enumerate(got[fid]):
+            w = want[fid][b if seqs is None else seqs[b]]
+            bad = [k for k in g if g[k] != w.get(k)]
+            if bad:
+                raise AssertionError(f"{label} round {fid} sequence {b}: differs on {bad}")
+
+
+def multiseq_profile(frames_by_seq, intrinsics, dev, tag) -> None:
+    """A fresh captured multiseq run (host keys) with rounds
+    MULTISEQ_PROFILE_ROUNDS under torch.profiler: wall ms a round, device
+    busy ms and idle share, device ms by kernel."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from cartslam_tpu_torch.config import build_system
+    from cartslam_tpu_torch.sources import PreloadedSource
+
+    first, last = MULTISEQ_PROFILE_ROUNDS
+    srcs = [PreloadedSource(f[:last], intrinsics=intrinsics) for f in frames_by_seq]
+    system = build_system(srcs[0], flagship_modules(), device=dev, max_in_flight=SYSTEM_DEPTH,
+                          parallel={"mode": "multiseq", "batch": len(srcs), "sources": srcs})
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = {}
+
+    def on_dispatch(k):
+        if k == first - 1:
+            torch.cuda.synchronize()
+            prof.start()
+            window["t0"] = time.perf_counter()
+        elif k == last:
+            torch.cuda.synchronize()
+            window["wall_ms"] = (time.perf_counter() - window["t0"]) * 1e3
+            prof.stop()
+
+    _frame_end_events(system, [], on_dispatch)
+    system.run()
+    n = last - first + 1
+    _device_report(prof, n, window["wall_ms"] / n,
+                   f"multiseq (B={len(srcs)}) captured profile, per ROUND, rounds {first}..{last}",
+                   tag)
+
+
+def multiseq_phase(first_frames, intrinsics, dev, tag, plan, single_ms) -> dict:
+    """The multi-sequence modes on the card, each gate raising:
+      (a) MULTISEQ_B synthetic sequences (seeds 0..7) of the flagship for
+          MULTISEQ_ROUNDS rounds: the captured MultiSeqSystem (one graph a
+          variant holding the 8 sequences' steps, each on its own stream)
+          equal to the eager batched step on the card (one sequence after
+          another on one stream) on every fetched output of every sequence
+          and round (all of the step's keys) and on the final state; a
+          captured run fetching the host keys equal too, and timed;
+      (b) with a static provider, BLEED_ROUNDS rounds: sequence b of the
+          captured batch equal to the single-sequence captured System on
+          source b, every output, for every b (no bleed between streams);
+      (c) configs/synthetic-multiseq.json as written through
+          read_system_config: its first SHIPPED_ROUNDS rounds on the card
+          equal to the CPU port's (depth within ~3 ulp), and the final state;
+      (d) K1-K4 launch B times the flagship's plan in every run of (a), with
+          no plain call;
+      (e) the composed mode COMPOSED on the flagship's modules,
+          COMPOSED_ROUNDS rounds: each sequence equal to the single-sequence
+          full-frame System (warp 'select') on its source, every output; K2,
+          K3 and K4 equal to their plain versions on the inputs of their
+          first call on each shard thread at each shape (frame 1's, and
+          frame 2's narrower halos).
+    Every captured run (here and in run_system) was captured with Python's
+    cyclic collector off (_watch_gc).
+    `single_ms`: the single-sequence captured System's ms a frame (host
+    keys) from this call.  Returns the host-key run's counts and times."""
+    import time
+
+    from cartslam_tpu_torch.config import read_system_config
+    from cartslam_tpu_torch.kernels.relax import launches
+    from cartslam_tpu_torch.parallel.system import MultiSeqSystem, SpatialMultiSeqSystem
+    from cartslam_tpu_torch.sources import PreloadedSource
+
+    b = MULTISEQ_B
+    t0 = time.perf_counter()
+    frames = multiseq_frames(first_frames[:MULTISEQ_ROUNDS], b)
+    log(f"multiseq: {b} synthetic sequences (seeds 0..{b - 1}) of {MULTISEQ_ROUNDS} frames at "
+        f"{H}x{W} preloaded in {time.perf_counter() - t0:.1f} s")
+    want = {k: b * n for k, n in plan["flagship"].items()}
+    mods = flagship_modules()
+    label = f"multiseq (B={b})"
+
+    # (a) + (d): eager batched step, captured (every key), captured (host keys)
+    runs = {}
+    for mode, captured, keys in (("eager", False, SYSTEM_KEYS), ("captured", True, SYSTEM_KEYS),
+                                 ("host keys", True, ())):
+        r = run_multiseq(frames, intrinsics, mods, dev, f"{label} {mode}", want,
+                         rounds=MULTISEQ_ROUNDS, captured=captured, keys=keys)
+        system = r.pop("system")
+        if not isinstance(system, MultiSeqSystem) or system.captured != captured:
+            raise AssertionError(f"{label} {mode}: {type(system).__name__}, captured "
+                                 f"{system.captured}")
+        runs[mode] = dict(r, state=system.final_state)
+        del system
+        torch.cuda.empty_cache()
+    eager, cap, host = runs["eager"], runs["captured"], runs["host keys"]
+    _digests_equal(f"{label} captured vs eager", cap["seen"], eager["seen"])
+    _digests_equal(f"{label} host keys vs eager", host["seen"], eager["seen"])
+    for r in (cap, host):
+        _assert_state_equal(r["state"], eager["state"], f"{label} final state")
+    keys_fetched = sorted(cap["seen"][1][0])
+    log(f"{label} (a): {MULTISEQ_ROUNDS} rounds at max_in_flight={SYSTEM_DEPTH}, the captured "
+        f"MultiSeqSystem equal to the eager batched step on the card on every fetched output "
+        f"({', '.join(keys_fetched)}) of every sequence and round and on the final state "
+        f"(batch-leading); the host-keys run too")
+    log(f"{label} (d): launches eager {eager['counts']}, captured {cap['counts']}, host keys "
+        f"{host['counts']}: K1-K4 {b} x the flagship's plan {plan['flagship']}, no plain call")
+    med = float(np.median(host["ms"][1:]))
+    log(f"{label} ms a round (CUDA events between round ends, rounds 3..{MULTISEQ_ROUNDS}, host "
+        f"keys): median {med:.3f} (min {min(host['ms'][1:]):.3f}, max "
+        f"{max(host['ms'][1:]):.3f}); every key {float(np.median(cap['ms'][1:])):.3f}; eager "
+        f"batched step {float(np.median(eager['ms'][1:])):.3f}; frames/s {b * 1000 / med:.1f} "
+        f"against the single-sequence captured System's {1000 / single_ms:.1f} ({single_ms:.3f} "
+        f"ms a frame, this call)  [{tag}]")
+    log(f"{label} graphs (variant: capture s) {host['graphs']}; peak device memory allocated "
+        f"/ reserved {host['peak']:.1f} / {host['reserved']:.1f} MiB (host keys), "
+        f"{cap['peak']:.1f} / {cap['reserved']:.1f} MiB (every key), eager {eager['peak']:.1f} "
+        f"/ {eager['reserved']:.1f} MiB  [{tag}]")
+    out = {"counts": host["counts"], "ms": med, "fps": b * 1000 / med,
+           "graphs": host["graphs"], "peak": host["peak"], "reserved": host["reserved"]}
+    del runs, eager, cap
+    torch.cuda.empty_cache()
+
+    # (b) no bleed between the streams: a static provider, batch vs singles
+    static = [{**m, "parameter_provider": STATIC_PROVIDER}
+              if m["type"] == "superpixel_disparity_planeseg" else m for m in mods]
+    k3 = launches(24, 1, "frame") + (BLEED_ROUNDS - 1) * launches(8, 1, "frame")
+    one = {"sgm": BLEED_ROUNDS, "moment_tally": BLEED_ROUNDS, "relax": k3,
+           "vote_tally": BLEED_ROUNDS}
+    batch = run_multiseq(frames, intrinsics, static, dev, f"{label} static",
+                         {k: b * n for k, n in one.items()}, rounds=BLEED_ROUNDS, spans=True)
+    del batch["system"]
+    torch.cuda.empty_cache()
+    single_replays = []
+    for s in range(b):
+        r = run_system(PreloadedSource(frames[s][:BLEED_ROUNDS], intrinsics=intrinsics), static,
+                       dev, f"{label} single sequence {s}", one, frames=BLEED_ROUNDS, spans=True,
+                       extra_fetch_keys=SYSTEM_KEYS, max_in_flight=SYSTEM_DEPTH)
+        _digests_equal(f"{label} (b) sequence {s} vs the single-sequence System",
+                       {fid: _digests(v, None) for fid, v in r["seen"].items()},
+                       batch["seen"], seqs=[s])
+        single_replays += [e - a for a, e in r["replays"][2:]]
+        del r
+        torch.cuda.empty_cache()
+    bspan, sspan = float(np.median(batch["replays"][2:])), float(np.median(single_replays))
+    out.update(batch_replay_ms=bspan, single_replay_ms=sspan)
+    log(f"{label} (b): static provider, {BLEED_ROUNDS} rounds: sequence b of the captured batch "
+        f"equal to the single-sequence captured System on source b, every output, for b = "
+        f"0..{b - 1}; replay span (rounds 3..{BLEED_ROUNDS}, median) batched {bspan:.3f} ms "
+        f"against {b} x the single replay's {sspan:.3f} = {b * sspan:.3f} ms (ratio "
+        f"{bspan / (b * sspan):.3f})  [{tag}]")
+
+    # (c) the shipped config as written, card against the CPU port
+    cfg = os.path.join(REPO, "configs", "synthetic-multiseq.json")
+    shipped = {}
+    for device in ("cpu", dev):
+        system = read_system_config(cfg, device=device, max_frames=SHIPPED_ROUNDS,
+                                    extra_fetch_keys=SYSTEM_KEYS)
+        if not isinstance(system, MultiSeqSystem) or system.batch != 8:
+            raise AssertionError(f"{cfg}: {type(system).__name__}")
+        seen = {}
+        n = system.run(on_frame=lambda fid, o: seen.update({fid: dict(o)}))
+        if n != SHIPPED_ROUNDS * system.batch or system.failed_frames:
+            raise AssertionError(f"{cfg} on {device}: {n} frames, failed {system.failed_frames}")
+        shipped[str(device)] = (seen, system.final_state, system.captured)
+        del system
+    (cpu_seen, cpu_state, _), (dev_seen, dev_state, dev_captured) = shipped["cpu"], \
+        shipped[str(dev)]
+    if not dev_captured:
+        raise AssertionError(f"{cfg}: the card's run was not captured")
+    for fid in range(1, SHIPPED_ROUNDS + 1):
+        _assert_equal_trees(dev_seen[fid], cpu_seen[fid], f"{cfg} round {fid}")
+    _assert_equal_trees(dev_state, cpu_state, f"{cfg} final state")
+    log(f"{label} (c): configs/synthetic-multiseq.json as written (8 sequences at 96x320) "
+        f"through read_system_config: rounds 1..{SHIPPED_ROUNDS} of the captured card run equal "
+        f"to the CPU port's MultiSeqSystem on every fetched output (depth within ~3 ulp) and the "
+        f"final state")
+    del shipped
+
+    # (e) sequences x spatial
+    seqs, shards = COMPOSED["sequences"], COMPOSED["devices"] // COMPOSED["sequences"]
+    sp = launches(24, 1, "frame") + (COMPOSED_ROUNDS - 1) * launches(8, 1, "frame")
+    cplan = {"sgm": 0, "sgm_sharded": seqs * shards * COMPOSED_ROUNDS,
+             "sgm_settle": seqs * 2 * (shards - 1) * COMPOSED_ROUNDS,
+             "moment_tally": seqs * shards * COMPOSED_ROUNDS, "relax": seqs * shards * sp,
+             "vote_tally": seqs * shards * COMPOSED_ROUNDS}
+    with first_calls(by_shard=True) as calls:
+        comp = run_multiseq(frames[:seqs], intrinsics, mods, dev, f"composed {COMPOSED}", cplan,
+                            rounds=COMPOSED_ROUNDS, parallel=COMPOSED, keep=True)
+    kernels_note = check_path_kernels(f"composed {COMPOSED}", calls)
+    del calls
+    system = comp.pop("system")
+    if not isinstance(system, SpatialMultiSeqSystem) or system.pipeline.n != shards \
+            or system.captured:
+        raise AssertionError(f"composed: {type(system).__name__} with {system.pipeline.n} shards")
+    del system
+    select = [{**m, "warp_mode": "select", "max_warp_y": m.get("max_warp_y", 32)}
+              if m["type"] == "superpixel_disparity_planeseg" else m for m in mods]
+    k3 = launches(24, 1, "frame") + (COMPOSED_ROUNDS - 1) * launches(8, 1, "frame")
+    full = {"sgm": COMPOSED_ROUNDS, "moment_tally": COMPOSED_ROUNDS, "relax": k3,
+            "vote_tally": COMPOSED_ROUNDS}
+    for s in range(seqs):
+        r = run_system(PreloadedSource(frames[s][:COMPOSED_ROUNDS], intrinsics=intrinsics),
+                       select, dev, f"composed full frame {s}", full, frames=COMPOSED_ROUNDS,
+                       extra_fetch_keys=SYSTEM_KEYS, max_in_flight=SYSTEM_DEPTH)
+        for fid in range(1, COMPOSED_ROUNDS + 1):
+            bad = _fetched_equal({k: v[s] for k, v in comp["seen"][fid].items()},
+                                 r["seen"][fid])
+            if bad:
+                raise AssertionError(f"composed round {fid} sequence {s}: differs from the "
+                                     f"full frame on {bad}")
+        del r
+    cms = comp["ms"][1:]
+    out["composed_ms"] = float(np.median(cms))
+    log(f"composed {COMPOSED} (e): {seqs} sequences x {shards} row shards of {H // shards} rows "
+        f"on one card, {COMPOSED_ROUNDS} rounds of the flagship: each sequence equal to the "
+        f"single-sequence full-frame System (warp 'select') on its source, every output "
+        f"({', '.join(sorted(comp['seen'][1]))}); launches {comp['counts']}, no plain call; ms a "
+        f"round (rounds 2..{COMPOSED_ROUNDS}) median {out['composed_ms']:.3f} "
+        f"({', '.join(f'{x:.3f}' for x in cms)}); peak {comp['peak']:.1f} MiB  [{tag}]")
+    log(f"composed {COMPOSED} (e): {kernels_note}")
+    del comp
+    torch.cuda.empty_cache()
+    multiseq_profile(frames, intrinsics, dev, tag)
+    return out
+
+
 def cli_phase() -> None:
     """The CLI: configs/synthetic-planeseg.json, then the flagship's module
     config (its two plane-segmentation visualizations) for 30 frames with
@@ -2630,6 +3030,11 @@ def main() -> int:
                **{f"kitti-{k}": v["counts"] for k, v in planes.items()},
                **{k: v["counts"] for k, v in zed.items() if isinstance(v, dict)}}
 
+    # 4d. the multi-sequence modes
+    multiseq = multiseq_phase(source.frames, intrinsics, dev, tag, plan,
+                              system["flagship"]["median_ms"]["host keys"])
+    by_path[f"multiseq (B={MULTISEQ_B})"] = multiseq["counts"]
+
     # 5. card against CPU
     small_temporal_check(dev)
     small_temporal_check(dev, faithful=True)
@@ -2677,6 +3082,14 @@ def main() -> int:
         log(f"{label} per-frame ms at {ZH}x{ZW}, frames 3..{PATH_FRAMES}: System captured "
             f"{zed[label]['ms']['captured']:.3f}, eager module_timing "
             f"{zed[label]['ms']['eager']:.3f}  [{tag}]")
+    log(f"multiseq (B={MULTISEQ_B}) ms a round, rounds 3..{MULTISEQ_ROUNDS}: "
+        f"{multiseq['ms']:.3f} captured (host keys), {multiseq['fps']:.1f} frames/s against "
+        f"{1000 / system['flagship']['median_ms']['host keys']:.1f} for the single-sequence "
+        f"System; replay span {multiseq['batch_replay_ms']:.3f} against {MULTISEQ_B} x "
+        f"{multiseq['single_replay_ms']:.3f}; peak allocated / reserved {multiseq['peak']:.1f} / "
+        f"{multiseq['reserved']:.1f} MiB, capture s "
+        f"{multiseq['graphs']}; composed {COMPOSED} {multiseq['composed_ms']:.3f} ms a round  "
+        f"[{tag}]")
     launches_by_path = {}
     for name in plan["flagship"]:
         launches_by_path[name] = {p: c[name] for p, c in by_path.items() if c.get(name)}

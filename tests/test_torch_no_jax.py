@@ -2,9 +2,9 @@
 
 The card's machine has no JAX, so nothing the port (or chip_smoke.py)
 imports may pull it in: the child below runs the pipelines, the System
-with its host modules, sinks and checkpoints, the plane fits with the
-native build, the ORB features and the ZED source, and imports the CLI,
-with any ``import jax`` made to fail.
+with its host modules, sinks and checkpoints, a 2-sequence MultiSeqSystem,
+the plane fits with the native build, the ORB features and the ZED source,
+and imports the CLI, with any ``import jax`` made to fail.
 """
 
 import pathlib
@@ -80,6 +80,23 @@ with tempfile.TemporaryDirectory() as tmp:
     assert system.run() == 2 and not system.failed_frames
     assert len(os.listdir(os.path.join(tmp, "samples"))) == 4  # 2 windows x 2 frames
     assert os.path.exists(os.path.join(tmp, "ck.npz"))
+# The multi-sequence mode: 2 sequences in lock-step (parallel/multiseq,
+# parallel/system), and make_batched_step.
+from cartslam_tpu_torch.config import build_system
+from cartslam_tpu_torch.parallel.multiseq import make_batched_step
+from cartslam_tpu_torch.parallel.system import MultiSeqSystem
+system = build_system(src, mods, device="cpu", extra_fetch_keys=["planes"],
+                      parallel={{"mode": "multiseq", "batch": 2}})
+assert isinstance(system, MultiSeqSystem)
+got = {{}}
+assert system.run(on_frame=lambda fid, out: got.update(out)) == 4 and not system.failed_frames
+assert got["planes"].shape == (2, 32, 64)
+step, init_state, init_params = make_batched_step(system.pipeline, 2)
+import torch
+frame = {{"left": torch.zeros(2, 32, 64, 3, dtype=torch.uint8),
+          "right": torch.zeros(2, 32, 64, 3, dtype=torch.uint8), "frame_id": 2}}
+state, out = step(init_state(), frame, init_params())
+assert out["planes"].shape == (2, 32, 64)
 # The plane fits (host modules on the device, the native region growing and
 # its Python route), the ORB features, the ZED source and zed_disparity.
 import numpy as np

@@ -24,8 +24,10 @@ from cartslam_tpu.sources.synthetic import SyntheticDataSource
 from cartslam_tpu.utils.plane_params import HistogramPeakPlaneParameterProvider as JProvider
 from cartslam_tpu_torch import models as tm
 from cartslam_tpu_torch.__main__ import main as torch_main
-from cartslam_tpu_torch.config import build_pipeline, read_config
+from cartslam_tpu_torch.config import (build_pipeline, build_system, read_config,
+                                       read_system_config)
 from cartslam_tpu_torch.kernels import build as kbuild
+from cartslam_tpu_torch.parallel.system import MultiSeqSystem, SpatialMultiSeqSystem
 from cartslam_tpu_torch.runtime import (
     Pipeline,
     PipelineContext,
@@ -150,9 +152,12 @@ def test_slice_resumes_from_jax_state(reference):
     _run_port(pipe, frames, record, RESUME_AFTER + 1, state, params_np)
 
 
-def test_synthetic_source_copy_matches_jax_package():
-    ref, port = _source(), TSyntheticDataSource(image_size=(H, W), num_frames=FRAMES, seed=0,
-                                                max_disparity=0.7 * D, baseline=20.0)
+@pytest.mark.parametrize("seed", [0, 1, 2])  # the seeds a 3-sequence multiseq run replicates
+def test_synthetic_source_copy_matches_jax_package(seed):
+    ref = SyntheticDataSource(image_size=(H, W), num_frames=FRAMES, seed=seed,
+                              max_disparity=0.7 * D, baseline=20.0)
+    port = TSyntheticDataSource(image_size=(H, W), num_frames=FRAMES, seed=seed,
+                                max_disparity=0.7 * D, baseline=20.0)
     np.testing.assert_array_equal(port.get_camera_intrinsics().q, ref.get_camera_intrinsics().q)
     for _ in range(2):
         a, b = ref.get_next(), port.get_next()
@@ -181,15 +186,28 @@ def test_registry_rejects_unported_types(tmp_path):
                               "parameter_provider": {"type": "histogram_peak"},
                               "use_temporal_smoothing": True, "temporal_mode": "exact"}],
                        device="cpu")
-    # The spatial mode is ported; the multi-sequence modes are not.
+    # The multi-sequence modes are ported: they build a MultiSeqSystem /
+    # SpatialMultiSeqSystem, which only a System entry point returns;
+    # "multihost" is not ported.
     cfg = tmp_path / "multiseq.json"
     cfg.write_text('{"data_source": {"type": "synthetic"}, "modules": [], '
                    '"parallel": {"mode": "multiseq", "batch": 2}}')
-    with pytest.raises(ValueError, match="'multiseq' is not ported yet"):
-        read_config(str(cfg), device="cpu")
-    with pytest.raises(ValueError, match="'sequences' > 1 .* is not ported yet"):
-        build_pipeline(src, [], device="cpu",
-                       parallel={"mode": "spatial", "devices": 2, "sequences": 2})
+    system = read_system_config(str(cfg), device="cpu")
+    assert isinstance(system, MultiSeqSystem) and system.batch == 2
+    for seed, source in enumerate(system.sources):  # the config's seed + i
+        np.testing.assert_array_equal(source.get_next()["left"],
+                                      TSyntheticDataSource(seed=seed).get_next()["left"])
+    composed = build_system(src, [], device="cpu",
+                            parallel={"mode": "spatial", "devices": 2, "sequences": 2})
+    assert isinstance(composed, SpatialMultiSeqSystem) and composed.pipeline.n == 1
+    for build in (lambda: read_config(str(cfg), device="cpu"),
+                  lambda: build_pipeline(src, [], device="cpu", parallel={
+                      "mode": "spatial", "devices": 2, "sequences": 2})):
+        with pytest.raises(ValueError, match="multi-sequence modes .* use build_system"):
+            build()
+    with pytest.raises(ValueError, match="'multihost' is not ported yet"):
+        build_system(src, [], device="cpu",
+                     parallel={"mode": "multiseq", "batch": 2, "multihost": {}})
 
 
 def test_cuda_device_without_gpu_raises():

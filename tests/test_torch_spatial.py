@@ -44,7 +44,7 @@ from cartslam_tpu.runtime.pipeline import Pipeline as JPipeline
 from cartslam_tpu.sources.synthetic import SyntheticDataSource
 from cartslam_tpu.utils.plane_params import StaticPlaneParameterProvider as JStatic
 from cartslam_tpu_torch import models as tm
-from cartslam_tpu_torch.config import build_pipeline, read_config
+from cartslam_tpu_torch.config import build_pipeline, build_system, read_config
 from cartslam_tpu_torch.kernels import build as kbuild
 from cartslam_tpu_torch.kernels import sgm as ksgm
 from cartslam_tpu_torch.ops import stereo as tstereo
@@ -330,11 +330,19 @@ def test_spatial_registry_knobs_and_refusals():
     assert flow.spatial_mode == "sharded" and flow.spatial_halo == 12  # clamped to h_local
     with pytest.raises(ValueError, match="must divide"):
         build_pipeline(src, mods, device="cpu", parallel={"mode": "spatial", "devices": 5})
-    with pytest.raises(ValueError, match="'multiseq' is not ported yet"):
-        build_pipeline(src, mods, device="cpu", parallel={"batch": 2})
-    with pytest.raises(ValueError, match="'sequences' > 1 .* is not ported yet"):
-        build_pipeline(src, mods, device="cpu",
-                       parallel={"mode": "spatial", "devices": 4, "sequences": 2})
+    # The multi-sequence modes drive B sources, which only a System does:
+    # build_pipeline refuses them, build_system builds them, the composed
+    # mode with devices // sequences shards a sequence.
+    composed = {"mode": "spatial", "devices": 4, "sequences": 2, "flow_mode": "sharded"}
+    for parallel in ({"batch": 2}, composed):
+        with pytest.raises(ValueError, match="multi-sequence modes .* use build_system"):
+            build_pipeline(src, mods, device="cpu", parallel=parallel)
+    system = build_system(src, mods, device="cpu", parallel=composed)
+    assert system.batch == 2 and system.pipeline.n == 2
+    assert system.pipeline.modules[-1].spatial_halo == 24  # clamped to a sequence's shard
+    with pytest.raises(ValueError, match="must divide by sequences"):
+        build_system(src, mods, device="cpu",
+                     parallel={"mode": "spatial", "devices": 3, "sequences": 2})
     with pytest.raises(ValueError, match="unknown parallel mode"):
         build_pipeline(src, mods, device="cpu", parallel={"mode": "pipeline"})
 
