@@ -7,7 +7,9 @@ defaults.  The host module types (visualizations, ``planefit``,
 ``read_system_config`` return the System (runtime/system.py), as the JAX
 functions do; ``build_pipeline`` / ``read_config`` return the pipeline and
 its source alone.  A ``parallel`` block with ``"mode": "spatial"`` builds
-the height-sharded SpatialPipeline over the same modules.  The
+the height-sharded SpatialPipeline over the same modules, whose step a
+System on the card captures as a CUDA graph per variant, as the flagship's.
+The
 multi-sequence modes run only under a System: ``"mode": "multiseq"`` builds
 a MultiSeqSystem over ``batch`` sources (default 1, the device count of one
 card), and ``"mode": "spatial"`` with ``"sequences"`` > 1 a
@@ -348,7 +350,8 @@ def build_system(source_cfg, modules_cfg: list[dict], *, grayscale: bool = False
                  device="cuda", **system_kwargs) -> System:
     """The System (runtime/system.py) over the configured modules, with the
     JAX build_system's arguments plus `device` (default the card).  The
-    spatial mode goes through the System too, with the eager step.  The
+    spatial mode goes through the System too, its step captured on the card
+    as the flagship's.  The
     multi-sequence modes return a MultiSeqSystem (``"mode": "multiseq"``)
     or a SpatialMultiSeqSystem (``"sequences"`` > 1) over B sources
     (_replicate_sources), with the System options they take."""

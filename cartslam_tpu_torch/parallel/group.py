@@ -23,9 +23,20 @@ what the shard deposits or returns is ordered on the caller's stream as
 before.  A join orders everything enqueued after it on the shared stream,
 so a fork that must not wait for the other shards' forked work is made
 before a collective that every shard passes before it joins (the barrier
-that ends parallel/sgm_sharded.settled_carries).  A device per shard is
-part of the interface so that a transport across cards can slot in
-(``_to``).
+that ends parallel/sgm_sharded.settled_carries).  A shard's side stream
+serves every caller stream: the sequences of the composed mode, each on a
+stream of its own in a captured round, fork onto the same side streams, so
+one sequence's forked work orders after the other's (a side stream per
+shard and caller stream would let them overlap, but every capture of a
+run would then have to warm up on its own capture stream).  A
+device per shard is part of the interface so that a transport across
+cards can slot in (``_to``).
+
+Under CUDA graph capture (runtime/graphs.py) the caller's current stream is
+the capture stream, so the shard threads enqueue into the capture; a side
+stream joins the capture through the fork's event wait.  A side stream must
+exist before the capture begins (the capture's warm-up makes it):
+``side_stream`` raises rather than make one under capture.
 
 Turns on the host: one shard runs Python at a time.  A shard holds the
 group's baton from its start to its next collective, where it hands the
@@ -128,11 +139,15 @@ class ShardGroup:
     def side_stream(self) -> torch.cuda.Stream | None:
         """A CUDA stream of the calling shard's own, for work it forks off
         the caller's stream (see Ordering on the card), made at its first
-        use and kept; None on a CPU device."""
+        use and kept; None on a CPU device.  Raises if it would be made
+        while the caller's stream captures."""
         i = self._local.index
         if self.devices[i].type != "cuda":
             return None
         if i not in self._side:  # each shard thread reads and writes its own key
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(f"shard {i}: a side stream would be made under CUDA graph "
+                                   "capture; run the step once before capturing it")
             self._side[i] = torch.cuda.Stream(device=self.devices[i])
         return self._side[i]
 

@@ -29,6 +29,14 @@ each shard's rows out of them, runs the shards, and concatenates the
 results, so the run loop, ``state_from_reference`` and ``state_to_numpy``
 work unchanged.  Halos must fit in one neighbour shard (each module's
 ``spatial_validate`` checks its own).
+
+``step`` is ``prepare`` plus ``compute_step``, the device-only body (shard
+narrowing, the shards' run, the merge), as ``Pipeline``'s.
+``captured_step(variant, fetch_keys)`` is the counterpart of
+``jitted_step``: that body captured once per (variant, fetch keys) into a
+CUDA graph over the pipeline's static buffers (runtime/graphs.py) and
+replayed, the 8 shard threads' launches of a frame leaving the host as one
+replay.  Its graphs' launches are the eager frame's.
 """
 
 from __future__ import annotations
@@ -57,7 +65,13 @@ class SpatialPipeline:
     """Pipeline-compatible height-sharded composer over real modules: the
     surface the System, `runtime/loop.run` and `host_step` drive (ctx,
     modules, init_state, init_host_params, device_params, host_fetch_keys,
-    variant, step)."""
+    variant, step, compute_step, static_buffers, captured_step)."""
+
+    # The captured step is Pipeline's over this pipeline's compute_step: the
+    # static buffers of the full-height state tree, and one CapturedStep per
+    # (variant, fetch keys) cached on the instance.
+    static_buffers = Pipeline.static_buffers
+    captured_step = Pipeline.captured_step
 
     def __init__(self, ctx: PipelineContext, modules, n: int):
         self.ctx = ctx
@@ -80,6 +94,8 @@ class SpatialPipeline:
             for key in m.provides():
                 self._provider[key] = m
         self._row_dims = self._state_row_dims()
+        self._static = None  # graphs.StaticBuffers, made at the first capture
+        self.captured_steps: dict = {}  # (variant, fetch keys) -> graphs.CapturedStep
 
     # ------------------------------------------------- Pipeline interface
 
@@ -163,10 +179,19 @@ class SpatialPipeline:
         return parts[0] if rd is None else torch.cat(parts, dim=rd)
 
     def step(self, state, frame, host_params, variant) -> tuple[dict, dict]:
-        """One frame on n row shards: (new full-height state, full-height
-        outputs).  Replicated keys (the histogram, superpixels_max_label)
-        come from shard 0."""
+        """One frame on n row shards, eagerly: (new full-height state,
+        full-height outputs)."""
         frame, params = self.inner.prepare(frame, host_params)
+        return self.compute_step(state, frame, params, variant)
+
+    def compute_step(self, state, frame, params, variant) -> tuple[dict, dict]:
+        """The step body on device inputs only (``Pipeline.prepare``'s form):
+        each shard's rows narrowed out of the full-height state and frame,
+        the shards run (their threads enqueue on the caller's current
+        stream, the capture stream under capture), the results merged.  It
+        reads nothing back to the host and copies nothing in, so it runs
+        eagerly or under CUDA graph capture alike.  Replicated keys (the
+        histogram, superpixels_max_label) come from shard 0."""
 
         def shard(i: int):
             return self.inner.compute_step(self._shard_state(state, i),

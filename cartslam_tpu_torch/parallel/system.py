@@ -7,8 +7,8 @@ one round a frame of each.  JAX vmaps the step over the batch and shards the
 batch over a device mesh; here the B sequences share one card.  On the card
 each round is one replay of a CUDA graph that holds all B sequences' steps,
 each on a stream of its own (runtime/graphs.py, ``StaticBuffers(...,
-batch=B)``); a CPU context runs the eager batched step
-(parallel/multiseq.batched_step).
+batch=B)``), a Pipeline's or a SpatialPipeline's; a CPU context runs the
+eager batched step (parallel/multiseq.batched_step).
 
 Everything else is the single-sequence System's (runtime/system.py): the
 pinned prefetch (of the stacked frames), the pinned fetch slots and fetch
@@ -178,8 +178,12 @@ class SpatialMultiSeqSystem(MultiSeqSystem):
     """Sequences x spatial: B sequences, each height-sharded over the
     SpatialPipeline's row shards, on one card (config: ``{"parallel":
     {"mode": "spatial", "devices": n, "sequences": B}}``, n // B shards a
-    sequence).  The MultiSeqSystem loop with the batched spatial step:
-    each sequence's ``SpatialPipeline.step`` on its own state slice, eagerly
-    on the shard threads, as the spatial System runs (its collectives stay
-    within the sequence's shards, as the JAX step's name only the spatial
-    axis).  A SpatialPipeline is not captured: ``captured`` is False."""
+    sequence).  The MultiSeqSystem loop with the batched spatial step, the
+    counterpart of ``jitted_batched_step``: on the card one CUDA graph a
+    variant holds the B sequences' ``SpatialPipeline.compute_step``, each on
+    its sequence's stream, where its shard threads enqueue; a CPU context
+    runs each sequence's ``SpatialPipeline.step`` in turn.  The collectives
+    stay within the sequence's shards, as the JAX step's name only the
+    spatial axis.  The sequences share the pipeline's ShardGroup and so
+    shard i's K5 side stream: their K5 output passes order one after the
+    other in the graph (parallel/group.py says why)."""

@@ -46,6 +46,36 @@ enqueues a launch, which under capture is once.  A capture records each
 counter's launches and puts the counters back as they were before its
 warm-up, and every replay adds the recorded launches, so the counts of a
 replayed run are those of the eager run.
+
+The spatial step (parallel/spatial_flagship.SpatialPipeline.compute_step)
+is captured the same way, the counterpart of its ``jitted_step`` and, over
+batched buffers, of ``jitted_batched_step``.  Its work is enqueued by the
+shard threads of ``ShardGroup.run``, not by the capturing thread: each shard
+thread makes the caller's current stream its own, which is the capture
+stream (or sequence b's stream) under capture, so its launches join the
+capture, and K5's side streams join it through their fork's event wait.
+Three things make that work:
+
+  * the capture mode, ``"thread_local"``: a mode restricts the potentially
+    unsafe CUDA calls (a synchronising copy, an event wait) of the threads
+    it checks, not which threads may enqueue into a capturing stream.
+    Thread-local mode checks only the thread that began the capture, so
+    the shard threads' enqueues are captured as any other, while the
+    System's prefetch and fetch threads keep using CUDA (pinned memory,
+    event waits) during a capture.  What a shard thread does wrong on the
+    capture stream (a read back) still fails the capture, since a
+    capturing stream refuses it from any thread;
+  * the allocator: PyTorch routes an allocation into the graph's pool by
+    the stream it is made on (its filter compares the stream's capture id
+    with the graph's), not by the thread, so the shard threads' tensors
+    land in the pool like the capturing thread's;
+  * the side streams: a side stream made during the capture would lie
+    outside it until its fork, so they are made by the warm-up (one per
+    shard, shared by the composed mode's sequences);
+    ``ShardGroup.side_stream`` raises if one would be made under capture.
+
+A shard's exception under capture re-raises in the capturing thread and
+fails the capture (``CaptureError``); nothing runs the step eagerly instead.
 """
 
 from __future__ import annotations
@@ -104,12 +134,11 @@ class StaticBuffers:
     images' shapes and dtypes.  The state and the host params start as the
     pipeline's initial ones.  With `batch`=B, the frame's images are
     already stacked [B, ...], every state leaf is B copies of the initial
-    one, and each sequence has a stream of its own (``streams``)."""
+    one, and each sequence has a stream of its own (``streams``).  On the
+    CPU (no pool, no streams) the buffers serve the eager bodies alone."""
 
     def __init__(self, pipeline, frame: Mapping[str, Any], batch: int | None = None):
         dev = pipeline.ctx.device
-        if dev.type != "cuda":
-            raise CaptureError(f"a captured step needs a CUDA device, not {dev}")
         self.device = dev
         self.batch = batch
         self.frame: dict[str, torch.Tensor] = {
@@ -121,8 +150,9 @@ class StaticBuffers:
         self.state = (map_tree(torch.Tensor.clone, init) if batch is None
                       else stack_trees([init] * batch))
         self.params = pipeline.device_params(pipeline.init_host_params())
-        self.pool = torch.cuda.graph_pool_handle()
-        self.streams = [torch.cuda.Stream(device=dev) for _ in range(batch or 0)]
+        cuda = dev.type == "cuda"
+        self.pool = torch.cuda.graph_pool_handle() if cuda else None
+        self.streams = [torch.cuda.Stream(device=dev) for _ in range(batch or 0)] if cuda else []
         self._state_storages = {t.untyped_storage().data_ptr() for t in _leaves(self.state)}
 
     def sequence(self, b: int) -> tuple[dict, dict]:
@@ -196,12 +226,15 @@ def _batched_body(pipeline, bufs: StaticBuffers, variant,
                   fetch_keys: frozenset) -> dict[str, torch.Tensor]:
     """Sequence b's step on stream b of batched buffers, forked from the
     current stream and joined back into it: the new states written back,
-    each fetch key's B outputs stacked after the join."""
-    main = torch.cuda.current_stream(bufs.device)
+    each fetch key's B outputs stacked after the join.  On the CPU the
+    sequences run one after another."""
+    main = torch.cuda.current_stream(bufs.device) if bufs.streams else None
     per_sequence = []
-    for b, stream in enumerate(bufs.streams):
-        stream.wait_stream(main)
-        with torch.cuda.stream(stream):
+    for b in range(bufs.batch):
+        stream = bufs.streams[b] if bufs.streams else None
+        if stream is not None:
+            stream.wait_stream(main)
+        with torch.cuda.stream(stream):  # a no-op for None, on the CPU
             state, frame = bufs.sequence(b)
             per_sequence.append(_sequence_body(pipeline, bufs, state, frame, variant,
                                                fetch_keys))
@@ -233,15 +266,17 @@ class CapturedStep:
 
     Built in three steps: one eager warm-up run of the step body on a side
     stream, or of each sequence's on its own stream (the kernels' first
-    launches, the allocator's blocks; its results are dropped and the state
-    is not written), the capture with the shared pool, and the counts of
-    each kernel's launches at capture (B times a sequence's when batched).
-    ``capture_error_mode="thread_local"``: the System's prefetch and fetch
-    threads keep using CUDA (pinned memory, event waits) while the main
-    thread captures, and only the capturing thread's calls are checked."""
+    launches, the allocator's blocks, the shards' side streams; its results
+    are dropped and the state is not written), the capture with the shared
+    pool, and the counts of each kernel's launches at capture (B times a
+    sequence's when batched).  ``capture_error_mode=
+    "thread_local"``: only the capturing thread's calls are checked (see
+    the module docstring for the shard threads)."""
 
     def __init__(self, pipeline, buffers: StaticBuffers, variant: tuple,
                  fetch_keys: frozenset[str]):
+        if buffers.device.type != "cuda":
+            raise CaptureError(f"a captured step needs a CUDA device, not {buffers.device}")
         self.variant = variant
         self.fetch_keys = frozenset(fetch_keys)
         bufs = buffers

@@ -7,14 +7,15 @@ thread pool and promise store become a bounded queue of dispatched steps
 retention becomes the host-visible ring of fetched runs.
 
 On the card each frame is one replay of the step's CUDA graph for its
-variant (``Pipeline.captured_step``, runtime/graphs.py), the counterpart of
-JAX's ``jitted_step``; the first frame of each variant includes its
-capture.  The frame goes through pinned host memory into the static frame
-buffers; after the replay, the fetch keys' outputs are copied into one of
-``max_in_flight`` pinned slots on the same stream and an event is recorded,
-and a fetch thread waits on that event under the data watchdog.  With a CPU
-context, with ``module_timing`` or for the spatial mode the System runs the
-eager step instead (the caller's choice, not a fallback).
+variant (``Pipeline.captured_step`` or ``SpatialPipeline.captured_step``,
+runtime/graphs.py), the counterpart of JAX's ``jitted_step``; the first
+frame of each variant includes its capture.  The frame goes through pinned
+host memory into the static frame buffers; after the replay, the fetch
+keys' outputs are copied into one of ``max_in_flight`` pinned slots on the
+same stream and an event is recorded, and a fetch thread waits on that
+event under the data watchdog.  With a CPU context or with
+``module_timing`` the System runs the eager step instead (the caller's
+choice, not a fallback).
 
 The drain order is the JAX System's: frame t is drained, and its modules'
 ``host_update`` runs, once frame t + max_in_flight - 1 has been dispatched,
@@ -47,7 +48,6 @@ from ..sources.base import to_grayscale
 from .checkpoint import load_checkpoint, save_checkpoint
 from .graphs import CaptureError
 from .module import HostModule
-from .pipeline import Pipeline
 from .state import state_from_reference, state_to_numpy
 from .timing import TimingWriter
 from ..utils.watchdog import start_fetch
@@ -139,10 +139,8 @@ class System:
             | set(extra_fetch_keys)
         )
         self.device = pipeline.ctx.device
-        # The captured step needs the card and the plain Pipeline; module
-        # timing and the spatial mode (threads over row shards) run eagerly.
-        self.captured = (self.device.type == "cuda" and not module_timing
-                         and isinstance(pipeline, Pipeline))
+        # The captured step needs the card; module timing runs eagerly.
+        self.captured = self.device.type == "cuda" and not module_timing
 
         self._prefetch_queue: queue.Queue = queue.Queue(maxsize=prefetch_depth)
         self._prefetch_error: BaseException | None = None

@@ -79,6 +79,36 @@ class SyntheticDataSource(DataSource):
         disp[y0:y1, x0:x1] = np.maximum(disp[y0:y1, x0:x1], wall_d)
         return np.minimum(disp, self.max_disparity)
 
+    # Ground-truth accessors for the quality metrics (utils/quality.py).
+
+    GT_GROUND, GT_WALL, GT_SKY = 0, 1, 2
+
+    def ground_truth_regions(self, frame_idx: int) -> np.ndarray:
+        """uint8 [H, W] region map: 0=ground plane, 1=wall slab, 2=sky."""
+        h, w = self.image_size
+        disp = self.ground_truth_disparity(frame_idx)
+        horizon = int(0.35 * h)
+        regions = np.full((h, w), self.GT_SKY, np.uint8)
+        regions[horizon:, :] = self.GT_GROUND
+        ys = np.arange(h)[:, None].astype(np.float32)
+        ground = np.clip(
+            (ys - 0.35 * h) / (h - 0.35 * h), 0, None
+        ) * self.max_disparity * 0.8
+        wall = disp > np.broadcast_to(ground, (h, w)) + 1e-3
+        regions[wall] = self.GT_WALL
+        return regions
+
+    def ground_truth_flow(self, frame_idx: int) -> np.ndarray:
+        """float32 [H, W, 2] flow current->previous (prev = cur - flow).
+
+        The texture pans left 2 px/frame (see _render's roll), so content at
+        x was at x + 2 in the previous frame: flow_x = -2 for frame_idx >= 1.
+        """
+        h, w = self.image_size
+        flow = np.zeros((h, w, 2), np.float32)
+        flow[..., 0] = -2.0 if frame_idx >= 1 else 0.0
+        return flow
+
     def _render(self, frame_idx: int):
         h, w = self.image_size
         disp = self.ground_truth_disparity(frame_idx)

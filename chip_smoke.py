@@ -144,16 +144,39 @@ Phases (each raises on failure; none is caught):
                 sequence of the batch equal to the single-sequence System on
                 its source (12 rounds); configs/synthetic-multiseq.json on the
                 card equal to the CPU port (10 rounds); the composed mode
-                (8 devices, 2 sequences: 4 shards each) equal to the full frame
-                (4 rounds), with K2, K3 and K4 equal to their plain versions on
-                their first calls' inputs on each shard; the ms a round, frames/s against the
+                (8 devices, 2 sequences: 4 shards each) for 10 rounds,
+                captured (one graph a variant holding both sequences' shard
+                threads' steps, each sequence on its own stream, K5's side
+                streams shared) equal to its eager run and to the full-frame
+                MultiSeqSystem on every output of every round, with K2, K3
+                and K4 equal to their plain versions on their first calls'
+                inputs on each shard, and its ms a round captured and eager,
+                and with K5's side streams per sequence; the ms
+                a round, frames/s against the
                 single-sequence System, replay spans, peak memory, capture
-                seconds and a profile of rounds 3..12.  Their K1-K4 launches
-                join the kernels line ("multiseq (B=8)").
+                seconds and a profile of rounds 3..12.  Their K1-K5 launches
+                join the kernels line ("multiseq (B=8)", "composed").
+  4e. spatial system - configs/kitti-planeseg-spatial.json through
+                build_system (8 row shards on this one card, histogram-peak
+                provider, 4 in flight) for 66 frames (frame 64 the reset):
+                captured (3 graphs, SpatialPipeline.captured_step), every
+                fetched output of every frame array_equal to the eager
+                spatial System (module_timing) and to the captured full-frame
+                System with the 'select' warp; each graph's launches those of
+                an eager frame of its variant, the step bodies captured with
+                the collector off; per-frame medians captured (host keys,
+                every key) against eager, capture seconds, peak memory, a
+                profile of frames 3..12 captured and eager.  Its K2-K5
+                launches join the kernels line ("spatial System").
   5. parity   - the small temporal slice (64x128, 6 frames) on the card and on
                 the CPU, every output and the final state equal, and the same
                 with the reference-faithful modes; the full-size flow of one
                 frame pair, card against CPU.
+  5b. quality - utils/quality against the synthetic truth: the full-size
+                flagship's and spatial System's last frames scored and
+                printed; tests/test_quality.py's gate (its floors and
+                ceilings at its settings: 96x320, 32 disparities, 8 frames,
+                'frame' statistics) on a captured System run.
   6. profile  - one fresh temporal flagship over frames 3..12 under
                 torch.profiler: per-module CUDA-event spans, device busy time
                 and idle share, device time by kernel name and K2's and K4's
@@ -243,6 +266,16 @@ RELAX_SWEEPS_PER_LAUNCH_2PH = (1, 2, 4, 8, 12)
 PIXEL_FRAMES = 10
 SPATIAL_PHASE_FRAMES = 4
 GRAY_FRAMES = 10
+# The spatial System: 66 frames, so that frame 64 (the reset) and a normal
+# frame after it run; frames 3..65 give the medians.
+SPATIAL_SYSTEM_FRAMES = 66
+# tests/test_quality.py's floors and ceilings at its settings
+# (scripts/eval_quality.evaluate with 'frame' statistics: 96x320, 32
+# disparities, 8 frames, a static provider), copied: this script imports no
+# test and nothing of the JAX package.
+QUALITY_FLOORS = {"boundary_recall": 0.70, "plane_accuracy": 0.90, "disp_valid_frac": 0.92}
+QUALITY_CEILINGS = {"underseg_error": 0.12, "flow_epe_px": 0.3, "disp_med_err_px": 0.3}
+QUALITY_SIZE, QUALITY_D, QUALITY_FRAMES = (96, 320), 32, 8
 
 # name -> (source, the TPU kernel it replaces (file:line), the path that runs it)
 KERNELS = {
@@ -304,6 +337,15 @@ def launch_plan() -> dict:
                     "sgm_settle": SETTLE_LAUNCHES * SPATIAL_FRAMES,
                     "moment_tally": SHARDS * SPATIAL_FRAMES,
                     "relax": SHARDS * k3(SPATIAL_FRAMES), "vote_tally": SHARDS * SPATIAL_FRAMES},
+        "spatial_system": {"sgm": 0, "sgm_sharded": SHARDS * SPATIAL_SYSTEM_FRAMES,
+                           "sgm_settle": SETTLE_LAUNCHES * SPATIAL_SYSTEM_FRAMES,
+                           "moment_tally": SHARDS * SPATIAL_SYSTEM_FRAMES,
+                           "relax": SHARDS * k3(SPATIAL_SYSTEM_FRAMES, 1),
+                           "vote_tally": SHARDS * SPATIAL_SYSTEM_FRAMES},
+        "spatial_system_full": {"sgm": SPATIAL_SYSTEM_FRAMES, "sgm_sharded": 0, "sgm_settle": 0,
+                                "moment_tally": SPATIAL_SYSTEM_FRAMES,
+                                "relax": k3(SPATIAL_SYSTEM_FRAMES, 1),
+                                "vote_tally": SPATIAL_SYSTEM_FRAMES},
     }
 
 
@@ -1722,15 +1764,16 @@ def profile_phase(frames, intrinsics, dev, tag, modules=None, label="profile"):
     _device_report(prof, n, wall, f"{label} frames {first}..{last}", tag)
 
 
-def _device_report(prof, n: int, wall: float, label: str, tag: str) -> None:
+def _device_report(prof, n: int, wall: float, label: str, tag: str) -> dict:
     """Device busy ms, idle share and device ms by kernel name per frame,
-    from a profile of n frames that took `wall` ms each on the host."""
+    from a profile of n frames that took `wall` ms each on the host.
+    Returns the wall, busy (None: not measured) and idle share."""
     cuda = torch.autograd.DeviceType.CUDA
     dev_events = [e for e in prof.events() if e.device_type == cuda]
     if not dev_events:
         log(f"{label}: wall {wall:.3f} ms/frame (profiler on); device busy and idle share "
             f"not measured (no device events)  [{tag}]")
-        return
+        return {"wall": wall, "busy": None, "idle": None}
     busy = _union_ms((e.time_range.start, e.time_range.end) for e in dev_events) / n
     log(f"{label}: wall {wall:.3f} ms/frame (profiler on), device busy {busy:.3f} ms/frame, "
         f"idle share {1 - busy / wall:.4f} ({len(dev_events) / n:.0f} device events/frame)"
@@ -1747,6 +1790,7 @@ def _device_report(prof, n: int, wall: float, label: str, tag: str) -> None:
         + ", ".join(f"{k} {sum(v) / 1e3 / n:.4f} ({len(v) / n:g} launches/frame, "
                     f"{sum(v) / 1e3 / max(len(v), 1):.4f} each)" for k, v in tally.items())
         + f"  [{tag}]")
+    return {"wall": wall, "busy": busy, "idle": 1 - busy / wall}
 
 
 def spatial_profile(frames, intrinsics, dev, tag) -> None:
@@ -1906,7 +1950,7 @@ def system_phase(frames, intrinsics, dev, tag, plan, modules, label, plan_key) -
         f"{med['host keys']:.3f} (min {min(host['ms'][1:]):.3f}, max "
         f"{max(host['ms'][1:]):.3f}), graphs {host['graphs']}  [{tag}]")
     return {"median_ms": med, "counts": cap["counts"], "graphs": cap["graphs"],
-            "peak_mib": cap["peak"]}
+            "peak_mib": cap["peak"], "last": cap["seen"][FRAMES]}
 
 
 def _assert_state_equal(a, b, where):
@@ -1920,10 +1964,13 @@ def _assert_state_equal(a, b, where):
         raise AssertionError(f"{where}: differs")
 
 
-def system_profile(frames, intrinsics, dev, tag, modules=None, label="captured profile"):
-    """A fresh captured System run of the flagship with frames
-    SYSTEM_PROFILE_FRAMES (dispatch counts) under torch.profiler: wall
-    time a frame, device busy time and idle share, device time by kernel."""
+def system_profile(frames, intrinsics, dev, tag, modules=None, label="captured profile",
+                   parallel=None, captured=True) -> dict:
+    """A fresh System run of the flagship (or of `modules`, with a
+    `parallel` block) with frames SYSTEM_PROFILE_FRAMES (dispatch counts)
+    under torch.profiler, captured or (captured=False) with the eager step:
+    wall time a frame, device busy time and idle share, device time by
+    kernel.  Returns _device_report's numbers."""
     import time
 
     from torch.profiler import ProfilerActivity, profile
@@ -1934,7 +1981,8 @@ def system_profile(frames, intrinsics, dev, tag, modules=None, label="captured p
     first, last = SYSTEM_PROFILE_FRAMES
     system = build_system(PreloadedSource(frames[:last], intrinsics=intrinsics),
                           modules or flagship_modules(), device=dev,
-                          max_in_flight=SYSTEM_DEPTH)
+                          max_in_flight=SYSTEM_DEPTH, parallel=parallel)
+    system.captured = captured and system.captured
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     window = {}
 
@@ -1952,7 +2000,199 @@ def system_profile(frames, intrinsics, dev, tag, modules=None, label="captured p
     _frame_end_events(system, ends, on_dispatch)
     system.run()
     n = last - first + 1
-    _device_report(prof, n, window["wall_ms"] / n, f"{label} frames {first}..{last}", tag)
+    return _device_report(prof, n, window["wall_ms"] / n, f"{label} frames {first}..{last}",
+                          tag)
+
+
+# ---------------------------------------------------------- spatial System
+def spatial_config() -> dict:
+    with open(os.path.join(REPO, "configs", "kitti-planeseg-spatial.json")) as f:
+        return json.load(f)
+
+
+def select_warp(modules: list[dict]) -> list[dict]:
+    """`modules` with the temporal vote's warp 'select' (the spatial mode's)
+    at the same max_warp_y: the full-frame reference of a spatial run."""
+    return [{**m, "warp_mode": "select", "max_warp_y": m.get("max_warp_y", 32)}
+            if m["type"] == "superpixel_disparity_planeseg" else m for m in modules]
+
+
+def spatial_system_phase(frames, intrinsics, dev, tag, plan) -> dict:
+    """configs/kitti-planeseg-spatial.json as written (8 row shards on this
+    one card, histogram-peak provider) through build_system for
+    SPATIAL_SYSTEM_FRAMES frames at max_in_flight=SYSTEM_DEPTH, frame 64 the
+    reset: captured (SpatialPipeline.captured_step, a graph a variant) with
+    every key fetched and with the host keys; eager (module_timing: one
+    spatial_step a frame), every key; and the full-frame System of the same
+    modules with the 'select' warp, captured, every key.  Every fetched
+    output of every frame of the captured runs must be array_equal to both
+    references and the final state to the eager one; each graph's launches
+    those of one eager frame of its variant (K5 8, 14 settle sweeps, K2 8,
+    K3 8 x launches(sweeps), K4 8); each run's counts its plan, no plain call;
+    the step bodies captured with the collector off (run_system).  Prints the
+    medians of frames 3..65, the capture seconds, the peak memory and the
+    launches a frame; returns them with the captured run's last frame."""
+    from cartslam_tpu_torch.kernels.relax import launches
+    from cartslam_tpu_torch.parallel.spatial_flagship import SpatialPipeline
+    from cartslam_tpu_torch.sources import PreloadedSource
+    from cartslam_tpu_torch.utils.memory import memory_stats
+
+    config, n = spatial_config(), SPATIAL_SYSTEM_FRAMES
+    mods, parallel = config["modules"], config["parallel"]
+    runs = {}
+    for mode, modules, kw in (
+            ("captured", mods, dict(parallel=parallel, extra_fetch_keys=SYSTEM_KEYS)),
+            ("host keys", mods, dict(parallel=parallel)),
+            ("eager", mods, dict(parallel=parallel, extra_fetch_keys=SYSTEM_KEYS,
+                                 module_timing=True)),
+            ("full frame", select_warp(mods), dict(extra_fetch_keys=SYSTEM_KEYS))):
+        label = f"spatial System {mode}"
+        r = run_system(PreloadedSource(frames[:n], intrinsics=intrinsics), modules, dev, label,
+                       plan["spatial_system_full" if mode == "full frame" else "spatial_system"],
+                       frames=n, max_in_flight=SYSTEM_DEPTH, **kw)
+        system = r.pop("system")
+        pipe = system.pipeline
+        if isinstance(pipe, SpatialPipeline) != (mode != "full frame") \
+                or system.captured != (mode != "eager") \
+                or len(r["graphs"]) != (3 if system.captured else 0):
+            raise AssertionError(f"{label}: {type(pipe).__name__}, captured {system.captured}, "
+                                 f"graphs {r['graphs']}")
+        if mode in ("captured", "host keys"):
+            if pipe.n != SHARDS:
+                raise AssertionError(f"{label}: {pipe.n} shards")
+            sweeps = {pipe.variant(1): 24, pipe.variant(2): 8, pipe.variant(64): 24}
+            for step in pipe.captured_steps.values():
+                want = {"sgm_sharded": SHARDS, "sgm_settle": SETTLE_LAUNCHES,
+                        "moment_tally": SHARDS,
+                        "relax": SHARDS * launches(sweeps[step.variant], 1, "frame"),
+                        "vote_tally": SHARDS}
+                if step.launches != want:
+                    raise AssertionError(f"{label}: the graph of {step.variant} launches "
+                                         f"{step.launches}, an eager frame {want}")
+            r["per_graph"] = {str(v.variant): v.launches for v in pipe.captured_steps.values()}
+        runs[mode] = dict(r, state=system.final_state)
+        del system, pipe, r
+        torch.cuda.empty_cache()
+    cap, host, eager, full = (runs[m] for m in ("captured", "host keys", "eager", "full frame"))
+    for fid in range(1, n + 1):
+        for name, ref in (("the eager spatial System", eager),
+                          ("the full-frame System ('select' warp)", full)):
+            bad = _fetched_equal(cap["seen"][fid], ref["seen"][fid])
+            bad += _fetched_equal(host["seen"][fid],
+                                  {k: ref["seen"][fid][k] for k in host["seen"][fid]})
+            if bad:
+                raise AssertionError(f"spatial System frame {fid}: captured != {name} on {bad}")
+    for r in (cap, host):
+        _assert_state_equal(r["state"], eager["state"], "spatial System final state")
+    steady = slice(1, n - 2)  # ms[j] is frame j + 2's: frames 3..65
+    med = {m: float(np.median(r["ms"][steady])) for m, r in runs.items()}
+    mem = memory_stats()[0]
+    log(f"spatial System: {config['parallel']} of {H // SHARDS} rows on one card, {n} frames at "
+        f"max_in_flight={SYSTEM_DEPTH}: captured ({len(cap['graphs'])} graphs) equal to the eager "
+        f"spatial System (module_timing) and to the captured full-frame System with the 'select' "
+        f"warp on every fetched output ({', '.join(sorted(cap['seen'][1]))}) of every frame, "
+        f"the host-keys run too, the final state equal to the eager one; the step bodies captured "
+        f"with the collector off")
+    log(f"spatial System launches a frame by graph (variant: launches) {host['per_graph']}; "
+        f"run counts captured {cap['counts']}, eager {eager['counts']}, full frame "
+        f"{full['counts']}; no plain call")
+    log(f"spatial System per-frame ms (CUDA events between frame ends, frames 3..{n - 1}): "
+        f"captured host keys median {med['host keys']:.3f} (min "
+        f"{min(host['ms'][steady]):.3f}, max {max(host['ms'][steady]):.3f}), every key "
+        f"{med['captured']:.3f}; eager module_timing {med['eager']:.3f}; full-frame 'select' "
+        f"captured every key {med['full frame']:.3f}; capture s {host['graphs']} (every key "
+        f"{cap['graphs']}); peak device memory captured {host['peak']:.1f} MiB (every key "
+        f"{cap['peak']:.1f}), eager {eager['peak']:.1f}; after the phase (utils/memory) "
+        f"{mem['bytes_in_use'] / 2**20:.1f} MiB in use, {mem['bytes_reserved'] / 2**20:.1f} "
+        f"reserved of {mem['bytes_limit'] / 2**20:.0f}  [{tag}]")
+    return {"median_ms": med, "counts": host["counts"], "graphs": host["graphs"],
+            "peak_mib": host["peak"], "last": cap["seen"][n], "per_graph": host["per_graph"]}
+
+
+def quality_scores(out: dict, gen, frame_idx: int, num_disparities: int) -> dict:
+    """scripts/eval_quality.evaluate's metrics of one frame's fetched
+    outputs against the synthetic truth of frame `frame_idx` (0-based), with
+    the ported utils/quality: boundary recall and under-segmentation of the
+    superpixels, the flow's endpoint error inside a border strip, the plane
+    labels' accuracy where the truth lies in the search range, and the
+    disparity's valid share and median error."""
+    from cartslam_tpu_torch.ops.planeseg import HORIZONTAL, VERTICAL
+    from cartslam_tpu_torch.utils import quality
+
+    sp, planes = out["superpixels"], out["planes"]
+    h, w = planes.shape
+    flow = out["optflow"].astype(np.float32) / 32.0  # S10.5 -> px
+    regions = gen.ground_truth_regions(frame_idx)
+    mask = np.zeros((h, w), bool)
+    mask[8:-8, 12:-12] = True
+    disp = out["disparity"].astype(np.float32) / 16.0
+    gt_disp = gen.ground_truth_disparity(frame_idx)
+    interior = np.zeros((h, w), bool)
+    interior[4:-4, num_disparities + 8:-8] = True
+    searchable = interior & (gt_disp >= 5.0)
+    valid = disp > 0
+    return {
+        "disp_valid_frac": float(valid[searchable].mean()),
+        "disp_med_err_px": float(np.median(np.abs(disp - gt_disp)[searchable & valid])),
+        "boundary_recall": quality.boundary_recall(regions, sp),
+        "underseg_error": quality.undersegmentation_error(regions, sp),
+        "flow_epe_px": quality.flow_epe(flow, gen.ground_truth_flow(frame_idx), mask),
+        "plane_accuracy": quality.plane_accuracy(
+            planes, np.where(gt_disp >= 5.0, regions, 255),
+            {gen.GT_GROUND: HORIZONTAL, gen.GT_WALL: VERTICAL}),
+        "num_superpixels": int(len(np.unique(sp))),
+    }
+
+
+def _scores(scores: dict) -> str:
+    return ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                     for k, v in scores.items())
+
+
+def quality_phase(gen, flagship_last: dict, spatial_last: dict, dev, tag) -> dict:
+    """The full-size flagship's last frame (FRAMES) and the spatial System's
+    (SPATIAL_SYSTEM_FRAMES) scored against the synthetic truth and printed;
+    then tests/test_quality.py's gate: the flagship at its settings
+    (QUALITY_SIZE, QUALITY_D disparities, QUALITY_FRAMES frames, 'frame'
+    statistics, a static provider, scripts/eval_quality.evaluate's source)
+    through the captured System on the card, its last frame scored and held
+    to QUALITY_FLOORS and QUALITY_CEILINGS."""
+    from cartslam_tpu_torch.config import build_system
+    from cartslam_tpu_torch.sources import SyntheticDataSource
+
+    full = {"flagship": quality_scores(flagship_last, gen, FRAMES - 1, D),
+            "spatial System": quality_scores(spatial_last, gen, SPATIAL_SYSTEM_FRAMES - 1, D)}
+    for name, sc in full.items():
+        log(f"quality of the full-size {name} ({H}x{W}, D={D}, histogram-peak provider) against "
+            f"the synthetic truth of its last frame: {_scores(sc)}  [{tag}]")
+    h, w = QUALITY_SIZE
+    src = SyntheticDataSource(image_size=(h, w), num_frames=QUALITY_FRAMES, max_disparity=20,
+                              baseline=2.0)
+    static = {"type": "static", "horizontal_range_min": 3, "horizontal_range_max": 40,
+              "vertical_range_min": -6, "vertical_range_max": 3}
+    mods = [{"type": "disparity", "min_disparity": 4, "num_disparities": QUALITY_D,
+             "smoothing_radius": 2, "smoothing_iterations": 1},
+            {"type": "disparity_derivative"}, {"type": "depth"},
+            {"type": "superpixels", "initial_iterations": 24, "iterations": 8, "block_size": 12,
+             "reset_iterations": 64, "stats_refresh": "frame"},
+            {"type": "optflow"},
+            {"type": "superpixel_disparity_planeseg", "parameter_provider": static,
+             "use_temporal_smoothing": True}]
+    system = build_system(src, mods, device=dev, max_in_flight=SYSTEM_DEPTH,
+                          extra_fetch_keys=("planes", "superpixels", "optflow", "disparity"))
+    seen = {}
+    if system.run(on_frame=lambda fid, out: seen.update({fid: out})) != QUALITY_FRAMES \
+            or not system.captured or system.failed_frames:
+        raise AssertionError("quality gate: the captured System run failed")
+    sc = quality_scores(seen[QUALITY_FRAMES], src, QUALITY_FRAMES - 1, QUALITY_D)
+    bad = [k for k, v in QUALITY_FLOORS.items() if not sc[k] >= v]
+    bad += [k for k, v in QUALITY_CEILINGS.items() if not sc[k] <= v]
+    if bad:
+        raise AssertionError(f"quality gate: {bad} outside tests/test_quality.py's limits: {sc}")
+    log(f"quality gate (tests/test_quality.py's settings: {h}x{w}, D={QUALITY_D}, "
+        f"{QUALITY_FRAMES} frames, 'frame' statistics, static provider; captured System): "
+        f"{_scores(sc)}; within floors {QUALITY_FLOORS} and ceilings {QUALITY_CEILINGS}  [{tag}]")
+    return {**full, "gate": sc}
 
 
 # ---------------------------------------------------------------- new paths
@@ -2532,12 +2772,35 @@ MULTISEQ_ROUNDS = FRAMES  # 65: the initial, normal and reset variants
 BLEED_ROUNDS = 12
 SHIPPED_ROUNDS = 10
 COMPOSED = {"mode": "spatial", "devices": 8, "sequences": 2}
-COMPOSED_ROUNDS = 4
+COMPOSED_ROUNDS = 10
 MULTISEQ_PROFILE_ROUNDS = (3, 12)
 # A static provider (configs/modules/zed-planeseg.json's ranges): the
 # sequences do not interact through the host params.
 STATIC_PROVIDER = {"type": "static", "horizontal_range_min": 1, "horizontal_range_max": 30,
                    "vertical_range_min": -3, "vertical_range_max": 1}
+
+
+@contextlib.contextmanager
+def per_sequence_side_streams():
+    """ShardGroup.side_stream keyed by the shard and the caller's stream, so
+    each of the composed mode's sequences (each on its own stream in the
+    graph, warmed up on it) forks its K5 output passes onto side streams of
+    its own.  The side-stream measurement of phase (e) only."""
+    from cartslam_tpu_torch.parallel.group import ShardGroup
+
+    shared = ShardGroup.side_stream
+
+    def side_stream(self):
+        i = self._local.index
+        key = (i, torch.cuda.current_stream(self.devices[i]).cuda_stream)
+        if key not in self._side:
+            self._side[key] = torch.cuda.Stream(device=self.devices[i])
+        return self._side[key]
+    ShardGroup.side_stream = side_stream
+    try:
+        yield
+    finally:
+        ShardGroup.side_stream = shared
 
 
 def multiseq_frames(first: list, n: int) -> list[list]:
@@ -2702,11 +2965,16 @@ def multiseq_phase(first_frames, intrinsics, dev, tag, plan, single_ms) -> dict:
       (d) K1-K4 launch B times the flagship's plan in every run of (a), with
           no plain call;
       (e) the composed mode COMPOSED on the flagship's modules,
-          COMPOSED_ROUNDS rounds: each sequence equal to the single-sequence
-          full-frame System (warp 'select') on its source, every output; K2,
-          K3 and K4 equal to their plain versions on the inputs of their
-          first call on each shard thread at each shape (frame 1's, and
-          frame 2's narrower halos).
+          COMPOSED_ROUNDS rounds: captured (a graph a variant holding both
+          sequences' spatial steps) equal to the eager batched step on every
+          output of every round and the final state, and equal to the
+          full-frame MultiSeqSystem (warp 'select') on the same sources, every
+          output (a single-sequence System's provider sees one histogram, not
+          the batch's sum); K2, K3 and K4 equal to their plain versions
+          on the inputs of their first call on each shard thread at each
+          shape (frame 1's, and frame 2's narrower halos); the ms a round
+          and the replay span with the host keys, with K5's side streams
+          shared by the sequences (as shipped) and per sequence.
     Every captured run (here and in run_system) was captured with Python's
     cyclic collector off (_watch_gc).
     `single_ms`: the single-sequence captured System's ms a frame (host
@@ -2715,7 +2983,7 @@ def multiseq_phase(first_frames, intrinsics, dev, tag, plan, single_ms) -> dict:
 
     from cartslam_tpu_torch.config import read_system_config
     from cartslam_tpu_torch.kernels.relax import launches
-    from cartslam_tpu_torch.parallel.system import MultiSeqSystem, SpatialMultiSeqSystem
+    from cartslam_tpu_torch.parallel.system import MultiSeqSystem
     from cartslam_tpu_torch.sources import PreloadedSource
 
     b = MULTISEQ_B
@@ -2825,50 +3093,99 @@ def multiseq_phase(first_frames, intrinsics, dev, tag, plan, single_ms) -> dict:
     del shipped
 
     # (e) sequences x spatial
+    out.update(composed_phase(frames[:COMPOSED["sequences"]], intrinsics, dev, tag))
+    multiseq_profile(frames, intrinsics, dev, tag)
+    return out
+
+
+def composed_phase(frames, intrinsics, dev, tag) -> dict:
+    """Phase (e) of multiseq_phase: the composed mode COMPOSED over the
+    sequences `frames` (one list of frames each), COMPOSED_ROUNDS rounds:
+    captured (each sequence on its stream, the shards' K5 side streams
+    shared by the sequences) against eager and against the full-frame
+    MultiSeqSystem of the same sources (warp 'select'; the provider fed the
+    same batch-summed histograms); the host keys timed with K5's side
+    streams shared (as shipped) and per sequence."""
+    from cartslam_tpu_torch.kernels.relax import launches
+    from cartslam_tpu_torch.parallel.system import SpatialMultiSeqSystem
+
+    mods = flagship_modules()
     seqs, shards = COMPOSED["sequences"], COMPOSED["devices"] // COMPOSED["sequences"]
     sp = launches(24, 1, "frame") + (COMPOSED_ROUNDS - 1) * launches(8, 1, "frame")
     cplan = {"sgm": 0, "sgm_sharded": seqs * shards * COMPOSED_ROUNDS,
              "sgm_settle": seqs * 2 * (shards - 1) * COMPOSED_ROUNDS,
              "moment_tally": seqs * shards * COMPOSED_ROUNDS, "relax": seqs * shards * sp,
              "vote_tally": seqs * shards * COMPOSED_ROUNDS}
+    label = f"composed {COMPOSED}"
+    comp = {}
+
+    def run(mode, **kw):
+        r = run_multiseq(frames, intrinsics, mods, dev, f"{label} {mode}", cplan,
+                         rounds=COMPOSED_ROUNDS, parallel=COMPOSED, **kw)
+        system = r.pop("system")
+        if not isinstance(system, SpatialMultiSeqSystem) or system.pipeline.n != shards \
+                or system.captured != (mode != "eager") \
+                or len(r["graphs"]) != (2 if system.captured else 0):
+            raise AssertionError(f"{label} {mode}: {type(system).__name__} with "
+                                 f"{system.pipeline.n} shards, captured {system.captured}, "
+                                 f"graphs {r['graphs']}")
+        comp[mode] = dict(r, state=system.final_state)
+        del system, r
+        torch.cuda.empty_cache()
+
     with first_calls(by_shard=True) as calls:
-        comp = run_multiseq(frames[:seqs], intrinsics, mods, dev, f"composed {COMPOSED}", cplan,
-                            rounds=COMPOSED_ROUNDS, parallel=COMPOSED, keep=True)
-    kernels_note = check_path_kernels(f"composed {COMPOSED}", calls)
+        run("captured", keep=True)
+    kernels_note = check_path_kernels(label, calls)
     del calls
-    system = comp.pop("system")
-    if not isinstance(system, SpatialMultiSeqSystem) or system.pipeline.n != shards \
-            or system.captured:
-        raise AssertionError(f"composed: {type(system).__name__} with {system.pipeline.n} shards")
-    del system
-    select = [{**m, "warp_mode": "select", "max_warp_y": m.get("max_warp_y", 32)}
-              if m["type"] == "superpixel_disparity_planeseg" else m for m in mods]
-    k3 = launches(24, 1, "frame") + (COMPOSED_ROUNDS - 1) * launches(8, 1, "frame")
-    full = {"sgm": COMPOSED_ROUNDS, "moment_tally": COMPOSED_ROUNDS, "relax": k3,
-            "vote_tally": COMPOSED_ROUNDS}
-    for s in range(seqs):
-        r = run_system(PreloadedSource(frames[s][:COMPOSED_ROUNDS], intrinsics=intrinsics),
-                       select, dev, f"composed full frame {s}", full, frames=COMPOSED_ROUNDS,
-                       extra_fetch_keys=SYSTEM_KEYS, max_in_flight=SYSTEM_DEPTH)
-        for fid in range(1, COMPOSED_ROUNDS + 1):
-            bad = _fetched_equal({k: v[s] for k, v in comp["seen"][fid].items()},
-                                 r["seen"][fid])
-            if bad:
-                raise AssertionError(f"composed round {fid} sequence {s}: differs from the "
-                                     f"full frame on {bad}")
-        del r
-    cms = comp["ms"][1:]
-    out["composed_ms"] = float(np.median(cms))
-    log(f"composed {COMPOSED} (e): {seqs} sequences x {shards} row shards of {H // shards} rows "
-        f"on one card, {COMPOSED_ROUNDS} rounds of the flagship: each sequence equal to the "
-        f"single-sequence full-frame System (warp 'select') on its source, every output "
-        f"({', '.join(sorted(comp['seen'][1]))}); launches {comp['counts']}, no plain call; ms a "
-        f"round (rounds 2..{COMPOSED_ROUNDS}) median {out['composed_ms']:.3f} "
-        f"({', '.join(f'{x:.3f}' for x in cms)}); peak {comp['peak']:.1f} MiB  [{tag}]")
-    log(f"composed {COMPOSED} (e): {kernels_note}")
-    del comp
+    run("eager", keep=True, captured=False)
+    run("host keys", keys=(), spans=True)
+    with per_sequence_side_streams():
+        run("per-sequence side streams", keys=(), spans=True)
+    cap, eager = comp["captured"], comp["eager"]
+    for fid in range(1, COMPOSED_ROUNDS + 1):
+        bad = _fetched_equal(cap["seen"][fid], eager["seen"][fid])
+        if bad:
+            raise AssertionError(f"{label} round {fid}: captured != eager on {bad}")
+    eager_digests = {fid: _digests(v, seqs) for fid, v in eager["seen"].items()}
+    for mode in ("host keys", "per-sequence side streams"):
+        _digests_equal(f"{label} {mode} vs eager", comp[mode]["seen"], eager_digests)
+    for mode in ("captured", "host keys", "per-sequence side streams"):
+        _assert_state_equal(comp[mode]["state"], eager["state"], f"{label} {mode} final state")
+    # The full-frame reference is the multiseq System over the same sources:
+    # its provider is fed the same batch-summed histograms (a single System's
+    # would differ from round 1 + SYSTEM_DEPTH on).
+    full = {"sgm": seqs * COMPOSED_ROUNDS, "moment_tally": seqs * COMPOSED_ROUNDS,
+            "relax": seqs * sp, "vote_tally": seqs * COMPOSED_ROUNDS}
+    ref = run_multiseq(frames, intrinsics, select_warp(mods), dev, f"{label} full frame", full,
+                       rounds=COMPOSED_ROUNDS, keep=True)
+    del ref["system"]
+    for fid in range(1, COMPOSED_ROUNDS + 1):
+        bad = _fetched_equal(cap["seen"][fid], ref["seen"][fid])
+        if bad:
+            raise AssertionError(f"{label} round {fid}: differs from the full frame on {bad}")
+    del ref
+    med = {m: float(np.median(r["ms"][1:])) for m, r in comp.items()}
+    alt = "per-sequence side streams"
+    span = {m: float(np.median(comp[m]["replays"][2:])) for m in ("host keys", alt)}
+    out = dict(composed_ms=med["host keys"], composed_eager_ms=med["eager"],
+               composed_alt_ms=med[alt], composed_counts=comp["host keys"]["counts"],
+               composed_graphs=comp["host keys"]["graphs"], composed_span=span["host keys"],
+               composed_alt_span=span[alt])
+    log(f"{label} (e): {seqs} sequences x {shards} row shards of {H // shards} rows on one card, "
+        f"{COMPOSED_ROUNDS} rounds of the flagship: captured ({len(cap['graphs'])} graphs) equal "
+        f"to the eager batched step on every output of every round "
+        f"({', '.join(sorted(cap['seen'][1]))}) and the final state, and to the full-frame "
+        f"MultiSeqSystem (warp 'select') on the same sources; launches "
+        f"{comp['host keys']['counts']}, no plain call")
+    log(f"{label} (e) ms a round (CUDA events between round ends, rounds 3..{COMPOSED_ROUNDS}): "
+        f"captured host keys median {med['host keys']:.3f} (replay span {span['host keys']:.3f}), "
+        f"with K5's side streams per sequence {med[alt]:.3f} (replay span {span[alt]:.3f}); "
+        f"captured every key {med['captured']:.3f}; eager {med['eager']:.3f}; capture s "
+        f"{comp['host keys']['graphs']}; peak {comp['host keys']['peak']:.1f} MiB (per-sequence "
+        f"side streams {comp[alt]['peak']:.1f})  [{tag}]")
+    log(f"{label} (e): {kernels_note}")
+    del comp, cap, eager
     torch.cuda.empty_cache()
-    multiseq_profile(frames, intrinsics, dev, tag)
     return out
 
 
@@ -2983,12 +3300,14 @@ def main() -> int:
     launches = entry_point_paths(paths)
     del paths
     torch.cuda.empty_cache()
-    gen = SyntheticDataSource(image_size=(H, W), num_frames=FRAMES, seed=0,
+    gen = SyntheticDataSource(image_size=(H, W), num_frames=SPATIAL_SYSTEM_FRAMES, seed=0,
                               max_disparity=80.0, baseline=20.0)
     source = PreloadedSource.wrap(gen)
+    intrinsics = source.get_camera_intrinsics()
     torch.cuda.reset_peak_memory_stats(dev)
     pipe, res, frame_ms, last, counts = drive(
-        *build_pipeline(source, flagship_modules(), device=dev), plan["flagship"])
+        *build_pipeline(PreloadedSource(source.frames[:FRAMES], intrinsics=intrinsics),
+                        flagship_modules(), device=dev), plan["flagship"])
     peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
     log("flagship modules: " + " -> ".join(m.name for m in pipe.modules))
     log(f"flagship: {res.frames} frames at {H}x{W}, D={D}; launches {counts}; "
@@ -3000,13 +3319,11 @@ def main() -> int:
         launches[name] = counts[name]
     del pipe, res, last
 
-    nt_source = PreloadedSource(source.frames[:NONTEMPORAL_FRAMES],
-                                intrinsics=source.get_camera_intrinsics())
+    nt_source = PreloadedSource(source.frames[:NONTEMPORAL_FRAMES], intrinsics=intrinsics)
     _, nt_res, nt_ms, _, nt_counts = drive(
         *build_pipeline(nt_source, nontemporal_modules(), device=dev), plan["nontemporal"])
     log(f"non-temporal slice: {nt_res.frames} frames; launches {nt_counts}; per-frame median "
         f"{float(np.median(nt_ms[2:])):.3f} ms over frames 3..{NONTEMPORAL_FRAMES}  [{tag}]")
-    intrinsics = source.get_camera_intrinsics()
     faithful_ms = faithful_paths(source.frames, intrinsics, gen, dev, tag, plan)
 
     # 4b. the System: captured step against the eager one
@@ -3017,7 +3334,7 @@ def main() -> int:
                                        faithful_modules(), "faithful flagship", "faithful")}
     for name in plan["flagship"]:
         launches[name] = system["flagship"]["counts"][name]
-    launches["sgm_sharded"], _ = spatial_phase(source.frames, intrinsics, dev, tag, plan)
+    spatial_phase(source.frames, intrinsics, dev, tag, plan)
     spatial_phase(source.frames, intrinsics, dev, tag, plan, n_frames=SPATIAL_PHASE_FRAMES,
                   superpixels={"stats_refresh": "phase"},
                   keys=("spatial_phase_full", "spatial_phase"))
@@ -3034,11 +3351,18 @@ def main() -> int:
     multiseq = multiseq_phase(source.frames, intrinsics, dev, tag, plan,
                               system["flagship"]["median_ms"]["host keys"])
     by_path[f"multiseq (B={MULTISEQ_B})"] = multiseq["counts"]
+    by_path[f"composed {COMPOSED['sequences']} x {SHARDS // COMPOSED['sequences']} shards "
+            "(captured)"] = multiseq["composed_counts"]
+
+    # 4e. the spatial System, captured against eager and the full frame
+    spatial = spatial_system_phase(source.frames, intrinsics, dev, tag, plan)
+    by_path[f"spatial System ({SHARDS} shards, captured)"] = spatial["counts"]
 
     # 5. card against CPU
     small_temporal_check(dev)
     small_temporal_check(dev, faithful=True)
     flow_ms = full_flow_check(source.frames, dev, tag)
+    quality = quality_phase(gen, system["flagship"]["last"], spatial["last"], dev, tag)
 
     # 6. profile
     profile_phase(source.frames, intrinsics, dev, tag)
@@ -3047,6 +3371,11 @@ def main() -> int:
     system_profile(source.frames, intrinsics, dev, tag)
     system_profile(source.frames, intrinsics, dev, tag, faithful_modules(),
                    "faithful captured profile")
+    config = spatial_config()
+    spatial_prof = {mode: system_profile(source.frames, intrinsics, dev, tag, config["modules"],
+                                         f"spatial System {mode} profile", config["parallel"],
+                                         captured=mode == "captured")
+                    for mode in ("captured", "eager")}
 
     # 7. the CLI path
     cli_phase()
@@ -3088,10 +3417,27 @@ def main() -> int:
         f"System; replay span {multiseq['batch_replay_ms']:.3f} against {MULTISEQ_B} x "
         f"{multiseq['single_replay_ms']:.3f}; peak allocated / reserved {multiseq['peak']:.1f} / "
         f"{multiseq['reserved']:.1f} MiB, capture s "
-        f"{multiseq['graphs']}; composed {COMPOSED} {multiseq['composed_ms']:.3f} ms a round  "
+        f"{multiseq['graphs']}  [{tag}]")
+    med, prof = spatial["median_ms"], spatial_prof
+    log(f"spatial System per-frame ms, frames 3..{SPATIAL_SYSTEM_FRAMES - 1}, one call: captured "
+        f"{med['host keys']:.3f} (host keys) / {med['captured']:.3f} (every key), eager "
+        f"module_timing {med['eager']:.3f}; profiled frames {SYSTEM_PROFILE_FRAMES[0]}.."
+        f"{SYSTEM_PROFILE_FRAMES[1]}: " + "; ".join(
+            f"{m} wall {p['wall']:.3f}, busy "
+            + ("not measured" if p["busy"] is None else f"{p['busy']:.3f}, idle share "
+               f"{p['idle']:.4f}") for m, p in prof.items())
+        + f"; {len(spatial['graphs'])} graphs, capture s {spatial['graphs']}, peak "
+        f"{spatial['peak_mib']:.1f} MiB; launches a frame by graph {spatial['per_graph']}  "
         f"[{tag}]")
+    log(f"composed {COMPOSED} ms a round, rounds 3..{COMPOSED_ROUNDS}: captured "
+        f"{multiseq['composed_ms']:.3f} (host keys; replay span {multiseq['composed_span']:.3f}), "
+        f"K5's side streams per sequence {multiseq['composed_alt_ms']:.3f} (replay span "
+        f"{multiseq['composed_alt_span']:.3f}), eager {multiseq['composed_eager_ms']:.3f}; "
+        f"capture s {multiseq['composed_graphs']}  [{tag}]")
+    for name, sc in quality.items():
+        log(f"quality {name}: {_scores(sc)}  [{tag}]")
     launches_by_path = {}
-    for name in plan["flagship"]:
+    for name in [*plan["flagship"], "sgm_sharded"]:
         launches_by_path[name] = {p: c[name] for p, c in by_path.items() if c.get(name)}
         launches[name] = sum(launches_by_path[name].values())
     for name, r in results.items():

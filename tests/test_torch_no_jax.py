@@ -3,8 +3,10 @@
 The card's machine has no JAX, so nothing the port (or chip_smoke.py)
 imports may pull it in: the child below runs the pipelines, the System
 with its host modules, sinks and checkpoints, a 2-sequence MultiSeqSystem,
-the plane fits with the native build, the ORB features and the ZED source,
-and imports the CLI, with any ``import jax`` made to fail.
+the composed mode, the spatial step's captured body on the CPU, the quality
+metrics and the memory report, the plane fits with the native build, the
+ORB features and the ZED source, and imports the CLI, with any ``import
+jax`` made to fail.
 """
 
 import pathlib
@@ -97,6 +99,34 @@ frame = {{"left": torch.zeros(2, 32, 64, 3, dtype=torch.uint8),
           "right": torch.zeros(2, 32, 64, 3, dtype=torch.uint8), "frame_id": 2}}
 state, out = step(init_state(), frame, init_params())
 assert out["planes"].shape == (2, 32, 64)
+# The composed mode (2 sequences x 2 shards) and the spatial step's captured
+# body over static buffers (runtime/graphs, eagerly on the CPU).
+from cartslam_tpu_torch.parallel.system import SpatialMultiSeqSystem
+from cartslam_tpu_torch.runtime.graphs import StaticBuffers, _sequence_body
+system = build_system(src, mods, device="cpu", extra_fetch_keys=["planes"],
+                      parallel={{"mode": "spatial", "devices": 4, "sequences": 2}})
+assert isinstance(system, SpatialMultiSeqSystem)
+assert system.run() == 4 and not system.failed_frames
+pipeline, source = build_pipeline(src, mods, device="cpu",
+                                  parallel={{"mode": "spatial", "devices": 2}})
+first = source.get_next()
+bufs = StaticBuffers(pipeline, first)
+bufs.load_frame({{k: torch.from_numpy(first[k]) for k in ("left", "right")}}, 1)
+got = _sequence_body(pipeline, bufs, bufs.state, bufs.frame, pipeline.variant(1),
+                     frozenset(["planes", "superpixels", "optflow"]))
+assert got["planes"].shape == (32, 64)
+# The quality metrics against the synthetic truth, and the memory report.
+from cartslam_tpu_torch.sources import SyntheticDataSource
+from cartslam_tpu_torch.utils import memory, quality
+gen = SyntheticDataSource(image_size=(32, 64), num_frames=2)
+regions = gen.ground_truth_regions(1)
+sp = got["superpixels"].numpy()
+assert 0.0 <= quality.boundary_recall(regions, sp) <= 1.0
+assert quality.undersegmentation_error(regions, sp) >= 0.0
+assert quality.flow_epe(got["optflow"].numpy() / 32.0, gen.ground_truth_flow(1)) >= 0.0
+assert 0.0 <= quality.plane_accuracy(got["planes"].numpy(), regions, {{0: 0, 1: 1}}) <= 1.0
+assert memory.memory_stats() == [{{"device": "cpu"}}]
+memory.report_memory_usage()
 # The plane fits (host modules on the device, the native region growing and
 # its Python route), the ORB features, the ZED source and zed_disparity.
 import numpy as np
