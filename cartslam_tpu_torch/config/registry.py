@@ -11,9 +11,12 @@ the height-sharded SpatialPipeline over the same modules, whose step a
 System on the card captures as a CUDA graph per variant, as the flagship's.
 The
 multi-sequence modes run only under a System: ``"mode": "multiseq"`` builds
-a MultiSeqSystem over ``batch`` sources (default 1, the device count of one
-card), and ``"mode": "spatial"`` with ``"sequences"`` > 1 a
-SpatialMultiSeqSystem; ``"multihost"`` raises "not ported yet".
+a MultiSeqSystem over ``batch`` sources (default: the visible cards summed
+over the processes, as JAX's ``len(jax.devices())``), and ``"mode":
+"spatial"`` with ``"sequences"`` > 1 a SpatialMultiSeqSystem.  A
+``"multihost"`` block joins the multiseq mode's processes
+(parallel/distributed.py) and builds this process's share of the batch; the
+spatial mode ignores it with a warning, as the JAX registry does.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import numpy as np
 
 from .. import models
 from ..runtime.module import HostModule, Module, PipelineContext, checked_device
+from ..parallel.distributed import global_data_layout, global_device_count, initialize_multihost
 from ..parallel.spatial_flagship import SpatialPipeline
 from ..parallel.system import MultiSeqSystem, SpatialMultiSeqSystem
 from ..runtime.pipeline import Pipeline
@@ -223,10 +227,11 @@ def _warn_warp_bound(modules: list[Module], spatial: bool) -> None:
 
 
 def _replicate_sources(parallel: dict, source_cfg, source, batch: int,
-                       image_size: tuple[int, int]) -> list[DataSource]:
-    """B sources for a lock-step parallel run: `parallel.sources` configs
-    (or DataSources), or the primary config replicated (a synthetic
-    source's seed + i); the primary source is sequence 0's."""
+                       image_size: tuple[int, int], share: range | None = None) -> list[DataSource]:
+    """The sources of the global sequences `share` (default all B) of a
+    lock-step parallel run: `parallel.sources` configs (or DataSources), or
+    the primary config replicated (a synthetic source's seed + j for global
+    sequence j, in every layout); the primary source is sequence 0's."""
     src_cfgs = parallel.get("sources")
     if src_cfgs is None:
         src_cfgs = []
@@ -237,7 +242,8 @@ def _replicate_sources(parallel: dict, source_cfg, source, batch: int,
             src_cfgs.append(c)
     if len(src_cfgs) != batch:
         raise ValueError("parallel.sources length must equal the sequence count")
-    sources = [source if i == 0 else create_data_source(c) for i, c in enumerate(src_cfgs)]
+    sources = [source if j == 0 else create_data_source(src_cfgs[j])
+               for j in (range(batch) if share is None else share)]
     for s in sources:
         if s.get_image_size() != image_size:
             raise ValueError("all parallel sources must share image size")
@@ -258,15 +264,24 @@ def _split_multiseq_kwargs(system_kwargs: dict) -> dict:
     return {k: v for k, v in system_kwargs.items() if k in _MULTISEQ_KEYS}
 
 
-def _sequences(parallel: dict | None) -> int | None:
-    """The sequence count of a multi-sequence parallel block (multiseq's
-    `batch`, the spatial mode's `sequences` > 1); None for one sequence."""
+def _multi_sequence(parallel: dict | None) -> bool:
+    """Whether a parallel block runs several sequences (multiseq, or the
+    spatial mode's `sequences` > 1)."""
     if parallel is None:
-        return None
-    if parallel.get("mode", "multiseq") == "multiseq":
-        return int(parallel.get("batch", 1))
-    seqs = int(parallel.get("sequences", 1))
-    return seqs if seqs > 1 else None
+        return False
+    return (parallel.get("mode", "multiseq") == "multiseq"
+            or int(parallel.get("sequences", 1)) > 1)
+
+
+def _multiseq_share(parallel: dict, device) -> tuple[int, range]:
+    """(global batch, this process's global sequences) of the multiseq
+    mode: a "multihost" block joins the processes first; `batch` defaults
+    to the visible cards summed over the processes."""
+    if "multihost" in parallel:
+        initialize_multihost(parallel["multihost"])
+    batch = (int(parallel["batch"]) if "batch" in parallel
+             else global_device_count(device.type))
+    return batch, global_data_layout(device.type).share(batch)
 
 
 def _build_spatial_pipeline(parallel: dict, ctx: PipelineContext, modules) -> SpatialPipeline:
@@ -301,8 +316,9 @@ def _build(source_cfg, modules_cfg: list[dict], device, grayscale: bool,
         mode = parallel.get("mode", "multiseq")
         if mode not in ("multiseq", "spatial"):
             raise ValueError(f"unknown parallel mode '{mode}'")
-        if "multihost" in parallel:
-            raise ValueError("parallel 'multihost' is not ported yet")
+        if mode == "spatial" and "multihost" in parallel:
+            logging.getLogger("cart.config").warning(
+                "the spatial mode ignores parallel.multihost (one process holds the grid)")
     source = create_data_source(source_cfg)
     h, w = source.get_image_size()
     st = ConfigState((h, w))
@@ -333,7 +349,7 @@ def build_pipeline(source_cfg, modules_cfg: list[dict], *, device="cuda",
     a config's parallel block (``"mode": "spatial"``).  Visualization types
     are host modules and the multi-sequence modes drive several sources,
     which only a System does: here they are refused."""
-    if _sequences(parallel) is not None:
+    if _multi_sequence(parallel):
         raise ValueError("the multi-sequence modes run B sources through a System: "
                          "use build_system")
     pipeline, source, host_modules = _build(source_cfg, modules_cfg, device, grayscale,
@@ -359,12 +375,16 @@ def build_system(source_cfg, modules_cfg: list[dict], *, grayscale: bool = False
                                             parallel)
     kw = dict(timing=timing, image_sink=image_sink, max_frames=max_frames,
               max_in_flight=max_in_flight, extra_fetch_keys=extra_fetch_keys)
-    seqs = _sequences(parallel)
-    if seqs is not None:
-        sources = _replicate_sources(parallel, source_cfg, source, seqs,
-                                     (pipeline.ctx.height, pipeline.ctx.width))
+    if _multi_sequence(parallel):
+        if isinstance(pipeline, SpatialPipeline):
+            cls, batch = SpatialMultiSeqSystem, int(parallel["sequences"])
+            share = range(batch)
+        else:
+            cls = MultiSeqSystem
+            batch, share = _multiseq_share(parallel, pipeline.ctx.device)
+        sources = _replicate_sources(parallel, source_cfg, source, batch,
+                                     (pipeline.ctx.height, pipeline.ctx.width), share)
         ms_kwargs = _split_multiseq_kwargs(system_kwargs)
-        cls = SpatialMultiSeqSystem if isinstance(pipeline, SpatialPipeline) else MultiSeqSystem
         return cls(sources, pipeline, host_modules, **kw, **ms_kwargs)
     return System(source, pipeline, host_modules, **kw, **system_kwargs)
 
@@ -400,13 +420,14 @@ def read_config(*paths: str, device="cuda",
     return build_pipeline(src if source is None else source, mods, device=device, **kw)
 
 
-def read_system_config(*paths: str, **kwargs) -> System:
+def read_system_config(*paths: str, source: DataSource | None = None, **kwargs) -> System:
     """One combined config, or a (source config, modules config) pair, as
     a System; keyword arguments as build_system's (a config's own
-    "grayscale": true wins, its "parallel" block is the default)."""
+    "grayscale": true wins, its "parallel" block is the default).  source:
+    a DataSource that replaces the config's data_source, as read_config's."""
     src, mods, kw = _read(paths)
     if kw.get("grayscale"):
         kwargs["grayscale"] = True
     if "parallel" in kw:
         kwargs.setdefault("parallel", kw["parallel"])
-    return build_system(src, mods, **kwargs)
+    return build_system(src if source is None else source, mods, **kwargs)

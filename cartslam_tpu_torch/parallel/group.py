@@ -9,8 +9,8 @@ reads its peers' tensors.  The port's ``compute_spatial`` methods call
 collectives in the middle of a function, as the JAX ones do inside a
 ``shard_map``; with one thread per shard they stay the JAX code line by line.
 
-Ordering on the card: in this version every shard's device is the same
-card, and every shard thread enqueues on the caller's current stream.  A
+Ordering on the card, shared stream (the default when every shard is on
+one card): every shard thread enqueues on the caller's current stream.  A
 producer's kernels are enqueued before it deposits their output, and a
 consumer's kernels after it has passed the barrier, so stream order alone
 orders them: no event or synchronisation is needed, and a deposited tensor
@@ -28,15 +28,29 @@ serves every caller stream: the sequences of the composed mode, each on a
 stream of its own in a captured round, fork onto the same side streams, so
 one sequence's forked work orders after the other's (a side stream per
 shard and caller stream would let them overlap, but every capture of a
-run would then have to warm up on its own capture stream).  A
-device per shard is part of the interface so that a transport across
-cards can slot in (``_to``).
+run would then have to warm up on its own capture stream).
+
+Ordering with a stream per shard (shards on distinct devices, or
+``streams="per_shard"`` on one card): shard i enqueues on a stream of its
+own on its device, forked from the caller's current stream when ``run``
+starts and joined back into it when every shard has returned.  A
+collective becomes an event join: the producer records an event on its
+stream as it deposits, the consumer's stream waits on the events of the
+shards it reads, and ``_take`` copies a tensor from another device with a
+non-blocking copy (PyTorch orders a copy between two cards after both
+devices' current streams).  A tensor read by another stream than its own
+is marked as used there (``record_stream``), so the allocator does not hand
+its memory out again before that stream has read it.  In a shard thread
+the caller's stream stays current on the caller's device, so a shard's
+copy of its rows from that device orders after the caller's work.
 
 Under CUDA graph capture (runtime/graphs.py) the caller's current stream is
 the capture stream, so the shard threads enqueue into the capture; a side
-stream joins the capture through the fork's event wait.  A side stream must
-exist before the capture begins (the capture's warm-up makes it):
-``side_stream`` raises rather than make one under capture.
+stream and a shard's own stream join the capture through their fork's event
+wait.  Both must exist before the capture begins (the capture's warm-up
+makes them): ``side_stream`` and ``run`` raise rather than make one under
+capture.  Only a group on one card is captured: PyTorch's graph memory
+pool is per device, so a step across cards runs eagerly.
 
 Turns on the host: one shard runs Python at a time.  A shard holds the
 group's baton from its start to its next collective, where it hands the
@@ -62,22 +76,32 @@ from typing import Any, Callable, Sequence
 
 import torch
 
+from .distributed import canonical_device
+
 
 class CollectiveTimeout(RuntimeError):
     pass
 
 
 class ShardGroup:
-    def __init__(self, n: int, devices: Sequence, timeout: float = 600.0):
+    def __init__(self, n: int, devices: Sequence, timeout: float = 600.0,
+                 streams: str = "shared"):
         if n < 1:
             raise ValueError(f"a shard group needs at least one shard, got {n}")
-        devices = [torch.device(d) for d in devices]
+        devices = [canonical_device(d) for d in devices]
         if len(devices) != n:
             raise ValueError(f"{n} shards need {n} devices, got {len(devices)}")
-        if len(set(devices)) != 1:
-            raise ValueError("every shard runs on one device in this version")
+        if len({d.type for d in devices}) != 1:
+            raise ValueError(f"the shards' devices mix types: {devices}")
+        if streams not in ("shared", "per_shard"):
+            raise ValueError(f"streams must be 'shared' or 'per_shard', not {streams!r}")
         self.n = n
         self.devices = devices
+        self.streams = streams
+        # Shards on distinct cards cannot share a stream.
+        self.per_shard = devices[0].type == "cuda" and (
+            streams == "per_shard" or len(set(devices)) > 1)
+        self._shard_streams: list[torch.cuda.Stream] = []
         self.timeout = timeout
         self._local = threading.local()
         self._barrier: threading.Barrier | None = None  # one per run
@@ -93,7 +117,16 @@ class ShardGroup:
         results: list[Any] = [None] * self.n
         errors: list[BaseException | None] = [None] * self.n
         dev = self.devices[0]
-        stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+        cuda = dev.type == "cuda"
+        # The caller's stream: on the shards' card, or with a stream per
+        # shard on the caller's current device (where the merged results go).
+        caller = (torch.cuda.current_stream(None if self.per_shard else dev) if cuda
+                  else None)
+        streams = [caller] * self.n
+        if self.per_shard:
+            streams = self._own_streams()
+            for s in streams:
+                s.wait_stream(caller)  # the fork
         intra_op = torch.get_num_threads()
 
         def body(i: int):
@@ -101,8 +134,8 @@ class ShardGroup:
             self._local.gen = 0
             with self._baton:
                 try:
-                    if stream is not None:
-                        with torch.cuda.device(dev), torch.cuda.stream(stream):
+                    if cuda:
+                        with torch.cuda.stream(caller), torch.cuda.stream(streams[i]):
                             results[i] = fn(i)
                     else:
                         # Each new thread would start its own intra-op pool,
@@ -119,7 +152,10 @@ class ShardGroup:
             t.start()
         for t in threads:
             t.join()
-        if stream is None:
+        if self.per_shard:
+            for s in streams:
+                caller.wait_stream(s)  # the join
+        if not cuda:
             torch.set_num_threads(intra_op)  # the setting is process-wide: restore it
         real = [e for e in errors if e is not None
                 and not isinstance(e, threading.BrokenBarrierError)]
@@ -129,6 +165,16 @@ class ShardGroup:
             raise CollectiveTimeout(
                 f"a shard collective waited more than {self.timeout} s for its peers")
         return results
+
+    def _own_streams(self) -> list[torch.cuda.Stream]:
+        """The shards' own streams, made at the first run, never under CUDA
+        graph capture (a stream made there would lie outside it)."""
+        if not self._shard_streams:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("the shards' streams would be made under CUDA graph "
+                                   "capture; run the step once before capturing it")
+            self._shard_streams = [torch.cuda.Stream(device=d) for d in self.devices]
+        return self._shard_streams
 
     # --------------------------------------------------------- collectives
 
@@ -156,11 +202,16 @@ class ShardGroup:
 
         Two slot lists alternate: a shard can only deposit into a list again
         after the next collective's barrier, which every shard reaches only
-        after reading this one."""
+        after reading this one.  With a stream per shard, an event recorded
+        on the depositor's stream goes with x (``_take`` waits on it)."""
         i = self._local.index
         slots = self._slots[self._local.gen % 2]
         self._local.gen += 1
-        slots[i] = x
+        event = None
+        if self.per_shard:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.devices[i]))
+        slots[i] = (x, event)
         self._baton.release()  # the next shard runs while this one waits
         try:
             self._barrier.wait()
@@ -168,8 +219,22 @@ class ShardGroup:
             self._baton.acquire()
         return list(slots)
 
-    def _to(self, x: torch.Tensor) -> torch.Tensor:
-        return x.to(self.devices[self._local.index])
+    def _take(self, deposit, k: int | None = None) -> torch.Tensor | None:
+        """The tensor of a peer's deposit (its item k), on the calling
+        shard's device and ordered on its stream: the event join and, from
+        another device, the copy."""
+        x, event = deposit
+        if k is not None:
+            x = x[k]
+        if x is None:
+            return None
+        dev = self.devices[self._local.index]
+        if not self.per_shard:
+            return x.to(dev)
+        torch.cuda.current_stream(dev).wait_event(event)
+        y = x.to(dev, non_blocking=True)
+        x.record_stream(torch.cuda.current_stream(x.device))  # the stream that reads x
+        return y
 
     def ppermute(self, x: torch.Tensor | None,
                  perm: Sequence[tuple[int, int]]) -> torch.Tensor | None:
@@ -191,7 +256,7 @@ class ShardGroup:
             if src is None:
                 out.append(None if x is None else torch.zeros_like(x))
             else:
-                out.append(None if got[src][k] is None else self._to(got[src][k]))
+                out.append(self._take(got[src], k))
         return out
 
     def barrier(self) -> None:
@@ -202,11 +267,11 @@ class ShardGroup:
         """Sum of every shard's x, added in shard order (so every shard
         gets the same bits)."""
         got = self._exchange(x)
-        total = self._to(got[0])
+        total = self._take(got[0])
         for t in got[1:]:
-            total = total + self._to(t)
+            total = total + self._take(t)
         return total
 
     def all_gather_rows(self, x: torch.Tensor) -> torch.Tensor:
         """Every shard's x concatenated along axis 0, in shard order."""
-        return torch.cat([self._to(t) for t in self._exchange(x)], dim=0)
+        return torch.cat([self._take(t) for t in self._exchange(x)], dim=0)

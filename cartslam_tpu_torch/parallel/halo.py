@@ -1,5 +1,6 @@
-"""Row-halo exchange over a shard group (counterpart of
-cartslam_tpu/parallel/halo.py).
+"""Row- and width-halo exchange over a shard group (counterpart of
+cartslam_tpu/parallel/halo.py and of ``exchange_width_halo`` in
+cartslam_tpu/parallel/spatial.py).
 
 Neighbour rows come from the adjacent shards with ``ppermute``; at the
 global image edges the halo is filled with the consuming op's own border
@@ -33,3 +34,18 @@ def exchange_row_halo(x: torch.Tensor, up: int, down: int, group, fill="edge") -
                                           device=x.device))
         parts.append(from_below)
     return torch.cat(parts, dim=0)
+
+
+def exchange_width_halo(x: torch.Tensor, halo: int, group) -> torch.Tensor:
+    """Extend a width shard [H, W_local, ...] (axis 1) with `halo` columns
+    from each neighbour.  Edge shards repeat their border column (the
+    stencils' clamp at the true image boundary); interior seams receive the
+    neighbours' columns."""
+    idx, n = group.axis_index(), group.n
+    left, right = group.ppermutes((x[:, -halo:], [(i, (i + 1) % n) for i in range(n)]),
+                                  (x[:, :halo], [(i, (i - 1) % n) for i in range(n)]))
+    if idx == 0:
+        left = x[:, :1].expand(-1, halo, *x.shape[2:])
+    if idx == n - 1:
+        right = x[:, -1:].expand(-1, halo, *x.shape[2:])
+    return torch.cat([left, x, right], dim=1)

@@ -1,14 +1,32 @@
-"""MultiSeqSystem: B sequences in lock-step through one pipeline on one card
-(counterpart of cartslam_tpu/parallel/system.py).
+"""MultiSeqSystem: B sequences in lock-step through one pipeline, on the
+visible cards and, under ``"multihost"``, across processes (counterpart of
+cartslam_tpu/parallel/system.py).
 
 The multi-sequence throughput mode (config: ``{"parallel": {"mode":
 "multiseq", "batch": B}}``): B independent sequences advance in lock-step,
 one round a frame of each.  JAX vmaps the step over the batch and shards the
-batch over a device mesh; here the B sequences share one card.  On the card
-each round is one replay of a CUDA graph that holds all B sequences' steps,
-each on a stream of its own (runtime/graphs.py, ``StaticBuffers(...,
-batch=B)``), a Pipeline's or a SpatialPipeline's; a CPU context runs the
-eager batched step (parallel/multiseq.batched_step).
+batch over a ``data`` mesh of every device, dropped to a divisor of B.  Here
+the B sequences split into contiguous partitions, one per listed device
+(default: every visible card of the pipeline's device type, dropped to a
+divisor of B).  Each partition has its own pipeline built on its device
+(modules make device constants at construction, e.g. the context's Q), and
+on a card its own static buffers (``StaticBuffers(..., batch=B/k)``) and one
+CUDA graph a variant holding its sequences' steps, each on a stream of its
+own (runtime/graphs.py), replayed on its device's stream; a CPU context runs
+the eager batched step (parallel/multiseq.batched_step) partition by
+partition.  With one device, one partition holds the whole batch.
+
+Under ``"multihost"`` (parallel/distributed.py) each process holds a
+contiguous share of the global batch (``sources`` are its own), and the hot
+path crosses no process.  Once a round, the keys the modules' host steps
+read (the int32 derivative histograms) are gathered from every process in
+sequence order, with the round's success flag: every process then applies
+the same host params, and a round that failed on any process is recorded
+failed on all of them, which recover from the same snapshot (a round that
+fails at dispatch is recorded when it is drained, in order, for the same
+reason).  Host modules run on global sequence 0, which is process 0's.  A
+checkpoint is gathered and written by process 0 in the JAX batched layout;
+a resume reads each process's share of it.
 
 Everything else is the single-sequence System's (runtime/system.py): the
 pinned prefetch (of the stacked frames), the pinned fetch slots and fetch
@@ -33,32 +51,92 @@ from typing import Iterable
 import numpy as np
 import torch
 
+from ..runtime.checkpoint import load_checkpoint, save_checkpoint
 from ..runtime.graphs import CapturedStep, StaticBuffers
 from ..runtime.module import HostModule
-from ..runtime.system import System
+from ..runtime.state import map_tree, stack_trees, state_from_reference, state_to_numpy
+from ..runtime.system import System, _on
 from ..runtime.timing import TimingWriter
 from ..sources.base import to_grayscale
-from ..runtime.state import stack_trees
+from .distributed import (DataLayout, all_gather, canonical_device, gather, global_data_layout,
+                          local_devices)
 from .multiseq import batched_step
 
 log = logging.getLogger("cart.multiseq")
 
 
+def _concat(trees: list):
+    """Host trees of the same structure -> one tree of their leaves
+    concatenated on the leading (batch) axis."""
+    if isinstance(trees[0], dict):
+        return {k: _concat([t[k] for t in trees]) for k in trees[0]}
+    return np.concatenate(trees)
+
+
+class _Partition:
+    """Sequences [lo, hi) of this process's batch on one device: the
+    pipeline built on it and, on a card, its static buffers."""
+
+    def __init__(self, pipeline, lo: int, hi: int):
+        self.pipeline = pipeline
+        self.device = canonical_device(pipeline.ctx.device)
+        self.lo, self.hi = lo, hi
+        self.buffers: StaticBuffers | None = None
+
+    def rows(self, x):
+        return x[self.lo:self.hi]
+
+
+class _Buffers:
+    """The partitions' static buffers, loaded as one batch: each partition
+    takes its rows, on its device's current stream."""
+
+    def __init__(self, partitions: list[_Partition], frame_np):
+        self.partitions = partitions
+        for p in partitions:
+            with _on(p.device):
+                p.buffers = StaticBuffers(p.pipeline, {k: p.rows(v) for k, v in frame_np.items()},
+                                          batch=p.hi - p.lo)
+
+    @property
+    def state(self) -> list:
+        return [p.buffers.state for p in self.partitions]
+
+    def load_state(self, tree) -> None:
+        """A list of the partitions' states, or one host tree of the batch."""
+        for k, p in enumerate(self.partitions):
+            with _on(p.device):
+                p.buffers.load_state(tree[k] if isinstance(tree, list) else map_tree(p.rows, tree))
+
+    def load_params(self, host_params) -> None:
+        for p in self.partitions:
+            with _on(p.device):
+                p.buffers.load_params(host_params)
+
+    def load_frame(self, images, frame_id: int) -> None:
+        for p in self.partitions:
+            with _on(p.device):
+                p.buffers.load_frame({k: p.rows(v) for k, v in images.items()}, frame_id)
+
+
 class MultiSeqSystem(System):
     """Drives B sources through one pipeline in lock-step.
 
-    Args (the JAX class's, without its device mesh: the pipeline's one
-    device runs every sequence):
-        sources: exactly B DataSources; the run ends when any source is
-            exhausted.
-        pipeline: the shared Pipeline.
+    Args (the JAX class's):
+        sources: exactly B DataSources (this process's share under
+            multihost); the run ends when any source is exhausted.
+        pipeline: the shared Pipeline; its modules run the host steps.
+        devices: the devices the batch is split over (default: every
+            visible device of the pipeline's type, dropped to a divisor of
+            B).
         data_timeout: seconds before a hung result fetch raises
             DataNotAvailableException (reference: 20 s).
         snapshot_interval: rounds between host snapshots of the batched
             state used for failed-round recovery; 0 disables.
 
-    ``run()`` returns rounds x B; ``final_state`` is batch-leading numpy;
-    frame ids count rounds from the resume point.
+    ``run()`` returns rounds x B; ``final_state`` is batch-leading numpy
+    (this process's sequences); frame ids count rounds from the resume
+    point.
     """
 
     def __init__(
@@ -67,6 +145,7 @@ class MultiSeqSystem(System):
         pipeline,
         host_modules: Iterable[HostModule] = (),
         *,
+        devices=None,
         timing: TimingWriter | None = None,
         image_sink=None,
         max_frames: int | None = None,
@@ -91,9 +170,37 @@ class MultiSeqSystem(System):
         self.sources = sources
         self.batch = len(sources)
         self._warned_keys: set[str] = set()
-        # (variant, fetch keys) -> the B sequences' step as one CUDA graph
+        layout = self._layout()
+        self.process_count, self.process_index = layout.process_count, layout.process_index
+        self.first = self.process_index * self.batch  # this process's first global sequence
+        self._fail_in_order = self.process_count > 1
+        if self.process_index:
+            self.host_modules = []  # they run on global sequence 0, process 0's
+        self._host_keys = {k for m in pipeline.modules for k in m.host_fetch_keys()}
+        self.partitions = self._partition(
+            [canonical_device(d) for d in devices] if devices is not None
+            else layout.local_devices)
+        self.captured = self.captured and all(getattr(p.pipeline, "capturable", True)
+                                              for p in self.partitions)
+        # (variant, fetch keys, partition) -> a partition's steps as one CUDA graph
         self.captured_steps: dict[tuple, CapturedStep] = {}
-        self._buffers: StaticBuffers | None = None
+        self._buffers: _Buffers | None = None
+
+    def _layout(self) -> DataLayout:
+        return global_data_layout(self.device.type)
+
+    def _partition(self, devices: list) -> list[_Partition]:
+        """Contiguous partitions of the batch, one per device, the device
+        list dropped to a divisor of B."""
+        while self.batch % len(devices):
+            devices = devices[:-1]
+        size = self.batch // len(devices)
+        home = canonical_device(self.pipeline.ctx.device)
+        pipes = {home: self.pipeline}
+        for d in devices:
+            if d not in pipes:
+                pipes[d] = self.pipeline.on_device(d)
+        return [_Partition(pipes[d], k * size, (k + 1) * size) for k, d in enumerate(devices)]
 
     # ----------------------------------------------------- frames and steps
 
@@ -123,29 +230,91 @@ class MultiSeqSystem(System):
             images[k] = buf
         return {k: v.numpy() for k, v in images.items()}, images
 
-    def _initial_state(self) -> dict:
-        return stack_trees([self.pipeline.init_state()] * self.batch)
+    def _initial_state(self) -> list:
+        return [stack_trees([p.pipeline.init_state()] * (p.hi - p.lo)) for p in self.partitions]
+
+    def _device_state(self, tree) -> list:
+        return [state_from_reference(map_tree(p.rows, tree), p.device) for p in self.partitions]
+
+    def _host_state(self, state) -> dict:
+        return _concat([state_to_numpy(s) for s in state])
 
     def _static_buffers(self, frame_np):
         if self._buffers is None:
-            self._buffers = StaticBuffers(self.pipeline, frame_np, batch=self.batch)
+            self._buffers = _Buffers(self.partitions, frame_np)
         return self._buffers
 
     def _captured_step(self, variant):
-        key = (variant, self._fetch_keys)
-        step = self.captured_steps.get(key)
-        if step is None:
-            step = self.captured_steps[key] = CapturedStep(self.pipeline, self._buffers,
-                                                           variant, self._fetch_keys)
-        return step
+        """The round's replay: each partition's graph of `variant` on its
+        device's current stream; each fetch key's output a list of the
+        partitions' parts."""
+        steps = []
+        for k, p in enumerate(self.partitions):
+            key = (variant, self._fetch_keys, k)
+            if key not in self.captured_steps:
+                with _on(p.device):
+                    self.captured_steps[key] = CapturedStep(p.pipeline, p.buffers, variant,
+                                                            self._fetch_keys)
+            steps.append(self.captured_steps[key])
 
-    def _eager_step(self, state, frame_dev, params, variant):
-        return batched_step(self.pipeline, state, frame_dev, params, variant,
-                            keys=self._fetch_keys)
+        def replay() -> dict:
+            outs = []
+            for p, step in zip(self.partitions, steps):
+                with _on(p.device):
+                    outs.append(step())
+            return {k: [o[k] for o in outs] for k in outs[0]}
+        return replay
+
+    def _device_params(self, host_params) -> list:
+        return [p.pipeline.device_params(host_params) for p in self.partitions]
+
+    def _eager_frame(self, state, images, frame_id: int, params, variant):
+        states, outs = [], []
+        for p, s, prm in zip(self.partitions, state, params):
+            with _on(p.device):
+                frame = {k: p.rows(v).to(p.device, non_blocking=True) for k, v in images.items()}
+                frame["frame_id"] = torch.full((), frame_id, dtype=torch.int32, device=p.device)
+                s, o = batched_step(p.pipeline, s, frame, prm, variant, keys=self._fetch_keys)
+            states.append(s)
+            outs.append(o)
+        return states, {k: [o[k] for o in outs] for k in outs[0]}
+
+    # --------------------------------------------------- across processes
+
+    def _load_checkpoint(self, example):
+        """The checkpoint holds the global batch: this process's share."""
+        example = map_tree(lambda a: np.concatenate([a] * self.process_count), example)
+        raw, frame_id, host_state = load_checkpoint(self.resume_from, example)
+        return map_tree(lambda a: a[self.first:self.first + self.batch], raw), frame_id, host_state
+
+    def _save_checkpoint(self, state, frame_id: int) -> None:
+        tree = self._host_state(state)
+        if self.process_count > 1:
+            trees = gather(tree)
+            if self.process_index:
+                return
+            tree = _concat(trees)
+        save_checkpoint(self.checkpoint_path, tree, frame_id,
+                        {m.name: m.host_state() for m in self.pipeline.modules})
+
+    def _agree(self, frame_id: int, fetched: dict | None) -> dict | None:
+        """Across processes: the keys the modules' host steps read, every
+        process's sequences in global order, or None when the round failed
+        on any process."""
+        if self.process_count == 1:
+            return fetched
+        mine = None if fetched is None else {k: v for k, v in fetched.items()
+                                             if k in self._host_keys}
+        got = all_gather((frame_id, mine))
+        if any(fid != frame_id for fid, _ in got):
+            raise RuntimeError(f"the processes left lock-step: rounds {[f for f, _ in got]}")
+        if any(m is None for _, m in got):
+            return None
+        return {k: np.concatenate([m[k] for _, m in got]) for k in mine}
 
     # -------------------------------------------------------- host callbacks
 
-    def _module_fetched(self, m, fetched: dict) -> dict:
+    def _module_fetched(self, m, agreed: dict) -> dict:
         # Each key as the module declares (Module.host_fetch_reduce): 'sum'
         # keys (histograms) summed over the batch, so the shared provider
         # sees the whole batch's statistics; an undeclared key falls back to
@@ -154,9 +323,9 @@ class MultiSeqSystem(System):
         reduce_spec = m.host_fetch_reduce()
         sub = {}
         for k in m.host_fetch_keys():
-            if k not in fetched:
+            if k not in agreed:
                 continue
-            v = fetched[k]
+            v = agreed[k]
             how = reduce_spec.get(k)
             if how == "sum" and v.ndim >= 1:
                 sub[k] = v.sum(axis=0)
@@ -176,14 +345,39 @@ class MultiSeqSystem(System):
 
 class SpatialMultiSeqSystem(MultiSeqSystem):
     """Sequences x spatial: B sequences, each height-sharded over the
-    SpatialPipeline's row shards, on one card (config: ``{"parallel":
-    {"mode": "spatial", "devices": n, "sequences": B}}``, n // B shards a
-    sequence).  The MultiSeqSystem loop with the batched spatial step, the
-    counterpart of ``jitted_batched_step``: on the card one CUDA graph a
-    variant holds the B sequences' ``SpatialPipeline.compute_step``, each on
+    SpatialPipeline's row shards (config: ``{"parallel": {"mode":
+    "spatial", "devices": n, "sequences": B}}``, n // B shards a sequence).
+    The MultiSeqSystem loop with the batched spatial step, the counterpart
+    of ``jitted_batched_step``: on a card one CUDA graph a variant holds a
+    partition's ``SpatialPipeline.compute_step`` of each sequence, each on
     its sequence's stream, where its shard threads enqueue; a CPU context
-    runs each sequence's ``SpatialPipeline.step`` in turn.  The collectives
-    stay within the sequence's shards, as the JAX step's name only the
-    spatial axis.  The sequences share the pipeline's ShardGroup and so
-    shard i's K5 side stream: their K5 output passes order one after the
-    other in the graph (parallel/group.py says why)."""
+    (or a partition across cards) runs each sequence's
+    ``SpatialPipeline.step`` in turn.  The collectives stay within the
+    sequence's shards, as the JAX step's name only the spatial axis.  The
+    (sequences x shards) grid is placed on the listed devices (default:
+    every visible one) in contiguous blocks, cell (b, i) on device
+    floor((b n + i) k / (B n)) of k; consecutive sequences whose shards sit
+    on the same devices form a partition.  A partition's sequences share
+    its pipeline's ShardGroup and so shard i's K5 side stream: their K5
+    output passes order one after the other in the graph (parallel/group.py
+    says why).  The spatial mode ignores ``"multihost"``, as the JAX
+    registry does: the grid is one process's."""
+
+    def _layout(self) -> DataLayout:
+        return DataLayout(1, 0, local_devices(self.device.type))
+
+    def _partition(self, devices: list) -> list[_Partition]:
+        n, b_total, k = self.pipeline.n, self.batch, len(devices)
+        cells = [tuple((b * n + i) * k // (b_total * n) for i in range(n))
+                 for b in range(b_total)]
+        bounds = [b for b in range(b_total) if b == 0 or cells[b] != cells[b - 1]] + [b_total]
+        home = canonical_device(self.pipeline.ctx.device)
+        pipes = {(home, *self.pipeline.group.devices): self.pipeline}
+        parts = []
+        for lo, hi in zip(bounds, bounds[1:]):
+            shard_devices = [devices[j] for j in cells[lo]]
+            key = (shard_devices[0], *shard_devices)
+            if key not in pipes:
+                pipes[key] = self.pipeline.on_device(shard_devices[0], shard_devices)
+            parts.append(_Partition(pipes[key], lo, hi))
+        return parts

@@ -153,6 +153,9 @@ class StaticBuffers:
         cuda = dev.type == "cuda"
         self.pool = torch.cuda.graph_pool_handle() if cuda else None
         self.streams = [torch.cuda.Stream(device=dev) for _ in range(batch or 0)] if cuda else []
+        # The captures' stream, on the buffers' card (PyTorch's default
+        # capture stream lies on the card of the process's first capture).
+        self.capture_stream = torch.cuda.Stream(device=dev) if cuda else None
         self._state_storages = {t.untyped_storage().data_ptr() for t in _leaves(self.state)}
 
     def sequence(self, b: int) -> tuple[dict, dict]:
@@ -294,6 +297,7 @@ class CapturedStep:
             at_capture = counter_snapshot()
             self.graph = torch.cuda.CUDAGraph()
             with _no_gc(), torch.cuda.graph(self.graph, pool=bufs.pool,
+                                            stream=bufs.capture_stream,
                                             capture_error_mode="thread_local"):
                 if bufs.batch is None:
                     outputs = _sequence_body(pipeline, bufs, bufs.state, bufs.frame, variant,

@@ -11,6 +11,8 @@ module by module with a sync after each, for per-module timing rows.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import time
 from typing import Any, Hashable, Mapping
 
@@ -89,6 +91,14 @@ class Pipeline:
         self._static = None  # graphs.StaticBuffers, made at the first capture
         # (variant, fetch keys) -> graphs.CapturedStep (its capture_s, launches)
         self.captured_steps: dict[tuple[Hashable, frozenset], Any] = {}
+
+    def on_device(self, device) -> "Pipeline":
+        """The same pipeline built anew on `device`, the modules copied (a
+        module's device constants are made for the device it runs on, and
+        its caches name their device), as a partition of the
+        multi-sequence System needs."""
+        return Pipeline(dataclasses.replace(self.ctx, device=device),
+                        copy.deepcopy(self.modules))
 
     def init_state(self) -> dict:
         mod_state = {m.name: m.init_state(self.ctx) for m in self.modules}

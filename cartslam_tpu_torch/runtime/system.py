@@ -34,6 +34,8 @@ of src/utils/data.cpp:42-49.
 from __future__ import annotations
 
 import collections
+import contextlib
+import functools
 import logging
 import queue
 import threading
@@ -62,11 +64,22 @@ class DataNotAvailableException(RuntimeError):
 
 class _Slot:
     """Host buffers of one in-flight frame's fetch keys (pinned on a card),
-    and the event recorded after their device-to-host copies."""
+    and the events recorded after their device-to-host copies (one on each
+    card that holds a part)."""
 
     def __init__(self):
         self.host: dict[str, torch.Tensor] = {}
-        self.event: torch.cuda.Event | None = None
+        self.events: list[torch.cuda.Event] = []
+
+
+def _on(device):
+    """The device's scope on a card: its current stream becomes the one
+    that work is enqueued on."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def _failed(error: BaseException):
+    raise error
 
 
 class System:
@@ -139,8 +152,10 @@ class System:
             | set(extra_fetch_keys)
         )
         self.device = pipeline.ctx.device
-        # The captured step needs the card; module timing runs eagerly.
-        self.captured = self.device.type == "cuda" and not module_timing
+        # The captured step needs the card and a pipeline on one card (a
+        # spatial pipeline across cards is not); module timing runs eagerly.
+        self.captured = (self.device.type == "cuda" and not module_timing
+                         and getattr(pipeline, "capturable", True))
 
         self._prefetch_queue: queue.Queue = queue.Queue(maxsize=prefetch_depth)
         self._prefetch_error: BaseException | None = None
@@ -215,22 +230,42 @@ class System:
 
     # --------------------------------------------------------------- fetching
 
-    def _stage(self, outputs: Mapping[str, torch.Tensor]) -> _Slot:
+    def _stage(self, outputs: Mapping[str, torch.Tensor | list]) -> _Slot:
         """Enqueue the fetch keys' device-to-host copies into a free slot's
         host buffers on the current stream, and record an event after them.
-        A slot returns to the free list only once its fetch was joined."""
+        An output may be a list of batch-leading parts (the partitions of
+        the multi-sequence System, parallel/system.py): they go into
+        consecutive rows of one buffer, each part's copy on its own card's
+        current stream, with an event on each card.  A slot returns to the
+        free list only once its fetch was joined."""
         slot = self._free_slots.pop() if self._free_slots else _Slot()
         pin = self.device.type == "cuda"
+        devices = []
         for k, v in outputs.items():
+            parts = v if isinstance(v, list) else [v]
+            shape = (sum(len(p) for p in parts), *parts[0].shape[1:]) if isinstance(v, list) \
+                else v.shape
             buf = slot.host.get(k)
-            if buf is None or buf.shape != v.shape or buf.dtype != v.dtype:
-                buf = slot.host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=pin)
-            buf.copy_(v, non_blocking=pin)
+            if buf is None or buf.shape != shape or buf.dtype != parts[0].dtype:
+                buf = slot.host[k] = torch.empty(shape, dtype=parts[0].dtype, pin_memory=pin)
+            if not isinstance(v, list):
+                buf.copy_(v, non_blocking=pin)
+                continue
+            row = 0
+            for p in parts:
+                with _on(p.device):
+                    buf[row:row + len(p)].copy_(p, non_blocking=pin)
+                row += len(p)
+                if p.device not in devices:
+                    devices.append(p.device)
         for k in set(slot.host) - set(outputs):
             del slot.host[k]
         if pin:
-            slot.event = torch.cuda.Event()
-            slot.event.record()
+            slot.events = []
+            for dev in devices or [self.device]:
+                with _on(dev):
+                    slot.events.append(torch.cuda.Event())
+                    slot.events[-1].record()
         return slot
 
     def _fetch_with_timeout(self, staged: _Slot) -> dict[str, np.ndarray]:
@@ -240,8 +275,8 @@ class System:
         The data-watchdog bound is applied when the result is JOINED
         (_join_fetch), not here; fault-injection tests patch this method
         to simulate hung or failing transfers."""
-        if staged.event is not None:
-            staged.event.synchronize()
+        for event in staged.events:
+            event.synchronize()
         return {k: v.numpy().copy() for k, v in staged.host.items()}
 
     def _start_fetch(self, staged: _Slot):
@@ -274,7 +309,8 @@ class System:
                 thread.join(timeout=10)
 
     # ------------------------------------------- what the multi-sequence
-    # System (parallel/system.py) overrides
+    # System (parallel/system.py) overrides: its frames, its state and
+    # steps over partitions of the batch, its host step across processes
 
     def _sources(self) -> list:
         return [self.source]
@@ -288,20 +324,58 @@ class System:
     def _captured_step(self, variant):
         return self.pipeline.captured_step(variant, self._fetch_keys)
 
-    def _eager_step(self, state, frame_dev, params, variant):
+    def _eager_frame(self, state, images, frame_id: int, params, variant):
+        """The eager step of one frame, its images moved to the device:
+        (new state, the fetch keys' outputs); with module_timing, module by
+        module with a timing row each."""
+        dev = self.device
+        frame_dev = {k: v.to(dev, non_blocking=True) for k, v in images.items()}
+        frame_dev["frame_id"] = torch.full((), frame_id, dtype=torch.int32, device=dev)
+        if self.module_timing:
+            state, outputs, mod_times = self.pipeline.run_step_instrumented(
+                state, frame_dev, params, variant, self._fetch_keys)
+            self._emit_module_rows(frame_id, mod_times)
+            return state, outputs
         state, outputs = self.pipeline.step(state, frame_dev, params, variant)
         return state, {k: v for k, v in outputs.items() if k in self._fetch_keys}
+
+    def _device_params(self, host_params):
+        return self.pipeline.device_params(host_params)
+
+    def _device_state(self, tree):
+        """A state tree of host arrays as the eager step's state."""
+        return state_from_reference(tree, self.device)
+
+    def _host_state(self, state):
+        """The eager step's (or the static buffers') state as host arrays."""
+        return state_to_numpy(state)
+
+    def _load_checkpoint(self, example):
+        return load_checkpoint(self.resume_from, example)
+
+    def _save_checkpoint(self, state, frame_id: int) -> None:
+        save_checkpoint(self.checkpoint_path, state, frame_id,
+                        {m.name: m.host_state() for m in self.pipeline.modules})
+
+    def _agree(self, frame_id: int, fetched: dict | None) -> dict | None:
+        """The fetched data the modules' host steps read, or None when the
+        frame failed.  The multi-process System (parallel/system.py) makes
+        every process agree on both."""
+        return fetched
+
+    # Whether a frame that fails at dispatch is recorded only when it is
+    # drained, in order, as the processes of a multi-process run must.
+    _fail_in_order = False
 
     # ------------------------------------------------------------------- run
 
     def _run(self, thread, on_frame):
         pipe = self.pipeline
-        dev = self.device
         start_frame = 0
         state = self._initial_state()
         if self.resume_from is not None:
-            raw, start_frame, host_state = load_checkpoint(self.resume_from, state)
-            state = state_from_reference(raw, dev)
+            raw, start_frame, host_state = self._load_checkpoint(self._host_state(state))
+            state = self._device_state(raw)
             for m in pipe.modules:
                 if m.name in host_state:
                     m.restore_host_state(host_state[m.name])
@@ -320,7 +394,7 @@ class System:
             if bufs is not None:
                 bufs.load_state(tree)
             else:
-                state = state_from_reference(tree, dev)
+                state = self._device_state(tree)
 
         def current_state():
             return bufs.state if bufs is not None else state
@@ -330,7 +404,7 @@ class System:
         frame_id = start_frame
         processed = 0
         # Recovery snapshot: the last known-good host copy of the state.
-        snap_state = state_to_numpy(state) if self.snapshot_interval else None
+        snap_state = self._host_state(state) if self.snapshot_interval else None
         need_recovery = False
 
         sys_handle = self.timing.init_timing("system", 0).begin()
@@ -345,17 +419,23 @@ class System:
                 fetched = self._join_fetch(fetch_handle)
             except Exception:
                 log.error("frame %d failed (async):\n%s", fid, traceback.format_exc())
+                fetched = None
+                if fetch_handle.done() and slot is not None:  # a hung fetch may
+                    self._free_slots.append(slot)               # still write its slot
+            else:
+                self._free_slots.append(slot)
+            agreed = self._agree(fid, fetched)
+            if agreed is None:
+                if fetched is not None:
+                    log.error("frame %d failed on another process", fid)
                 self.failed_frames.append(fid)
-                if fetch_handle.done():  # a hung fetch may still write its slot
-                    self._free_slots.append(slot)
                 return False
-            self._free_slots.append(slot)
             # End the frame's timing row at the fetch's completion time.
             handle.end = fetch_handle.t_end_ms
             self.timing.end_timing_at(handle)
             self._retain(fid, fetched)
             try:
-                self._host_post_frame(fid, frame_np, fetched, host_params)
+                self._host_post_frame(fid, frame_np, fetched, host_params, agreed)
             except Exception:
                 log.error("frame %d host processing failed:\n%s", fid, traceback.format_exc())
             if on_frame is not None:
@@ -379,7 +459,7 @@ class System:
                     set_state(snap_state)
                     log.warning("recovered pipeline state from snapshot")
                 else:
-                    set_state(state_to_numpy(self._initial_state()))
+                    set_state(self._host_state(self._initial_state()))
                     log.warning("no snapshot available; state re-initialized")
 
             item = self._prefetch_queue.get()
@@ -406,23 +486,19 @@ class System:
                     outputs = self._captured_step(variant)()
                 else:
                     if uploaded["version"] != self._params_version:
-                        uploaded["params"] = pipe.device_params(host_params)
+                        uploaded["params"] = self._device_params(host_params)
                         uploaded["version"] = self._params_version
-                    frame_dev = {k: v.to(dev, non_blocking=True) for k, v in images.items()}
-                    frame_dev["frame_id"] = torch.full((), frame_id, dtype=torch.int32,
-                                                       device=dev)
-                    if self.module_timing:
-                        state, outputs, mod_times = pipe.run_step_instrumented(
-                            state, frame_dev, uploaded["params"], variant, self._fetch_keys)
-                        self._emit_module_rows(frame_id, mod_times)
-                    else:
-                        state, outputs = self._eager_step(state, frame_dev, uploaded["params"],
-                                                          variant)
+                    state, outputs = self._eager_frame(state, images, frame_id,
+                                                       uploaded["params"], variant)
                 slot = self._stage(outputs)
             except CaptureError:
                 raise
-            except Exception:
+            except Exception as e:
                 log.error("frame %d failed:\n%s", frame_id, traceback.format_exc())
+                if self._fail_in_order:
+                    in_flight.append((frame_id, handle, frame_np,
+                                      start_fetch(functools.partial(_failed, e)), None))
+                    continue
                 self.failed_frames.append(frame_id)
                 need_recovery = True
                 continue
@@ -437,7 +513,7 @@ class System:
                     and frame_id % self.snapshot_interval == 0):
                 drain_all()  # ensure the snapshot state is actually good
                 if not need_recovery:
-                    snap_state = state_to_numpy(current_state())
+                    snap_state = self._host_state(current_state())
 
             if (not need_recovery and self.checkpoint_path is not None
                     and frame_id % self.checkpoint_interval == 0):
@@ -445,15 +521,14 @@ class System:
                 # provider ranges) matches the saved device state.
                 drain_all()
                 if not need_recovery:
-                    save_checkpoint(self.checkpoint_path, current_state(), frame_id,
-                                    {m.name: m.host_state() for m in pipe.modules})
+                    self._save_checkpoint(current_state(), frame_id)
 
         drain_all()
 
         self.timing.end_timing(sys_handle)
         if self._prefetch_error is not None:
             raise self._prefetch_error
-        self.final_state = state_to_numpy(current_state())
+        self.final_state = self._host_state(current_state())
         return processed
 
     # --------------------------------------------------------- host callbacks
@@ -469,18 +544,20 @@ class System:
             h.end = round(base + t_end * 1000, 3)
             self.timing.end_timing_at(h)
 
-    def _module_fetched(self, m, fetched: dict) -> dict:
+    def _module_fetched(self, m, agreed: dict) -> dict:
         """The fetched keys that module m's host_update reads."""
-        return {k: fetched[k] for k in m.host_fetch_keys() if k in fetched}
+        return {k: agreed[k] for k in m.host_fetch_keys() if k in agreed}
 
     def _host_view(self, frame_np, fetched: dict):
         """The frame and fetched dict that the host modules see."""
         return frame_np, fetched
 
-    def _host_post_frame(self, frame_id, frame_np, fetched, host_params):
+    def _host_post_frame(self, frame_id, frame_np, fetched, host_params, agreed):
+        """The host step of a drained frame: the modules' host updates from
+        `agreed` (``_agree``'s data), then the host modules."""
         for m in self.pipeline.modules:
             updated = m.host_update(self.pipeline.ctx, frame_id,
-                                    self._module_fetched(m, fetched), system=self)
+                                    self._module_fetched(m, agreed), system=self)
             if updated:
                 host_params[m.name] = {**host_params.get(m.name, {}), **updated}
                 self._params_version += 1

@@ -168,6 +168,28 @@ Phases (each raises on failure; none is caught):
                 every key) against eager, capture seconds, peak memory, a
                 profile of frames 3..12 captured and eager.  Its K2-K5
                 launches join the kernels line ("spatial System").
+  4f. multicard - the multi-card and multi-host modes (multicard_phase), at
+                the flagship's width: (a) the MultiSeqSystem (8 sequences)
+                with devices [cuda:0, cuda:0], two partitions with two
+                graphs a variant, equal on every fetched output of 10 rounds
+                and the final state to one partition; (b) two processes on
+                this card (``chip_smoke.py --multihost-child``), each its
+                4 sequences through read_system_config with a "multihost"
+                block (gloo on localhost), equal to the one-process run for
+                the same global sequences, the provider's ranges equal on
+                both; the CLI as two processes, each exiting 0; (c) the
+                spatial System with a stream per shard (event joins),
+                captured, equal to the shared-stream run and the full frame,
+                K2-K4 against their plain versions on its shards' inputs;
+                (d) with two or more cards the spatial System across them
+                (eager), the MultiSeqSystem over them and the width
+                stencils across them, equal to the one-card runs, else a
+                line that they did not run (``chip_smoke.py --cross-card``
+                runs (d) alone on such a machine); (e) the
+                width-sharded stencils on 8 shards array_equal to the
+                unsharded ops; (f) the SpatialFlagship preset's captured
+                steps over 4 frames equal to the config-built
+                SpatialPipeline.  Their launches join the kernels line.
   5. parity   - the small temporal slice (64x128, 6 frames) on the card and on
                 the CPU, every output and the final state equal, and the same
                 with the reference-faithful modes; the full-size flow of one
@@ -2280,9 +2302,10 @@ def _counts_equal(label, counts, want):
 
 
 def run_system(source, modules, dev, label, want, *, frames=None, hm_type=None, spans=False,
-               **kw) -> dict:
+               system=None, **kw) -> dict:
     """`modules` over `source` (`frames` frames, default PATH_FRAMES)
-    through build_system on the card, counts from 0 just before and read
+    through build_system on the card (or the given `system`, built by the
+    caller), counts from 0 just before and read
     just after, checked against `want` with no plain call; returns the
     System, every frame's fetched dict, the per-frame ms (CUDA events
     between frame ends), the counts, the peak device memory, the graphs'
@@ -2294,7 +2317,8 @@ def run_system(source, modules, dev, label, want, *, frames=None, hm_type=None, 
     from cartslam_tpu_torch.kernels import build
 
     frames = frames or PATH_FRAMES
-    system = build_system(source, modules, device=dev, **kw)
+    if system is None:
+        system = build_system(source, modules, device=dev, **kw)
     hm = next((m for m in system.host_modules if isinstance(m, hm_type)), None) \
         if hm_type else None
     if hm_type is not None and hm is None:
@@ -2836,7 +2860,8 @@ def _digests(fetched: dict, batch: int | None) -> list[dict]:
 
 
 def run_multiseq(frames_by_seq, intrinsics, modules, dev, label, want, *, rounds,
-                 parallel=None, captured=True, keys=SYSTEM_KEYS, spans=False, keep=False):
+                 parallel=None, captured=True, keys=SYSTEM_KEYS, spans=False, keep=False,
+                 devices=None):
     """`modules` over the sequences `frames_by_seq` (`rounds` rounds) through
     build_system with a multi-sequence parallel block (default multiseq, B =
     the sequences), on the card: counts from 0 just before the run and read
@@ -2847,15 +2872,22 @@ def run_multiseq(frames_by_seq, intrinsics, modules, dev, label, want, *, rounds
     counts, the peak device memory allocated and reserved (the B branches'
     intermediates stay reserved apart, since each stream reuses only its own
     blocks), the capture seconds by variant and, with `spans`, the replays'
-    spans (CUDA events around each replay)."""
-    from cartslam_tpu_torch.config import build_system
+    spans (CUDA events around each replay).  `devices`: the MultiSeqSystem's
+    device list (its partitions), built over build_pipeline's pipeline."""
+    from cartslam_tpu_torch.config import build_pipeline, build_system
     from cartslam_tpu_torch.kernels import build
+    from cartslam_tpu_torch.parallel.system import MultiSeqSystem
     from cartslam_tpu_torch.sources import PreloadedSource
 
     srcs = [PreloadedSource(f[:rounds], intrinsics=intrinsics) for f in frames_by_seq]
     parallel = {**(parallel or {"mode": "multiseq", "batch": len(srcs)}), "sources": srcs}
-    system = build_system(srcs[0], modules, device=dev, parallel=parallel,
-                          extra_fetch_keys=keys, max_in_flight=SYSTEM_DEPTH)
+    if devices is None:
+        system = build_system(srcs[0], modules, device=dev, parallel=parallel,
+                              extra_fetch_keys=keys, max_in_flight=SYSTEM_DEPTH)
+    else:
+        system = MultiSeqSystem(srcs, build_pipeline(srcs[0], modules, device=dev)[0],
+                                devices=devices, extra_fetch_keys=keys,
+                                max_in_flight=SYSTEM_DEPTH)
     system.captured = captured and system.captured
     ends, seen, replays = [], {}, []
     _frame_end_events(system, ends)
@@ -3189,6 +3221,569 @@ def composed_phase(frames, intrinsics, dev, tag) -> dict:
     return out
 
 
+# ------------------------------------------------------------ multicard
+# The multi-card and multi-host modes (phase 4f): partitions of the
+# multi-sequence batch, processes sharing the card, the spatial mode's
+# per-shard streams, the cross-card runs where there are cards for them,
+# the width-sharded stencils and the SpatialFlagship preset.
+MULTICARD_B = 8
+MULTICARD_ROUNDS = 10
+MULTIHOST_PROCS = 2
+MULTIHOST_CLI_FRAMES = 5
+PRESET_FRAMES = 4
+CHILD_TIMEOUT_S = 300
+GLOO_TIMEOUT_S = 120
+
+
+def rounds_plan(rounds: int, sequences: int = 1) -> dict:
+    """K1-K4 of `sequences` flagship sequences over `rounds` rounds (24
+    sweeps on round 1, 8 after, no reset)."""
+    from cartslam_tpu_torch.kernels.relax import launches
+
+    k3 = launches(24, 1, "frame") + (rounds - 1) * launches(8, 1, "frame")
+    return {k: sequences * n for k, n in
+            {"sgm": rounds, "moment_tally": rounds, "relax": k3, "vote_tally": rounds}.items()}
+
+
+def _flat_numpy(tree, path="") -> dict:
+    """A tree of tensors or arrays as {path: host array}."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flat_numpy(tree[k], f"{path}/{k}"))
+        return out
+    return {path: tree.detach().cpu().numpy() if isinstance(tree, torch.Tensor)
+            else np.asarray(tree)}
+
+
+def _tree_digests(tree: dict, batch: int) -> list[dict]:
+    """Per sequence of a batch-leading tree: SHA-1 of each leaf's slice,
+    keyed by its path."""
+    return _digests(_flat_numpy(tree), batch)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _provider_ranges(system) -> list:
+    p = next(m for m in system.pipeline.modules if m.host_fetch_reduce()).host_state()
+    return [np.asarray(p["h_range"]).tolist(), np.asarray(p["v_range"]).tolist()]
+
+
+def multihost_config(path: str, port: int, rounds: int) -> None:
+    """The flagship's multi-sequence config with a "multihost" block for
+    MULTIHOST_PROCS processes on localhost (each process's id from
+    JAX_PROCESS_ID, or its own override)."""
+    with open(path, "w") as f:
+        json.dump({"data_source": {"type": "synthetic", "image_size": [H, W],
+                                   "num_frames": rounds},
+                   "modules": flagship_modules(),
+                   "parallel": {"mode": "multiseq", "batch": MULTICARD_B,
+                                "multihost": {"coordinator": f"localhost:{port}",
+                                              "num_processes": MULTIHOST_PROCS,
+                                              "timeout": GLOO_TIMEOUT_S}}}, f)
+
+
+def multihost_child(args: dict) -> int:
+    """One process of the multi-host run (``chip_smoke.py --multihost-child
+    ARGS``): its share of the MULTICARD_B flagship sequences (seeds as
+    multiseq_frames', preloaded) through read_system_config with the
+    config's "multihost" block, on card 0; writes each round's
+    per-sequence digests, the final state's, the ms a round (CUDA events
+    between round ends), the counts and the provider's ranges as JSON."""
+    sys.path.insert(0, REPO)
+    from cartslam_tpu_torch.config import read_system_config
+    from cartslam_tpu_torch.kernels import build
+    from cartslam_tpu_torch.sources import PreloadedSource, SyntheticDataSource
+
+    dev = torch.device("cuda", 0)
+    with open(args["config"]) as f:
+        cfg = json.load(f)
+    rounds, pid = cfg["data_source"]["num_frames"], args["pid"]
+    parallel = dict(cfg["parallel"])
+    parallel["multihost"] = dict(parallel["multihost"], process_id=pid)
+    n = MULTICARD_B // MULTIHOST_PROCS
+    share = range(pid * n, (pid + 1) * n)
+    seqs = [PreloadedSource.wrap(SyntheticDataSource(
+        image_size=(H, W), num_frames=rounds, seed=j, max_disparity=80.0, baseline=20.0))
+        for j in share]
+    out = {}
+    for mode, keys in (("every key", SYSTEM_KEYS), ("host keys", ())):
+        srcs = [PreloadedSource(q.frames, intrinsics=q.get_camera_intrinsics()) for q in seqs]
+        parallel["sources"] = [srcs[j - share.start] if j in share else cfg["data_source"]
+                               for j in range(MULTICARD_B)]
+        system = read_system_config(args["config"], source=srcs[0], device=dev,
+                                    parallel=parallel, extra_fetch_keys=keys,
+                                    max_in_flight=SYSTEM_DEPTH)
+        ends, seen = [], {}
+        _frame_end_events(system, ends)
+        build.reset_counts()
+        done = system.run(on_frame=lambda fid, o: seen.update({fid: _digests(o, system.batch)}))
+        torch.cuda.synchronize()
+        out[mode] = {"n": done, "first": system.first, "batch": system.batch,
+                     "process_count": system.process_count, "captured": system.captured,
+                     "failed": system.failed_frames, "seen": seen,
+                     "state": _tree_digests(system.final_state, system.batch),
+                     "ms": [ends[i - 1].elapsed_time(ends[i]) for i in range(1, len(ends))],
+                     "counts": {c.name: [c.launches, c.plain_calls]
+                                for c in build.COUNTERS.values()},
+                     "provider": _provider_ranges(system)}
+        del system
+    with open(args["out"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _spawn(commands: list, envs: list, cwd: str) -> list[str]:
+    """The commands as processes side by side, each killed if it outlives
+    CHILD_TIMEOUT_S; every one must exit with 0.  Returns their outputs."""
+    procs = [subprocess.Popen(c, env=e, cwd=cwd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c, e in zip(commands, envs)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=CHILD_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for k, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"process {k} of {commands[k][1:3]} exited with "
+                                 f"{p.returncode}:\n{out[-4000:]}")
+    return outs
+
+
+def multihost_phase(ref: dict, tag) -> dict:
+    """(b): MULTIHOST_PROCS processes on this one card (``--multihost-child``),
+    each with its share of the batch: every round's digests and the final
+    state equal the one-process run `ref` for the same global sequences,
+    the provider's ranges equal on every process (and to `ref`'s), each
+    process's counts its share of the plan; then the CLI, two processes of
+    ``python -m cartslam_tpu_torch CONFIG --max-frames 5``, each exiting
+    with 0."""
+    import tempfile
+
+    r = MULTICARD_ROUNDS
+    n = MULTICARD_B // MULTIHOST_PROCS
+    want = rounds_plan(r, n)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = os.path.join(tmp, "multihost.json")
+        multihost_config(cfg, _free_port(), r)
+        env = dict(os.environ, OMP_NUM_THREADS="4")
+        args = [{"config": cfg, "pid": pid, "out": os.path.join(tmp, f"p{pid}.json")}
+                for pid in range(MULTIHOST_PROCS)]
+        _spawn([[sys.executable, os.path.join(REPO, "chip_smoke.py"), "--multihost-child",
+                 json.dumps(a)] for a in args], [env] * MULTIHOST_PROCS, tmp)
+        runs = []
+        for a in args:
+            with open(a["out"]) as f:
+                runs.append(json.load(f))
+        for mode in ("every key", "host keys"):
+            procs = [p[mode] for p in runs]
+            ranges = {json.dumps(p["provider"]) for p in procs}
+            for pid, p in enumerate(procs):
+                label = f"multihost process {pid} ({mode})"
+                got = {k: p[k] for k in ("first", "batch", "process_count", "n", "failed")}
+                if got != dict(first=pid * n, batch=n, process_count=MULTIHOST_PROCS, n=r * n,
+                               failed=[]) or not p["captured"]:
+                    raise AssertionError(f"{label}: {got}, captured {p['captured']}")
+                _counts_equal(label, {k: tuple(v) for k, v in p["counts"].items()}, want)
+                seen = {int(fid): v for fid, v in p["seen"].items()}
+                _digests_equal(f"{label} vs the one-process MultiSeqSystem", seen, ref["seen"],
+                               seqs=list(range(pid * n, (pid + 1) * n)))
+                if p["state"] != ref["state_digests"][pid * n:(pid + 1) * n]:
+                    raise AssertionError(f"{label}: the final state differs from the "
+                                         "one-process run's")
+            if ranges != {json.dumps(ref["provider"])}:
+                raise AssertionError(f"multihost ({mode}): provider ranges {ranges}, one "
+                                     f"process {ref['provider']}")
+            ms = [float(np.median(p["ms"][1:])) for p in procs]
+            out[mode] = dict(ms=ms, fps=[n * 1000 / m for m in ms])
+        out["counts"] = [{k: v[0] for k, v in p["host keys"]["counts"].items()} for p in runs]
+        log(f"multicard (b): {MULTIHOST_PROCS} processes on this one card through "
+            f"read_system_config's \"multihost\" block (gloo on localhost), B={MULTICARD_B} "
+            f"({n} sequences each), {r} rounds, captured, every key and host keys: every fetched "
+            f"output of every round and the final state equal to the one-process "
+            f"MultiSeqSystem's for the same global sequences; provider ranges "
+            f"{runs[0]['host keys']['provider']} on every process and in the one-process run; "
+            f"launches a run {out['counts']}, no plain call")
+        for mode, one in (("host keys", ref["host_ms"]), ("every key", ref["ms"])):
+            ms, fps = out[mode]["ms"], out[mode]["fps"]
+            log(f"multicard (b) ms a round (CUDA events between round ends, rounds 3..{r}, "
+                f"{mode}): " + ", ".join(f"process {k} {m:.3f} ({f:.1f} frames/s)"
+                                         for k, (m, f) in enumerate(zip(ms, fps)))
+                + f"; {sum(fps):.1f} frames/s in total against the one-process "
+                f"B={MULTICARD_B} run's {MULTICARD_B * 1000 / one:.1f} ({one:.3f} ms a round, "
+                f"this call)  [{tag}]")
+
+        multihost_config(cfg, _free_port(), MULTIHOST_CLI_FRAMES)
+        cli = [sys.executable, "-m", "cartslam_tpu_torch", cfg, "--max-frames",
+               str(MULTIHOST_CLI_FRAMES)]
+        envs = [dict(env, JAX_PROCESS_ID=str(pid), PYTHONPATH=REPO)
+                for pid in range(MULTIHOST_PROCS)]
+        _spawn([cli] * MULTIHOST_PROCS, envs, tmp)
+        log(f"multicard (b): the CLI, {MULTIHOST_PROCS} processes of python -m "
+            f"cartslam_tpu_torch <multiseq config with a multihost block> --max-frames "
+            f"{MULTIHOST_CLI_FRAMES} (process id from JAX_PROCESS_ID): each exited with 0")
+    return out
+
+
+def width_stencils_phase(dev, cards=None) -> None:
+    """(e): the width-sharded stencils (parallel/spatial.py) at H x W on
+    SHARDS shards of this card, shared and per-shard streams (and, given
+    `cards`, with the shards on those cards), array_equal to the unsharded
+    ops: the derivative and its psum'd histogram, the interpolation (radius
+    3, 2 iterations), the classification."""
+    from cartslam_tpu_torch.ops import derivative as dops
+    from cartslam_tpu_torch.ops import disparity as dsp
+    from cartslam_tpu_torch.ops import planeseg as pops
+    from cartslam_tpu_torch.parallel import spatial
+    from cartslam_tpu_torch.parallel.group import ShardGroup
+
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    d = (torch.randint(4, 160, (H, W), generator=gen) * 16).to(torch.int16)
+    d[torch.rand(H, W, generator=gen) < 0.2] = -32768
+    d = d.to(dev)
+    ranges = torch.tensor([[5, 50], [-10, 5]], dtype=torch.int32, device=dev)
+    kw = dict(radius=3, iterations=2, min_disparity=16, max_disparity=160 * 16)
+    want_deriv, want_hist = dops.directional_derivatives(d)
+    want = (want_deriv, want_hist, dsp.interpolate(d, **kw), pops.classify(want_deriv[..., 0],
+                                                                           ranges))
+    groups = {f"{streams} streams": ShardGroup(SHARDS, [dev] * SHARDS, streams=streams)
+              for streams in ("shared", "per_shard")}
+    if cards:
+        groups[f"across {len(cards)} cards"] = ShardGroup(
+            SHARDS, [cards[i * len(cards) // SHARDS] for i in range(SHARDS)])
+    for name, group in groups.items():
+        deriv, hist = spatial.sharded_derivative(group)(d)
+        got = (deriv, hist, spatial.sharded_interpolate(group, **kw)(d),
+               spatial.sharded_classify(group)(want_deriv[..., 0], ranges))
+        torch.cuda.synchronize()
+        bad = [name for name, a, b in zip(("derivatives", "histogram", "interpolate", "classify"),
+                                          got, want) if not _same(a, b)]
+        if bad:
+            raise AssertionError(f"multicard (e) {name}: {bad} differ from the unsharded ops")
+    log(f"multicard (e): the width-sharded stencils at {H}x{W} on {SHARDS} shards of "
+        f"{W // SHARDS} columns ({', '.join(groups)}) array_equal to the unsharded ops: "
+        f"directional_derivatives with its psum'd histogram, interpolate ({kw}), classify")
+
+
+def preset_phase(frames, intrinsics, dev) -> dict:
+    """(f): the SpatialFlagship preset at the flagship's knobs (SHARDS
+    shards, the static provider's ranges), its captured steps (make_step
+    'initial', then 'normal') over PRESET_FRAMES frames, every output and
+    the state equal to the config-built SpatialPipeline of the same modules
+    (its eager steps); the preset's launches counted."""
+    from cartslam_tpu_torch.config import build_pipeline
+    from cartslam_tpu_torch.kernels import build
+    from cartslam_tpu_torch.kernels.relax import launches
+    from cartslam_tpu_torch.parallel.spatial_flagship import (SpatialFlagship,
+                                                              SpatialFlagshipConfig)
+    from cartslam_tpu_torch.sources import PreloadedSource
+
+    cfg = SpatialFlagshipConfig(height=H, width=W)
+    p = STATIC_PROVIDER
+    ranges = ((p["horizontal_range_min"], p["horizontal_range_max"]),
+              (p["vertical_range_min"], p["vertical_range_max"]))
+    preset = SpatialFlagship(cfg, SHARDS, q=intrinsics.q, ranges=ranges, device=dev)
+    modules = [
+        {"type": "disparity", "smoothing_radius": cfg.smoothing_radius,
+         "smoothing_iterations": cfg.smoothing_iterations},
+        {"type": "disparity_derivative"}, {"type": "depth"}, {"type": "optflow"},
+        {"type": "superpixels", "block_size": cfg.block_size, "iterations": cfg.iterations,
+         "initial_iterations": cfg.initial_iterations},
+        {"type": "superpixel_disparity_planeseg", "parameter_provider": STATIC_PROVIDER,
+         "use_temporal_smoothing": True, "warp_mode": "select"}]
+    config_pipe, _ = build_pipeline(PreloadedSource(frames[:PRESET_FRAMES],
+                                                    intrinsics=intrinsics), modules, device=dev,
+                                    parallel={"mode": "spatial", "devices": SHARDS})
+    steps = {"initial": preset.make_step("initial"), "normal": preset.make_step("normal")}
+    params = config_pipe.init_host_params()
+    build.reset_counts()
+    state = preset.init_state()
+    got = []
+    for fid, frame in enumerate(frames[:PRESET_FRAMES], start=1):
+        images = {k: torch.from_numpy(frame[k]) for k in ("left", "right")}
+        state, out = steps["initial" if fid == 1 else "normal"](
+            state, {**images, "frame_id": fid}, preset.init_params())
+        got.append({k: v.cpu().numpy() for k, v in out.items()})
+    final = _flat_numpy(state)
+    torch.cuda.synchronize()
+    counts = {c.name: (c.launches, c.plain_calls) for c in build.COUNTERS.values()}
+    sp = launches(24, 1, "frame") + (PRESET_FRAMES - 1) * launches(8, 1, "frame")
+    plan = {"sgm": 0, "sgm_sharded": SHARDS * PRESET_FRAMES,
+            "sgm_settle": SETTLE_LAUNCHES * PRESET_FRAMES, "moment_tally": SHARDS * PRESET_FRAMES,
+            "relax": SHARDS * sp, "vote_tally": SHARDS * PRESET_FRAMES}
+    _counts_equal("SpatialFlagship preset", counts, plan)
+    ref_state = config_pipe.init_state()
+    for fid, frame in enumerate(frames[:PRESET_FRAMES], start=1):
+        images = {k: torch.from_numpy(frame[k]).to(dev) for k in ("left", "right")}
+        ref_state, ref = config_pipe.step(ref_state, {**images, "frame_id": fid}, params,
+                                          config_pipe.variant(fid))
+        bad = _fetched_equal(got[fid - 1], {k: v.cpu().numpy() for k, v in ref.items()})
+        if bad:
+            raise AssertionError(f"SpatialFlagship preset frame {fid}: differs from the "
+                                 f"config-built SpatialPipeline on {bad}")
+    bad = _fetched_equal(final, _flat_numpy(ref_state))
+    if bad:
+        raise AssertionError(f"SpatialFlagship preset: the state differs on {bad}")
+    log(f"multicard (f): the SpatialFlagship preset ({SHARDS} shards, {H}x{W}, "
+        f"D={cfg.num_disparities}, its steps captured) equal over {PRESET_FRAMES} frames to the config-built "
+        f"SpatialPipeline of the same modules on every output ({', '.join(sorted(got[0]))}) "
+        f"and the state; launches {({k: v[0] for k, v in counts.items()})}")
+    return {k: v[0] for k, v in counts.items()}
+
+
+def per_shard_phase(frames, intrinsics, dev, tag, plan) -> dict:
+    """(c): configs/kitti-planeseg-spatial.json (SHARDS shards on this card)
+    through a System over a SpatialPipeline of the same modules with a
+    stream per shard (the collectives as event joins), captured,
+    MULTICARD_ROUNDS frames; every fetched output of every frame equal to
+    the shared-stream spatial System's and to the full-frame System's (warp
+    'select'); K2, K3 and K4 equal to their plain versions on their first
+    calls' inputs on each shard; the ms a frame of both stream layouts."""
+    from cartslam_tpu_torch.config import build_pipeline
+    from cartslam_tpu_torch.parallel.spatial_flagship import SpatialPipeline
+    from cartslam_tpu_torch.runtime.system import System
+    from cartslam_tpu_torch.sources import PreloadedSource
+
+    config, n = spatial_config(), MULTICARD_ROUNDS
+    mods, parallel = config["modules"], config["parallel"]
+    sp = plan["spatial"]
+    runs = {}
+
+    def source():
+        return PreloadedSource(frames[:n], intrinsics=intrinsics)
+
+    def per_shard(keys):
+        pipe, _ = build_pipeline(source(), mods, device=dev, parallel=parallel)
+        return System(source(), SpatialPipeline(pipe.ctx, pipe.modules, pipe.n,
+                                                streams="per_shard"),
+                      extra_fetch_keys=keys, max_in_flight=SYSTEM_DEPTH)
+
+    with first_calls(by_shard=True) as calls:
+        runs["per-shard streams"] = run_system(
+            source(), None, dev, "spatial System per-shard streams", sp, frames=n,
+            system=per_shard(SYSTEM_KEYS))
+    note = check_path_kernels("spatial System per-shard streams", calls)
+    del calls
+    runs["per-shard streams, host keys"] = run_system(
+        source(), None, dev, "spatial System per-shard streams, host keys", sp, frames=n,
+        system=per_shard(()))
+    for keys, suffix in ((SYSTEM_KEYS, ""), ((), ", host keys")):
+        runs["shared stream" + suffix] = run_system(
+            source(), mods, dev, "spatial System shared stream" + suffix, sp, frames=n,
+            parallel=parallel, extra_fetch_keys=keys, max_in_flight=SYSTEM_DEPTH)
+    runs["full frame"] = run_system(source(), select_warp(mods), dev, "full frame 'select'",
+                                    plan["full_frame_select"], frames=n,
+                                    extra_fetch_keys=SYSTEM_KEYS, max_in_flight=SYSTEM_DEPTH)
+    for mode, r in runs.items():
+        system = r.pop("system")
+        if not system.captured or (mode != "full frame" and system.pipeline.group.per_shard
+                                   != mode.startswith("per-shard")):
+            raise AssertionError(f"multicard (c) {mode}: captured {system.captured}")
+        r["state"] = system.final_state
+        del system
+    ps = runs["per-shard streams"]
+    for fid in range(1, n + 1):
+        for mode, r in runs.items():
+            bad = _fetched_equal(r["seen"][fid], {k: ps["seen"][fid][k] for k in r["seen"][fid]})
+            if bad:
+                raise AssertionError(f"multicard (c) frame {fid}: {mode} differs from the "
+                                     f"per-shard streams' run on {bad}")
+    for mode in ("shared stream", "shared stream, host keys", "per-shard streams, host keys"):
+        _assert_state_equal(runs[mode]["state"], ps["state"], f"multicard (c) {mode} state")
+    med = {m: float(np.median(r["ms"][1:])) for m, r in runs.items()}
+    log(f"multicard (c): {config['parallel']} with a stream per shard (event joins), captured "
+        f"({len(ps['graphs'])} graphs), {n} frames: every fetched output of every frame equal to "
+        f"the shared-stream spatial System and to the full-frame System ('select'), the state "
+        f"to the shared-stream run's; launches {ps['counts']}; {note}")
+    log(f"multicard (c) ms a frame (CUDA events between frame ends, frames 3..{n}): host keys: "
+        f"per-shard streams {med['per-shard streams, host keys']:.3f}, shared stream "
+        f"{med['shared stream, host keys']:.3f}; every key: per-shard streams "
+        f"{med['per-shard streams']:.3f}, shared stream {med['shared stream']:.3f}, full frame "
+        f"{med['full frame']:.3f}; capture s {runs['per-shard streams, host keys']['graphs']} "
+        f"(shared {runs['shared stream, host keys']['graphs']})  [{tag}]")
+    out = {"counts": runs["per-shard streams, host keys"]["counts"], "ms": med}
+    del runs, ps
+    torch.cuda.empty_cache()
+    return out
+
+
+def cross_card_phase(frames_by_seq, intrinsics, ref, dev, tag, plan) -> str:
+    """(d): with two or more cards, the spatial System with its shards on
+    the visible cards (eager) equal to the full frame, the MultiSeqSystem
+    over every card equal to the one-card run `ref`, and the width stencils
+    across the cards; on one card, a line that says the cross-card copies
+    did not run."""
+    from cartslam_tpu_torch.sources import PreloadedSource
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        msg = (f"multicard (d): the cross-card copies were not run on this {cards}-card machine "
+               "(they need two or more cards)")
+        log(msg)
+        return msg
+    n = MULTICARD_ROUNDS
+    config = spatial_config()
+    source = PreloadedSource(frames_by_seq[0][:n], intrinsics=intrinsics)
+    r = run_system(source, config["modules"], dev, "cross-card spatial", plan["spatial"],
+                   frames=n, parallel=config["parallel"], extra_fetch_keys=SYSTEM_KEYS,
+                   max_in_flight=SYSTEM_DEPTH)
+    system = r.pop("system")
+    shard_cards = sorted({str(d) for d in system.pipeline.group.devices})
+    if system.captured or len(shard_cards) < 2:
+        raise AssertionError(f"cross-card spatial: captured {system.captured}, cards "
+                             f"{shard_cards}")
+    full = run_system(PreloadedSource(frames_by_seq[0][:n], intrinsics=intrinsics),
+                      select_warp(config["modules"]), dev, "cross-card full frame",
+                      plan["full_frame_select"], frames=n, extra_fetch_keys=SYSTEM_KEYS,
+                      max_in_flight=SYSTEM_DEPTH)
+    for fid in range(1, n + 1):
+        bad = _fetched_equal(r["seen"][fid], full["seen"][fid])
+        if bad:
+            raise AssertionError(f"cross-card spatial frame {fid}: differs on {bad}")
+    ms = {}
+    for mode, keys in (("every key", SYSTEM_KEYS), ("host keys", ())):
+        run = run_multiseq(frames_by_seq, intrinsics, flagship_modules(), dev,
+                           f"cross-card multiseq, {mode}", rounds_plan(n, MULTICARD_B), rounds=n,
+                           keys=keys)
+        parts = len(run.pop("system").partitions)
+        if parts < 2:
+            raise AssertionError("cross-card multiseq: one partition")
+        _digests_equal(f"cross-card multiseq vs one card, {mode}", run["seen"], ref["seen"])
+        ms[mode] = float(np.median(run["ms"][1:]))
+    width_stencils_phase(dev, [torch.device("cuda", i) for i in range(cards)])
+    msg = (f"multicard (d): the spatial System with its shards on cards {shard_cards} (eager) "
+           f"equal to the full frame over {n} frames; the MultiSeqSystem (B={MULTICARD_B}) over "
+           f"{parts} cards equal to the one-card run; ms a frame spatial, every key "
+           f"{float(np.median(r['ms'][1:])):.3f}; ms a round multiseq, rounds 3..{n}: host keys "
+           f"{ms['host keys']:.3f} ({ref['host_ms']:.3f} on one card), every key "
+           f"{ms['every key']:.3f} ({ref['ms']:.3f})  [{tag}]")
+    log(msg)
+    return msg
+
+
+def cross_card_main() -> int:
+    """``python3 chip_smoke.py --cross-card``: on a machine with two or more
+    cards, phase 4f (d) alone (the other phases assume one visible card):
+    the kernels built, the MultiSeqSystem on card 0 as the reference, then
+    cross_card_phase; the result line as main's."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        print("chip_smoke --cross-card: needs two or more CUDA cards", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from cartslam_tpu_torch.kernels import build
+    from cartslam_tpu_torch.sources import PreloadedSource, SyntheticDataSource
+
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()
+    log("; ".join(card))
+    tag = f"{torch.cuda.get_device_name(0)} x {len(card)}, {card[0].split(',')[-1].strip()}"
+    build.build()
+    build.library()
+    r = MULTICARD_ROUNDS
+    source = PreloadedSource.wrap(SyntheticDataSource(image_size=(H, W), num_frames=r, seed=0,
+                                                      max_disparity=80.0, baseline=20.0))
+    intrinsics = source.get_camera_intrinsics()
+    frames = multiseq_frames(source.frames, MULTICARD_B)
+    ref = {}
+    for mode, keys in (("ms", SYSTEM_KEYS), ("host_ms", ())):
+        run = run_multiseq(frames, intrinsics, flagship_modules(), dev, "multiseq on card 0",
+                           rounds_plan(r, MULTICARD_B), rounds=r, devices=[dev], keys=keys)
+        ref[mode] = float(np.median(run["ms"][1:]))
+        ref.setdefault("seen", run["seen"])
+        del run
+    cross_card_phase(frames, intrinsics, ref, dev, tag, launch_plan())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def multicard_phase(first_frames, intrinsics, dev, tag, plan) -> dict:
+    """Phase 4f, the multi-card and multi-host modes on the card, each gate
+    raising:
+      (a) the MultiSeqSystem (B=MULTICARD_B flagship sequences, seeds as
+          multiseq_frames') with devices=["cuda:0", "cuda:0"]: two
+          partitions, two graphs a variant, equal on every fetched output of
+          rounds 1..MULTICARD_ROUNDS and on the final state to the
+          one-partition run; the ms a round of both;
+      (b) multihost_phase: two processes on this card;
+      (c) per_shard_phase: the spatial System with a stream per shard;
+      (d) cross_card_phase: the cross-card runs, or the line that they did
+          not run on one card;
+      (e) width_stencils_phase: the width-sharded stencils;
+      (f) preset_phase: the SpatialFlagship preset.
+    Returns the launch counts of its paths and its times."""
+    import time
+
+    r = MULTICARD_ROUNDS
+    t0 = time.perf_counter()
+    frames = multiseq_frames(first_frames[:r], MULTICARD_B)
+    log(f"multicard: {MULTICARD_B} synthetic sequences of {r} frames preloaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    want = rounds_plan(r, MULTICARD_B)
+    runs = {}
+    for name, devices, keys in (("one partition", None, SYSTEM_KEYS),
+                                ("two partitions", [dev, dev], SYSTEM_KEYS),
+                                ("one partition, host keys", None, ()),
+                                ("two partitions, host keys", [dev, dev], ())):
+        runs[name] = run_multiseq(frames, intrinsics, flagship_modules(), dev,
+                                  f"multicard (a) {name}", want, rounds=r, devices=devices,
+                                  keys=keys)
+        system = runs[name].pop("system")
+        parts = [(p.lo, p.hi, str(p.device)) for p in system.partitions]
+        if len(parts) != (2 if devices else 1) or not system.captured \
+                or len(system.captured_steps) != 2 * len(parts):
+            raise AssertionError(f"multicard (a) {name}: partitions {parts}, captured "
+                                 f"{system.captured}, graphs {len(system.captured_steps)}")
+        runs[name].update(state=_tree_digests(system.final_state, MULTICARD_B), parts=parts,
+                          provider=_provider_ranges(system))
+        del system
+        torch.cuda.empty_cache()
+    one, two = runs["one partition"], runs["two partitions"]
+    _digests_equal("multicard (a) two partitions vs one", two["seen"], one["seen"])
+    _digests_equal("multicard (a) two partitions vs one, host keys",
+                   runs["two partitions, host keys"]["seen"], one["seen"])
+    if two["state"] != one["state"] or runs["two partitions, host keys"]["state"] != one["state"]:
+        raise AssertionError("multicard (a): the final state differs")
+    med = {k: float(np.median(v["ms"][1:])) for k, v in runs.items()}
+    log(f"multicard (a): the MultiSeqSystem (B={MULTICARD_B}) with devices [{dev}, {dev}]: "
+        f"partitions {two['parts']}, two graphs a variant, equal to the one-partition run on "
+        f"every fetched output of rounds 1..{r} and the final state (the host-keys runs too); "
+        f"launches {two['counts']}")
+    log(f"multicard (a) ms a round (CUDA events between round ends, rounds 3..{r}): host keys: "
+        f"two partitions {med['two partitions, host keys']:.3f}, one partition "
+        f"{med['one partition, host keys']:.3f}; every key: two partitions "
+        f"{med['two partitions']:.3f}, one partition {med['one partition']:.3f}; capture s "
+        f"{runs['two partitions, host keys']['graphs']} / "
+        f"{runs['one partition, host keys']['graphs']}  [{tag}]")
+    ref = dict(seen=one["seen"], state_digests=one["state"], provider=one["provider"],
+               ms=med["one partition"], host_ms=med["one partition, host keys"])
+    out = {"partitions": two["counts"], "partitions_ms": med}
+    host = multihost_phase(ref, tag)
+    out.update(multihost=host)
+    out["per_shard"] = per_shard_phase(first_frames, intrinsics, dev, tag, plan)
+    out["cross_card"] = cross_card_phase(frames, intrinsics, ref, dev, tag, plan)
+    width_stencils_phase(dev)
+    out["preset"] = preset_phase(first_frames, intrinsics, dev)
+    del frames, runs
+    torch.cuda.empty_cache()
+    return out
+
+
 def cli_phase() -> None:
     """The CLI: configs/synthetic-planeseg.json, then the flagship's module
     config (its two plane-segmentation visualizations) for 30 frames with
@@ -3358,6 +3953,15 @@ def main() -> int:
     spatial = spatial_system_phase(source.frames, intrinsics, dev, tag, plan)
     by_path[f"spatial System ({SHARDS} shards, captured)"] = spatial["counts"]
 
+    # 4f. the multi-card and multi-host modes
+    multicard = multicard_phase(source.frames, intrinsics, dev, tag, plan)
+    by_path[f"multiseq 2 partitions (B={MULTICARD_B})"] = multicard["partitions"]
+    for pid, c in enumerate(multicard["multihost"]["counts"]):
+        by_path[f"multihost process {pid} (B={MULTICARD_B})"] = c
+    by_path[f"spatial System, a stream per shard ({SHARDS} shards)"] = \
+        multicard["per_shard"]["counts"]
+    by_path[f"SpatialFlagship preset ({SHARDS} shards)"] = multicard["preset"]
+
     # 5. card against CPU
     small_temporal_check(dev)
     small_temporal_check(dev, faithful=True)
@@ -3434,6 +4038,15 @@ def main() -> int:
         f"K5's side streams per sequence {multiseq['composed_alt_ms']:.3f} (replay span "
         f"{multiseq['composed_alt_span']:.3f}), eager {multiseq['composed_eager_ms']:.3f}; "
         f"capture s {multiseq['composed_graphs']}  [{tag}]")
+    mh, pm, ps = (multicard[k] for k in ("multihost", "partitions_ms", "per_shard"))
+    log(f"multicard ms a round, rounds 3..{MULTICARD_ROUNDS}, B={MULTICARD_B}, host keys: "
+        f"one partition {pm['one partition, host keys']:.3f}, two partitions "
+        f"{pm['two partitions, host keys']:.3f}, {MULTIHOST_PROCS} processes "
+        + ", ".join(f"{m:.3f}" for m in mh["host keys"]["ms"])
+        + f" ({sum(mh['host keys']['fps']):.1f} frames/s in total); spatial System ms a frame, "
+        f"host keys, a stream per shard {ps['ms']['per-shard streams, host keys']:.3f}, shared "
+        f"stream {ps['ms']['shared stream, host keys']:.3f}  [{tag}]")
+    log(multicard["cross_card"])
     for name, sc in quality.items():
         log(f"quality {name}: {_scores(sc)}  [{tag}]")
     launches_by_path = {}
@@ -3462,4 +4075,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--multihost-child":
+        sys.exit(multihost_child(json.loads(sys.argv[2])))
+    if sys.argv[1:] == ["--cross-card"]:
+        sys.exit(cross_card_main())
     sys.exit(main())

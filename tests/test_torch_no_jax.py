@@ -3,7 +3,9 @@
 The card's machine has no JAX, so nothing the port (or chip_smoke.py)
 imports may pull it in: the child below runs the pipelines, the System
 with its host modules, sinks and checkpoints, a 2-sequence MultiSeqSystem,
-the composed mode, the spatial step's captured body on the CPU, the quality
+the composed mode, the spatial step's captured body on the CPU, the
+multi-device modules (the multihost initializer, two partitions of the
+multi-sequence System, the width stencils, the SpatialFlagship preset), the quality
 metrics and the memory report, the plane fits with the native build, the
 ORB features and the ZED source, and imports the CLI, with any ``import
 jax`` made to fail.
@@ -115,8 +117,31 @@ bufs.load_frame({{k: torch.from_numpy(first[k]) for k in ("left", "right")}}, 1)
 got = _sequence_body(pipeline, bufs, bufs.state, bufs.frame, pipeline.variant(1),
                      frozenset(["planes", "superpixels", "optflow"]))
 assert got["planes"].shape == (32, 64)
-# The quality metrics against the synthetic truth, and the memory report.
 from cartslam_tpu_torch.sources import SyntheticDataSource
+# The multi-device modules: the multihost initializer (a no-op on one host),
+# two partitions of the multi-sequence System, the width-sharded stencils
+# and the SpatialFlagship preset.
+from cartslam_tpu_torch.parallel.distributed import initialize_multihost
+from cartslam_tpu_torch.parallel.group import ShardGroup
+from cartslam_tpu_torch.parallel.spatial import sharded_classify, sharded_derivative
+from cartslam_tpu_torch.parallel.spatial_flagship import SpatialFlagship, SpatialFlagshipConfig
+assert initialize_multihost({{}}) is False
+pipeline, source = build_pipeline(src, mods[:3], device="cpu")
+system = MultiSeqSystem([source, SyntheticDataSource(image_size=(32, 64), num_frames=2, seed=1)],
+                        pipeline, devices=["cpu", "cpu"])
+assert len(system.partitions) == 2 and system.run() == 4 and not system.failed_frames
+group = ShardGroup(2, ["cpu", "cpu"])
+deriv, hist = sharded_derivative(group)(torch.zeros(32, 64, dtype=torch.int16))
+assert deriv.shape == (32, 64, 2) and hist.shape == (256, 2)
+assert sharded_classify(group)(deriv[..., 0], torch.zeros(2, 2, dtype=torch.int32)).shape == (32, 64)
+preset = SpatialFlagship(SpatialFlagshipConfig(32, 64, num_disparities=16, block_size=8,
+                                               initial_iterations=3, iterations=2), 2,
+                         device="cpu")
+state, out = preset.make_step("initial")(preset.init_state(), {{"left": frame["left"][0],
+                                          "right": frame["right"][0], "frame_id": 1}},
+                                         preset.init_params())
+assert out["planes"].shape == (32, 64)
+# The quality metrics against the synthetic truth, and the memory report.
 from cartslam_tpu_torch.utils import memory, quality
 gen = SyntheticDataSource(image_size=(32, 64), num_frames=2)
 regions = gen.ground_truth_regions(1)

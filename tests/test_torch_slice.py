@@ -187,8 +187,7 @@ def test_registry_rejects_unported_types(tmp_path):
                               "use_temporal_smoothing": True, "temporal_mode": "exact"}],
                        device="cpu")
     # The multi-sequence modes are ported: they build a MultiSeqSystem /
-    # SpatialMultiSeqSystem, which only a System entry point returns;
-    # "multihost" is not ported.
+    # SpatialMultiSeqSystem, which only a System entry point returns.
     cfg = tmp_path / "multiseq.json"
     cfg.write_text('{"data_source": {"type": "synthetic"}, "modules": [], '
                    '"parallel": {"mode": "multiseq", "batch": 2}}')
@@ -205,9 +204,15 @@ def test_registry_rejects_unported_types(tmp_path):
                       "mode": "spatial", "devices": 2, "sequences": 2})):
         with pytest.raises(ValueError, match="multi-sequence modes .* use build_system"):
             build()
-    with pytest.raises(ValueError, match="'multihost' is not ported yet"):
-        build_system(src, [], device="cpu",
-                     parallel={"mode": "multiseq", "batch": 2, "multihost": {}})
+    # "multihost" is ported: without a coordinator it is the one-process
+    # run; the spatial mode ignores the block, as the JAX registry does.
+    system = build_system(src, [], device="cpu",
+                          parallel={"mode": "multiseq", "batch": 2, "multihost": {}})
+    assert isinstance(system, MultiSeqSystem) and system.process_count == 1
+    assert system.batch == 2
+    composed = build_system(src, [], device="cpu", parallel={
+        "mode": "spatial", "devices": 2, "sequences": 2, "multihost": {"num_processes": 2}})
+    assert isinstance(composed, SpatialMultiSeqSystem) and composed.process_count == 1
 
 
 def test_cuda_device_without_gpu_raises():
