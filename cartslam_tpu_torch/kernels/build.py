@@ -9,7 +9,9 @@ use builds it, and a changed source builds a new one.
 
 Each C entry point launches on the stream it is given (the wrapper passes
 ``torch.cuda.current_stream().cuda_stream``) and returns
-``cudaGetLastError()``; ``check`` raises when that is not 0.
+``cudaGetLastError()``; ``check`` raises when that is not 0.  A wrapper
+runs with the card of its tensors current (``on_its_card``), so that
+stream is that card's.
 
 The objects are compiled with ``-Xptxas -v``: ptxas's report of each
 kernel's registers, shared memory and spill bytes is kept beside the
@@ -20,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import re
@@ -222,6 +225,22 @@ def check(err: int, name: str) -> None:
 
 def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def on_its_card(fn):
+    """A kernel wrapper run with the card of its first argument (a tensor)
+    current, so that its launches go to that card and to the card's current
+    stream, on which PyTorch orders the memory of the wrapper's outputs and
+    scratch.  Called from another current card, a launch would go to that
+    card's stream, unordered with the memory, which the allocator could hand
+    out again while the kernel still uses it."""
+    @functools.wraps(fn)
+    def wrapper(first, *args, **kw):
+        if first.device.type != "cuda" or first.device.index == torch.cuda.current_device():
+            return fn(first, *args, **kw)
+        with torch.cuda.device(first.device):
+            return fn(first, *args, **kw)
+    return wrapper
 
 
 def expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple | None = None,

@@ -259,6 +259,7 @@ def _launch(labels, table, data, features, c_total, direct_cost, diagonal_cost, 
     return cur
 
 
+@build.on_its_card
 def relax_sweeps(labels, table, data, features: Sequence[RelaxFeature], c_total: int,
                  iterations: int, direct_cost: float, diagonal_cost: float, prog=None, *,
                  phases: int = 1, row0: int = 0, return_stats: bool = False):
@@ -285,6 +286,7 @@ def relax_sweeps(labels, table, data, features: Sequence[RelaxFeature], c_total:
     return (cur, table_gather(table, cur)) if return_stats else cur
 
 
+@build.on_its_card
 def relax_phase(labels, table, data, features: Sequence[RelaxFeature], c_total: int,
                 phase: int, phases: int, direct_cost: float, diagonal_cost: float, prog=None,
                 *, row0: int = 0):

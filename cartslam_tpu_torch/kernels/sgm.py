@@ -48,6 +48,7 @@ def _check_census(cl0, cl1, cr0, cr1) -> tuple[int, int]:
     return h, w
 
 
+@build.on_its_card
 def sgm_fused(cl0, cl1, cr0, cr1, *, min_disparity: int, num_disparities: int,
               p1: int, p2: int, uniqueness: int, subpixel: bool,
               lr_check: bool) -> torch.Tensor:
@@ -102,6 +103,7 @@ def sgm_vcarry_plain(cl0, cl1, cr0, cr1, tb, bt, *, min_disparity: int,
             stereo._aggregate_scan(chwd.flip(0), p1, p2, bt)[-1] if bottom_up else None)
 
 
+@build.on_its_card
 def sgm_vcarry(cl0, cl1, cr0, cr1, tb, bt, *, min_disparity: int, num_disparities: int,
                p1: int, p2: int, top_down: bool = True, bottom_up: bool = True):
     """One settle sweep of K5 (sgm_vcarry in csrc/sgm.cu): the vertical
@@ -159,6 +161,7 @@ def sgm_fused_sharded_plain(cl0, cl1, cr0, cr1, tb, bt, *, min_disparity: int,
     return torch.where(valid, disp16, stereo.DISPARITY_INVALID).to(torch.int16)
 
 
+@build.on_its_card
 def sgm_fused_sharded(cl0, cl1, cr0, cr1, carries, *, side: torch.cuda.Stream | None,
                       min_disparity: int, num_disparities: int, p1: int, p2: int,
                       uniqueness: int, subpixel: bool, lr_check: bool) -> torch.Tensor:
@@ -228,6 +231,7 @@ def sgm_aggregate_plain(cl0, cl1, cr0, cr1, *, min_disparity: int, num_dispariti
     return stereo.sgm_aggregate(cost, p1, p2).to(torch.int16)
 
 
+@build.on_its_card
 def sgm_aggregate(cl0, cl1, cr0, cr1, *, min_disparity: int, num_disparities: int,
                   p1: int, p2: int) -> torch.Tensor:
     """Census words (int32 [H, W] x2 per view) -> the 4-path aggregated cost

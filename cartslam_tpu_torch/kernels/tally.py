@@ -103,6 +103,7 @@ def moment_tally_plain(labels: torch.Tensor, data: torch.Tensor, num_labels: int
     return _rounded(acc.index_add_(1, idx, rows), reduce)
 
 
+@build.on_its_card
 def moment_tally(labels: torch.Tensor, data: torch.Tensor, num_labels: int,
                  reduce=None) -> torch.Tensor:
     """moment_tally_plain's table from labels int32 [..., W] and data int32
@@ -143,6 +144,7 @@ def vote_tally_plain(labels: torch.Tensor, votes: torch.Tensor, num_labels: int,
     return counts.view(num_labels, num_classes).to(torch.int32)
 
 
+@build.on_its_card
 def vote_tally(labels: torch.Tensor, votes: torch.Tensor, num_labels: int,
                num_classes: int) -> torch.Tensor:
     """vote_tally_plain's counts from labels int32 [..., W] and votes uint8
@@ -176,6 +178,7 @@ def _label_sums(labels: torch.Tensor, values: torch.Tensor, num_labels: int) -> 
     return acc.index_add_(0, labels[keep].to(torch.int64), values[keep].to(torch.int64))
 
 
+@build.on_its_card
 def label_tally(labels: torch.Tensor, values: torch.Tensor, num_labels: int,
                 reduce=None) -> torch.Tensor:
     """Per-label sums of C columns, channel-major: float32 [C, L] from labels

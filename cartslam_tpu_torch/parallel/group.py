@@ -37,20 +37,28 @@ starts and joined back into it when every shard has returned.  A
 collective becomes an event join: the producer records an event on its
 stream as it deposits, the consumer's stream waits on the events of the
 shards it reads, and ``_take`` copies a tensor from another device with a
-non-blocking copy (PyTorch orders a copy between two cards after both
-devices' current streams).  A tensor read by another stream than its own
-is marked as used there (``record_stream``), so the allocator does not hand
-its memory out again before that stream has read it.  In a shard thread
-the caller's stream stays current on the caller's device, so a shard's
-copy of its rows from that device orders after the caller's work.
+non-blocking copy.  PyTorch runs a copy between two cards on the source
+card's current stream, after a two-way event join with the destination
+card's current stream; so ``_take`` makes a copy stream of the reading
+shard's own on the source card current for the copy (``_copy_stream``):
+the copy waits only for the reader's stream, which waited on the
+producer's event, and the reader's stream waits for the copy.  A tensor
+read by another stream than its own is marked as used there
+(``record_stream``), so the allocator does not hand its memory out again
+before that stream has read it.  In a shard thread the caller's stream
+stays current on the caller's device, so a shard's copy of its rows from
+that device orders after the caller's work.  After ``run``, a result on a
+shard's card is copied to the caller's card on the shard's own stream
+(``shard_stream``; parallel/spatial_flagship.py), which made it.
 
 Under CUDA graph capture (runtime/graphs.py) the caller's current stream is
 the capture stream, so the shard threads enqueue into the capture; a side
-stream and a shard's own stream join the capture through their fork's event
-wait.  Both must exist before the capture begins (the capture's warm-up
-makes them): ``side_stream`` and ``run`` raise rather than make one under
-capture.  Only a group on one card is captured: PyTorch's graph memory
-pool is per device, so a step across cards runs eagerly.
+stream, a shard's own stream and its copy streams join the capture through
+the event waits of their fork or of the copy's join.  Every copy between
+cards thus runs on a stream in the capture and becomes a node of the graph,
+which spans the group's cards.  The streams must exist before the capture
+begins (the capture's warm-up makes them): ``side_stream``, ``run`` and
+``_take`` raise rather than make one under capture.
 
 Turns on the host: one shard runs Python at a time.  A shard holds the
 group's baton from its start to its next collective, where it hands the
@@ -108,6 +116,7 @@ class ShardGroup:
         self._baton = threading.Lock()
         self._slots: list[list[Any]] = [[None] * n, [None] * n]
         self._side: dict[int, torch.cuda.Stream] = {}
+        self._copy: dict[tuple[int, torch.device], torch.cuda.Stream] = {}
 
     # ------------------------------------------------------------- running
 
@@ -176,6 +185,11 @@ class ShardGroup:
             self._shard_streams = [torch.cuda.Stream(device=d) for d in self.devices]
         return self._shard_streams
 
+    def shard_stream(self, i: int) -> torch.cuda.Stream:
+        """Shard i's own stream (with a stream per shard), on which its last
+        ``run`` enqueued its work."""
+        return self._own_streams()[i]
+
     # --------------------------------------------------------- collectives
 
     def axis_index(self) -> int:
@@ -191,11 +205,23 @@ class ShardGroup:
         if self.devices[i].type != "cuda":
             return None
         if i not in self._side:  # each shard thread reads and writes its own key
-            if torch.cuda.is_current_stream_capturing():
-                raise RuntimeError(f"shard {i}: a side stream would be made under CUDA graph "
-                                   "capture; run the step once before capturing it")
-            self._side[i] = torch.cuda.Stream(device=self.devices[i])
+            self._side[i] = self._new_stream(self.devices[i], "a side stream")
         return self._side[i]
+
+    def _copy_stream(self, source: torch.device) -> torch.cuda.Stream:
+        """The calling shard's stream on card `source`, on which its copies
+        from that card run (see Ordering with a stream per shard), made at
+        its first use and kept."""
+        key = (self._local.index, source)
+        if key not in self._copy:  # each shard thread reads and writes its own keys
+            self._copy[key] = self._new_stream(source, f"a copy stream on {source}")
+        return self._copy[key]
+
+    def _new_stream(self, device: torch.device, what: str) -> torch.cuda.Stream:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"shard {self._local.index}: {what} would be made under CUDA "
+                               "graph capture; run the step once before capturing it")
+        return torch.cuda.Stream(device=device)
 
     def _exchange(self, x) -> list:
         """Deposit x, wait for every shard, return all shards' deposits.
@@ -232,8 +258,13 @@ class ShardGroup:
         if not self.per_shard:
             return x.to(dev)
         torch.cuda.current_stream(dev).wait_event(event)
-        y = x.to(dev, non_blocking=True)
-        x.record_stream(torch.cuda.current_stream(x.device))  # the stream that reads x
+        if x.device == dev:
+            x.record_stream(torch.cuda.current_stream(dev))  # the stream that reads x
+            return x
+        copy = self._copy_stream(x.device)
+        with torch.cuda.stream(copy):
+            y = x.to(dev, non_blocking=True)
+        x.record_stream(copy)
         return y
 
     def ppermute(self, x: torch.Tensor | None,

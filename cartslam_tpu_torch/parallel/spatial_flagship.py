@@ -39,9 +39,11 @@ narrowing, the shards' run, the merge), as ``Pipeline``'s.
 ``jitted_step``: that body captured once per (variant, fetch keys) into a
 CUDA graph over the pipeline's static buffers (runtime/graphs.py) and
 replayed, the 8 shard threads' launches of a frame leaving the host as one
-replay.  Its graphs' launches are the eager frame's.  Only a pipeline whose
-shards share its card is captured (``capturable``): PyTorch's graph memory
-pool is per device, so across cards the System runs the step eagerly.
+replay.  Its graphs' launches are the eager frame's.  With the shards on
+several cards, one graph spans them (``devices``; graphs.capture_cards):
+their kernels and the copies between the cards are its nodes, and the
+static buffers stay on the pipeline's card, as the state does in the eager
+step.
 
 ``SpatialFlagshipConfig`` / ``SpatialFlagship`` are the preset that builds
 the flagship's six modules from knobs, without a JSON config.
@@ -102,8 +104,7 @@ class SpatialPipeline:
             else local_devices(ctx.device.type)
         self.group = ShardGroup(n, [cards[i * len(cards) // n] for i in range(n)],
                                 streams=streams)
-        home = canonical_device(ctx.device)
-        self.capturable = set(self.group.devices) == {home}
+        home = self.home = canonical_device(ctx.device)
         # A shard's modules run with a context on its own card (its
         # constants, e.g. Q, live there).
         self._shard_pipes = {d: self.inner if d == home else
@@ -134,6 +135,11 @@ class SpatialPipeline:
                                self.group.streams)
 
     # ------------------------------------------------- Pipeline interface
+
+    @property
+    def devices(self) -> list[torch.device]:
+        """The devices the step runs on: the shards', in shard order."""
+        return self.group.devices
 
     def host_fetch_keys(self):
         return self.inner.host_fetch_keys()
@@ -214,8 +220,19 @@ class SpatialPipeline:
                 for k, v in frame.items()}
 
     def _merge(self, parts: list, rd: int | None) -> torch.Tensor:
-        parts = [p.to(self.ctx.device, non_blocking=True) for p in parts]
-        return parts[0] if rd is None else torch.cat(parts, dim=rd)
+        """The shards' parts of a result as one tensor on the pipeline's
+        device, after the shards' join: shard 0's part of a replicated
+        result (no row dimension), else the parts concatenated.  A part on
+        another card is copied on its shard's own stream: PyTorch runs a
+        copy between cards on the source card's current stream, and that
+        stream made the part (and lies in the capture, under capture)."""
+        out = []
+        for i, p in enumerate(parts[:1] if rd is None else parts):
+            if p.device != self.home:
+                with torch.cuda.stream(self.group.shard_stream(i)):
+                    p = p.to(self.home, non_blocking=True)
+            out.append(p)
+        return out[0] if rd is None else torch.cat(out, dim=rd)
 
     def step(self, state, frame, host_params, variant) -> tuple[dict, dict]:
         """One frame on n row shards, eagerly: (new full-height state,
@@ -227,9 +244,10 @@ class SpatialPipeline:
         """The step body on device inputs only (``Pipeline.prepare``'s form):
         each shard's rows narrowed out of the full-height state and frame,
         the shards run (their threads enqueue on the caller's current
-        stream, the capture stream under capture), the results merged.  It
-        reads nothing back to the host and copies nothing in, so it runs
-        eagerly or under CUDA graph capture alike.  Replicated keys (the
+        stream, the capture stream under capture, or on streams forked from
+        it), the results merged.  It reads nothing back to the host and
+        copies nothing in, so it runs eagerly or under CUDA graph capture
+        alike.  Replicated keys (the
         histogram, superpixels_max_label) come from shard 0."""
 
         def shard(i: int):
@@ -379,7 +397,7 @@ class SpatialFlagship:
         counterpart of the JAX ``make_step``: on a card the captured step
         (the inputs copied into its static buffers, its CUDA graph replayed;
         the returned tensors are those buffers, valid until its next call),
-        on the CPU (or across cards) the eager step."""
+        on the CPU the eager step."""
         return self._step(self._variant_arg(variant), None)
 
     def make_batched_step(self, batch: int, variant=None):
@@ -399,7 +417,7 @@ class SpatialFlagship:
         made: dict = {}
 
         def step(state, frame, host_params):
-            if not (pipe.ctx.device.type == "cuda" and pipe.capturable):
+            if pipe.ctx.device.type != "cuda":
                 if batch is None:
                     return pipe.step(state, frame, host_params, variant)
                 return batched_step(pipe, state, frame, host_params, variant)

@@ -180,8 +180,6 @@ class MultiSeqSystem(System):
         self.partitions = self._partition(
             [canonical_device(d) for d in devices] if devices is not None
             else layout.local_devices)
-        self.captured = self.captured and all(getattr(p.pipeline, "capturable", True)
-                                              for p in self.partitions)
         # (variant, fetch keys, partition) -> a partition's steps as one CUDA graph
         self.captured_steps: dict[tuple, CapturedStep] = {}
         self._buffers: _Buffers | None = None
@@ -350,9 +348,9 @@ class SpatialMultiSeqSystem(MultiSeqSystem):
     The MultiSeqSystem loop with the batched spatial step, the counterpart
     of ``jitted_batched_step``: on a card one CUDA graph a variant holds a
     partition's ``SpatialPipeline.compute_step`` of each sequence, each on
-    its sequence's stream, where its shard threads enqueue; a CPU context
-    (or a partition across cards) runs each sequence's
-    ``SpatialPipeline.step`` in turn.  The collectives stay within the
+    its sequence's stream, where its shard threads enqueue, and spans the
+    cards of the partition's shards (runtime/graphs.py); a CPU context runs
+    each sequence's ``SpatialPipeline.step`` in turn.  The collectives stay within the
     sequence's shards, as the JAX step's name only the spatial axis.  The
     (sequences x shards) grid is placed on the listed devices (default:
     every visible one) in contiguous blocks, cell (b, i) on device

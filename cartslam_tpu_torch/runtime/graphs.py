@@ -76,6 +76,24 @@ Three things make that work:
 
 A shard's exception under capture re-raises in the capturing thread and
 fails the capture (``CaptureError``); nothing runs the step eagerly instead.
+
+A spatial step whose shards sit on several cards is captured into ONE graph
+that spans them, the counterpart of ``jitted_step`` over a multi-device
+mesh (``capture_cards`` names the cards).  The capture begins on the
+capture stream of the home card, the pipeline's, where the static buffers
+lie; each shard's stream on card j joins it through ``ShardGroup.run``'s
+fork, and every copy between cards runs on a stream that joined it too
+(parallel/group.py), so card j's kernels and the peer copies are nodes of
+the same graph and one replay runs the frame on every card.  PyTorch routes
+into a graph's pool only the allocations of the card that began the
+capture: a tensor made on card j during the capture would come from card
+j's ordinary cache and be handed out again after the capture, while the
+graph still uses its memory.  So for the capture's duration every
+allocation on each other card goes to that card's graph pool (the buffers'
+pool id, one pool a card, shared by the variants' graphs as on the home
+card), and each graph holds a reference to it until the graph is gone
+(``_PoolRefs``).  Nothing else allocates on those cards while a capture
+runs: the System's other threads only pin host memory and wait on events.
 """
 
 from __future__ import annotations
@@ -83,12 +101,14 @@ from __future__ import annotations
 import contextlib
 import gc
 import time
-from typing import Any, Mapping
+import weakref
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
 
 from ..kernels import build
+from ..parallel.distributed import canonical_device
 from .state import map_tree, stack_trees
 
 
@@ -128,6 +148,25 @@ def _torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.zeros(0, dtype)).dtype
 
 
+def capture_cards(home, devices: Sequence = ()) -> list[torch.device]:
+    """The cards that a captured step of a pipeline on `home` spans, when
+    its work also runs on `devices` (a spatial pipeline's shard devices):
+    `home` first, where the capture begins and the static buffers lie, then
+    each other card once, in order.  Empty where no step is captured: a
+    `home` that is no card (the System then runs the eager step).  A card
+    home with a device of another type raises."""
+    home = canonical_device(home)
+    if home.type != "cuda":
+        return []
+    cards = [home]
+    for d in map(canonical_device, devices):
+        if d.type != "cuda":
+            raise ValueError(f"a step on {home} cannot also run on {d}")
+        if d not in cards:
+            cards.append(d)
+    return cards
+
+
 class StaticBuffers:
     """The device buffers that every captured variant of one pipeline reads
     and writes.  `frame`: an example host frame (numpy arrays) for the
@@ -151,6 +190,7 @@ class StaticBuffers:
                       else stack_trees([init] * batch))
         self.params = pipeline.device_params(pipeline.init_host_params())
         cuda = dev.type == "cuda"
+        self.cards = capture_cards(dev, pipeline.devices)
         self.pool = torch.cuda.graph_pool_handle() if cuda else None
         self.streams = [torch.cuda.Stream(device=dev) for _ in range(batch or 0)] if cuda else []
         # The captures' stream, on the buffers' card (PyTorch's default
@@ -193,6 +233,36 @@ def counter_snapshot() -> dict[str, tuple[int, int]]:
 def _restore_counters(snap: dict[str, tuple[int, int]]) -> None:
     for name, c in build.COUNTERS.items():
         c.launches, c.plain_calls = snap.get(name, (0, 0))
+
+
+class _PoolRefs:
+    """The references of one graph to the pool `pool` on the capture's
+    cards other than its home (the CUDAGraph holds the home card's):
+    ``route`` sends every allocation on those cards to their pool while its
+    block runs, taking a reference on each card; ``release`` gives them
+    back, once, when the graph's step is gone, after which the allocator
+    frees the pool's memory on a card with no reference left."""
+
+    def __init__(self, cards: Sequence[torch.device], pool):
+        self.indices = [c.index for c in cards]
+        self.pool = pool
+        self.taken: list[int] = []
+
+    @contextlib.contextmanager
+    def route(self):
+        try:
+            for i in self.indices:
+                torch._C._cuda_beginAllocateToPool(i, self.pool)
+                self.taken.append(i)
+            yield
+        finally:
+            for i in self.taken:
+                torch._C._cuda_endAllocateToPool(i, self.pool)
+
+    def release(self) -> None:
+        taken, self.taken = self.taken, []
+        for i in taken:
+            torch._C._cuda_releasePool(i, self.pool)
 
 
 @contextlib.contextmanager
@@ -274,7 +344,9 @@ class CapturedStep:
     pool, and the counts of each kernel's launches at capture (B times a
     sequence's when batched).  ``capture_error_mode=
     "thread_local"``: only the capturing thread's calls are checked (see
-    the module docstring for the shard threads)."""
+    the module docstring for the shard threads).  A step on several cards
+    (``buffers.cards``) is one graph over them, its allocations on the
+    other cards routed into their pools."""
 
     def __init__(self, pipeline, buffers: StaticBuffers, variant: tuple,
                  fetch_keys: frozenset[str]):
@@ -283,6 +355,8 @@ class CapturedStep:
         self.variant = variant
         self.fetch_keys = frozenset(fetch_keys)
         bufs = buffers
+        self.cards = bufs.cards
+        pools = _PoolRefs(bufs.cards[1:], bufs.pool)
         before = counter_snapshot()
         t0 = time.perf_counter()
         try:
@@ -296,9 +370,9 @@ class CapturedStep:
                 _batched_warm_up(pipeline, bufs, variant)
             at_capture = counter_snapshot()
             self.graph = torch.cuda.CUDAGraph()
-            with _no_gc(), torch.cuda.graph(self.graph, pool=bufs.pool,
-                                            stream=bufs.capture_stream,
-                                            capture_error_mode="thread_local"):
+            with _no_gc(), pools.route(), torch.cuda.graph(
+                    self.graph, pool=bufs.pool, stream=bufs.capture_stream,
+                    capture_error_mode="thread_local"):
                 if bufs.batch is None:
                     outputs = _sequence_body(pipeline, bufs, bufs.state, bufs.frame, variant,
                                              self.fetch_keys)
@@ -306,7 +380,10 @@ class CapturedStep:
                     outputs = _batched_body(pipeline, bufs, variant, self.fetch_keys)
         except Exception as e:
             _restore_counters(before)
+            self.graph = None
+            pools.release()
             raise CaptureError(f"capturing the step of variant {variant!r} failed: {e}") from e
+        weakref.finalize(self, pools.release)  # the graph goes with this step
         self.capture_s = time.perf_counter() - t0
         delta = {name: (n - at_capture.get(name, (0, 0))[0], p - at_capture.get(name, (0, 0))[1])
                  for name, (n, p) in counter_snapshot().items()}

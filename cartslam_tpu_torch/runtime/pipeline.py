@@ -92,6 +92,11 @@ class Pipeline:
         # (variant, fetch keys) -> graphs.CapturedStep (its capture_s, launches)
         self.captured_steps: dict[tuple[Hashable, frozenset], Any] = {}
 
+    @property
+    def devices(self) -> list[torch.device]:
+        """The devices the step runs on: the context's."""
+        return [self.ctx.device]
+
     def on_device(self, device) -> "Pipeline":
         """The same pipeline built anew on `device`, the modules copied (a
         module's device constants are made for the device it runs on, and

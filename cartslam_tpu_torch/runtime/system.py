@@ -48,7 +48,7 @@ import torch
 
 from ..sources.base import to_grayscale
 from .checkpoint import load_checkpoint, save_checkpoint
-from .graphs import CaptureError
+from .graphs import CaptureError, capture_cards
 from .module import HostModule
 from .state import state_from_reference, state_to_numpy
 from .timing import TimingWriter
@@ -152,10 +152,9 @@ class System:
             | set(extra_fetch_keys)
         )
         self.device = pipeline.ctx.device
-        # The captured step needs the card and a pipeline on one card (a
-        # spatial pipeline across cards is not); module timing runs eagerly.
-        self.captured = (self.device.type == "cuda" and not module_timing
-                         and getattr(pipeline, "capturable", True))
+        # On a card the step is captured, one graph over every card it runs
+        # on (graphs.capture_cards); module timing runs it eagerly.
+        self.captured = not module_timing and bool(capture_cards(self.device, pipeline.devices))
 
         self._prefetch_queue: queue.Queue = queue.Queue(maxsize=prefetch_depth)
         self._prefetch_error: BaseException | None = None

@@ -182,8 +182,11 @@ Phases (each raises on failure; none is caught):
                 captured, equal to the shared-stream run and the full frame,
                 K2-K4 against their plain versions on its shards' inputs;
                 (d) with two or more cards the spatial System across them
-                (eager), the MultiSeqSystem over them and the width
-                stencils across them, equal to the one-card runs, else a
+                (8 shards, and one a card), captured into one graph a
+                variant over the cards, equal to the eager cross-card
+                System and the full frame; the composed mode across them,
+                captured; the MultiSeqSystem over them and the width
+                stencils across them, equal to the one-card runs; else a
                 line that they did not run (``chip_smoke.py --cross-card``
                 runs (d) alone on such a machine); (e) the
                 width-sharded stencils on 8 shards array_equal to the
@@ -2330,7 +2333,8 @@ def run_system(source, modules, dev, label, want, *, frames=None, hm_type=None, 
     if spans:
         _instrument(system, replays, host_spans, process_ms, hm)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
+    for card in range(torch.cuda.device_count()):
+        torch.cuda.reset_peak_memory_stats(card)
     ref.record()
     build.reset_counts()
     n = system.run(on_frame=lambda fid, out: seen.update({fid: out}))
@@ -2345,6 +2349,8 @@ def run_system(source, modules, dev, label, want, *, frames=None, hm_type=None, 
               for v in getattr(system.pipeline, "captured_steps", {}).values()}
     return dict(system=system, hm=hm, seen=seen, ms=ms, counts={k: v[0] for k, v in counts.items()},
                 peak=torch.cuda.max_memory_allocated(dev) / 2**20, graphs=graphs,
+                peaks=[torch.cuda.max_memory_allocated(card) / 2**20
+                       for card in range(torch.cuda.device_count())],
                 replays=_span_ms(ref, replays), host_spans=_span_ms(ref, host_spans),
                 process_ms=process_ms)
 
@@ -2439,17 +2445,20 @@ def check_path_kernels(label, calls, names=PATH_KERNELS) -> str:
 
 def _watch_gc(system) -> list:
     """Records gc.isenabled() at each call of a captured System's
-    Pipeline.compute_step made while a stream captures: a collection during
-    a capture can destroy an earlier System's graph and invalidate it."""
+    Pipeline.compute_step (each partition's pipeline, for a multi-sequence
+    System) made while a stream captures: a collection during a capture can
+    destroy an earlier System's graph and invalidate it."""
     seen = []
     if system.captured:
-        step = system.pipeline.compute_step
+        pipes = {id(p.pipeline): p.pipeline for p in getattr(system, "partitions", ())}
+        for pipe in pipes.values() or [system.pipeline]:
+            step = pipe.compute_step
 
-        def compute_step(*args, **kw):
-            if torch.cuda.is_current_stream_capturing():
-                seen.append(gc.isenabled())
-            return step(*args, **kw)
-        system.pipeline.compute_step = compute_step
+            def compute_step(*args, step=step, **kw):
+                if torch.cuda.is_current_stream_capturing():
+                    seen.append(gc.isenabled())
+                return step(*args, **kw)
+            pipe.compute_step = compute_step
     return seen
 
 
@@ -3149,18 +3158,20 @@ def composed_phase(frames, intrinsics, dev, tag) -> dict:
              "moment_tally": seqs * shards * COMPOSED_ROUNDS, "relax": seqs * shards * sp,
              "vote_tally": seqs * shards * COMPOSED_ROUNDS}
     label = f"composed {COMPOSED}"
-    comp = {}
+    comp, cards = {}, set()
 
     def run(mode, **kw):
         r = run_multiseq(frames, intrinsics, mods, dev, f"{label} {mode}", cplan,
                          rounds=COMPOSED_ROUNDS, parallel=COMPOSED, **kw)
         system = r.pop("system")
+        parts = system.partitions
         if not isinstance(system, SpatialMultiSeqSystem) or system.pipeline.n != shards \
                 or system.captured != (mode != "eager") \
-                or len(r["graphs"]) != (2 if system.captured else 0):
+                or len(system.captured_steps) != (2 * len(parts) if system.captured else 0):
             raise AssertionError(f"{label} {mode}: {type(system).__name__} with "
                                  f"{system.pipeline.n} shards, captured {system.captured}, "
                                  f"graphs {r['graphs']}")
+        cards.update(str(d) for p in parts for d in p.pipeline.devices)
         comp[mode] = dict(r, state=system.final_state)
         del system, r
         torch.cuda.empty_cache()
@@ -3203,7 +3214,8 @@ def composed_phase(frames, intrinsics, dev, tag) -> dict:
                composed_alt_ms=med[alt], composed_counts=comp["host keys"]["counts"],
                composed_graphs=comp["host keys"]["graphs"], composed_span=span["host keys"],
                composed_alt_span=span[alt])
-    log(f"{label} (e): {seqs} sequences x {shards} row shards of {H // shards} rows on one card, "
+    log(f"{label} (e): {seqs} sequences x {shards} row shards of {H // shards} rows on "
+        f"{', '.join(sorted(cards))}, "
         f"{COMPOSED_ROUNDS} rounds of the flagship: captured ({len(cap['graphs'])} graphs) equal "
         f"to the eager batched step on every output of every round "
         f"({', '.join(sorted(cap['seen'][1]))}) and the final state, and to the full-frame "
@@ -3619,12 +3631,126 @@ def per_shard_phase(frames, intrinsics, dev, tag, plan) -> dict:
     return out
 
 
+def spatial_plan(shards: int, frames: int) -> dict:
+    """The launches of the flagship's spatial step on `shards` row shards
+    over `frames` frames (24 sweeps on frame 1, 8 after, no reset): K5 and
+    K2-K4 once a shard and frame, 2 (shards - 1) settle sweeps a frame."""
+    from cartslam_tpu_torch.kernels.relax import launches
+
+    k3 = launches(24, 1, "frame") + (frames - 1) * launches(8, 1, "frame")
+    return {"sgm": 0, "sgm_sharded": shards * frames, "sgm_settle": 2 * (shards - 1) * frames,
+            "moment_tally": shards * frames, "relax": shards * k3,
+            "vote_tally": shards * frames}
+
+
+def crossing_bytes(pipe, state) -> tuple[int, int]:
+    """The state tree's bytes, and those that cross between cards each
+    frame: the rows of every shard off the pipeline's card go there and
+    back, a replicated leaf goes to each such shard (and comes back from
+    shard 0 only, which sits on the pipeline's card)."""
+    off = sum(d != pipe.home for d in pipe.devices)
+    total, cross = [0], [0]
+
+    def count(t, rd):
+        total[0] += t.nbytes
+        cross[0] += 2 * t.nbytes * off // pipe.n if rd is not None else t.nbytes * off
+    rd = pipe._row_dims
+    for name, mstate in state["modules"].items():
+        for k, v in mstate.items():
+            count(v, rd["modules"][name][k])
+    for k, v in state["history"].items():
+        count(v, rd["history"][k])
+    return total[0], cross[0]
+
+
+def cross_card_spatial(frames, intrinsics, dev, n: int, full: dict, tag) -> str:
+    """configs/kitti-planeseg-spatial.json's modules on `n` row shards
+    placed on the visible cards through build_system, MULTICARD_ROUNDS
+    frames at max_in_flight=SYSTEM_DEPTH: captured (one graph a variant
+    spanning the shards' cards) with every key and with the host keys, and
+    eager (module_timing) with both.  Every fetched key of every frame of
+    every run equal to the eager every-key run and to `full` (the full-frame
+    System, warp 'select'), the final states to the eager one's; each
+    graph's launches those of an eager frame, each run's counts its plan.
+    Returns the line it prints: graphs, capture seconds, peak memory by
+    card, the state's crossing bytes and the ms a frame."""
+    from cartslam_tpu_torch.kernels.relax import launches
+    from cartslam_tpu_torch.runtime.graphs import capture_cards
+    from cartslam_tpu_torch.sources import PreloadedSource
+
+    rounds = MULTICARD_ROUNDS
+    config = spatial_config()
+    parallel = {**config["parallel"], "devices": n}
+    label = f"cross-card spatial, {n} shards"
+    runs = {}
+    for mode, kw in (("captured", dict(extra_fetch_keys=SYSTEM_KEYS)),
+                     ("captured, host keys", {}),
+                     ("eager", dict(extra_fetch_keys=SYSTEM_KEYS, module_timing=True)),
+                     ("eager, host keys", dict(module_timing=True))):
+        r = run_system(PreloadedSource(frames[:rounds], intrinsics=intrinsics),
+                       config["modules"], dev, f"{label} {mode}", spatial_plan(n, rounds),
+                       frames=rounds, parallel=parallel, max_in_flight=SYSTEM_DEPTH, **kw)
+        system = r.pop("system")
+        pipe = system.pipeline
+        cards = capture_cards(pipe.ctx.device, pipe.devices)
+        captured = mode.startswith("captured")
+        if pipe.n != n or len(cards) < 2 or system.captured != captured \
+                or len(r["graphs"]) != (2 if captured else 0):
+            raise AssertionError(f"{label} {mode}: {pipe.n} shards on {cards}, captured "
+                                 f"{system.captured}, graphs {r['graphs']}")
+        if captured:
+            sweeps = {pipe.variant(1): 24, pipe.variant(2): 8}
+            for step in pipe.captured_steps.values():
+                want = {"sgm_sharded": n, "sgm_settle": 2 * (n - 1), "moment_tally": n,
+                        "relax": n * launches(sweeps[step.variant], 1, "frame"),
+                        "vote_tally": n}
+                if step.launches != want or step.cards != cards:
+                    raise AssertionError(f"{label} {mode}: the graph of {step.variant} on "
+                                         f"{step.cards} launches {step.launches}, an eager "
+                                         f"frame {want}")
+            if mode == "captured":
+                r["bytes"] = crossing_bytes(pipe, pipe.static_buffers().state)
+        r.update(state=system.final_state, cards=[str(c) for c in cards])
+        runs[mode] = r
+        del system, pipe
+        torch.cuda.empty_cache()
+    eager = runs["eager"]
+    for fid in range(1, rounds + 1):
+        for mode, r in runs.items():
+            for name, ref in (("the eager cross-card System", eager["seen"][fid]),
+                              ("the full frame", full["seen"][fid])):
+                bad = _fetched_equal(r["seen"][fid], {k: ref[k] for k in r["seen"][fid]})
+                if bad:
+                    raise AssertionError(f"{label} {mode} frame {fid}: differs from {name} "
+                                         f"on {bad}")
+    for mode in ("captured", "captured, host keys", "eager, host keys"):
+        _assert_state_equal(runs[mode]["state"], eager["state"], f"{label} {mode} state")
+    med = {m: float(np.median(r["ms"][1:])) for m, r in runs.items()}
+    cap = runs["captured, host keys"]
+    total, cross = runs["captured"]["bytes"]
+    peaks = ", ".join(f"{c} {cap['peaks'][int(c.split(':')[1])]:.1f}" for c in cap["cards"])
+    msg = (f"multicard (d) {label} on cards {cap['cards']}: captured (one graph a variant "
+           f"over the cards, {len(cap['graphs'])} graphs) and eager (module_timing), "
+           f"{rounds} frames, every fetched output of every frame equal to the eager "
+           f"cross-card System and to the full frame ('select'), the final states to the "
+           f"eager one; each graph's launches an eager frame's, launches {cap['counts']}; "
+           f"capture s {cap['graphs']} (every key {runs['captured']['graphs']}); peak MiB by "
+           f"card {peaks}; state {total / 2**20:.2f} MiB, {cross / 2**20:.2f} MiB across cards "
+           f"a frame; ms a frame (CUDA events between frame ends, frames 3..{rounds}): host keys "
+           f"captured {med['captured, host keys']:.3f}, eager {med['eager, host keys']:.3f}; "
+           f"every key captured {med['captured']:.3f}, eager {med['eager']:.3f}  [{tag}]")
+    log(msg)
+    return msg
+
+
 def cross_card_phase(frames_by_seq, intrinsics, ref, dev, tag, plan) -> str:
     """(d): with two or more cards, the spatial System with its shards on
-    the visible cards (eager) equal to the full frame, the MultiSeqSystem
-    over every card equal to the one-card run `ref`, and the width stencils
-    across the cards; on one card, a line that says the cross-card copies
-    did not run."""
+    the visible cards, captured and eager, at 8 shards and at one a card
+    (cross_card_spatial), both equal to the full frame; the composed mode
+    across the cards (composed_phase: captured against eager and the
+    full-frame MultiSeqSystem); the MultiSeqSystem over every card equal to
+    the one-card run `ref`; and the width stencils across the cards.  On
+    one card, a line that says the cross-card copies did not run."""
     from cartslam_tpu_torch.sources import PreloadedSource
 
     cards = torch.cuda.device_count()
@@ -3635,23 +3761,15 @@ def cross_card_phase(frames_by_seq, intrinsics, ref, dev, tag, plan) -> str:
         return msg
     n = MULTICARD_ROUNDS
     config = spatial_config()
-    source = PreloadedSource(frames_by_seq[0][:n], intrinsics=intrinsics)
-    r = run_system(source, config["modules"], dev, "cross-card spatial", plan["spatial"],
-                   frames=n, parallel=config["parallel"], extra_fetch_keys=SYSTEM_KEYS,
-                   max_in_flight=SYSTEM_DEPTH)
-    system = r.pop("system")
-    shard_cards = sorted({str(d) for d in system.pipeline.group.devices})
-    if system.captured or len(shard_cards) < 2:
-        raise AssertionError(f"cross-card spatial: captured {system.captured}, cards "
-                             f"{shard_cards}")
     full = run_system(PreloadedSource(frames_by_seq[0][:n], intrinsics=intrinsics),
                       select_warp(config["modules"]), dev, "cross-card full frame",
                       plan["full_frame_select"], frames=n, extra_fetch_keys=SYSTEM_KEYS,
                       max_in_flight=SYSTEM_DEPTH)
-    for fid in range(1, n + 1):
-        bad = _fetched_equal(r["seen"][fid], full["seen"][fid])
-        if bad:
-            raise AssertionError(f"cross-card spatial frame {fid}: differs on {bad}")
+    del full["system"]
+    lines = [cross_card_spatial(frames_by_seq[0], intrinsics, dev, shards, full, tag)
+             for shards in (SHARDS, cards)]
+    del full
+    composed = composed_phase(frames_by_seq[:COMPOSED["sequences"]], intrinsics, dev, tag)
     ms = {}
     for mode, keys in (("every key", SYSTEM_KEYS), ("host keys", ())):
         run = run_multiseq(frames_by_seq, intrinsics, flagship_modules(), dev,
@@ -3663,14 +3781,15 @@ def cross_card_phase(frames_by_seq, intrinsics, ref, dev, tag, plan) -> str:
         _digests_equal(f"cross-card multiseq vs one card, {mode}", run["seen"], ref["seen"])
         ms[mode] = float(np.median(run["ms"][1:]))
     width_stencils_phase(dev, [torch.device("cuda", i) for i in range(cards)])
-    msg = (f"multicard (d): the spatial System with its shards on cards {shard_cards} (eager) "
-           f"equal to the full frame over {n} frames; the MultiSeqSystem (B={MULTICARD_B}) over "
-           f"{parts} cards equal to the one-card run; ms a frame spatial, every key "
-           f"{float(np.median(r['ms'][1:])):.3f}; ms a round multiseq, rounds 3..{n}: host keys "
-           f"{ms['host keys']:.3f} ({ref['host_ms']:.3f} on one card), every key "
-           f"{ms['every key']:.3f} ({ref['ms']:.3f})  [{tag}]")
+    msg = (f"multicard (d): the spatial System across the cards captured at {SHARDS} shards and "
+           f"at {cards} (one a card), equal to the eager cross-card System and the full frame; "
+           f"the composed mode across the cards captured ({composed['composed_ms']:.3f} ms a "
+           f"round, host keys; eager {composed['composed_eager_ms']:.3f}); the MultiSeqSystem "
+           f"(B={MULTICARD_B}) over {parts} cards equal to the one-card run; ms a round "
+           f"multiseq, rounds 3..{n}: host keys {ms['host keys']:.3f} ({ref['host_ms']:.3f} on "
+           f"one card), every key {ms['every key']:.3f} ({ref['ms']:.3f})  [{tag}]")
     log(msg)
-    return msg
+    return "\n".join(lines + [msg])
 
 
 def cross_card_main() -> int:

@@ -18,9 +18,14 @@ and of tests/test_parallel.py's single-host no-op).
   * an unreachable coordinator raises within its timeout.
 
 Each child process runs its torch ops on one intra-op thread
-(tests/test_torch_spatial.py says why), on a free port, and is killed if it
-outlives the test's timeout (longer than gloo's).
+(tests/test_torch_spatial.py says why), and is killed if it outlives the
+test's timeout (longer than gloo's).  The coordinator's port is reserved
+(``_reserved_port``) until the children have ended: a port that was only
+found free could be taken by any other process (the other test workers
+spawn their own coordinators) before process 0's store binds it.
 """
+
+import contextlib
 
 import json
 import os
@@ -37,6 +42,7 @@ from cartslam_tpu_torch.parallel.distributed import (
     global_data_layout, global_device_count, initialize_multihost)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HOST = "127.0.0.1"  # an address, so that every process takes the same family
 B, ROUNDS, FAIL_ROUND = 4, 4, 2
 GLOO_TIMEOUT_S = 60
 CHILD_TIMEOUT_S = 150
@@ -57,7 +63,7 @@ import torch
 torch.set_num_threads(1)
 sys.path.insert(0, {repo!r})
 args = json.loads(sys.argv[1])
-multihost = {{"coordinator": f"localhost:{{args['port']}}", "num_processes": args["procs"],
+multihost = {{"coordinator": f"{host}:{{args['port']}}", "num_processes": args["procs"],
              "process_id": args["pid"], "timeout": args.get("timeout", {gloo})}}
 if args["mode"] == "unreachable":
     from cartslam_tpu_torch.parallel.distributed import initialize_multihost
@@ -104,16 +110,23 @@ print("RUN_OK", args["pid"], flush=True)
 """
 
 
-def _free_port() -> int:
+@contextlib.contextmanager
+def _reserved_port():
+    """A free port of HOST, held bound while the block runs.  The socket
+    has SO_REUSEADDR and never listens, so the coordinator's store (which
+    sets SO_REUSEADDR too) can bind and listen on the port, while no other
+    process can bind it and a connection to it is refused until the store
+    listens."""
     with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        s.bind((HOST, 0))
+        yield s.getsockname()[1]
 
 
 def _spawn(args_list: list[dict]) -> list[str]:
     """The child processes, one per args dict, run to their end (killed
     after CHILD_TIMEOUT_S); returns their outputs, each asserted rc 0."""
-    code = CHILD.format(repo=REPO, gloo=GLOO_TIMEOUT_S, keys=KEYS, fail=FAIL_ROUND)
+    code = CHILD.format(repo=REPO, host=HOST, gloo=GLOO_TIMEOUT_S, keys=KEYS, fail=FAIL_ROUND)
     env = dict(os.environ, OMP_NUM_THREADS="1")
     procs = [subprocess.Popen([sys.executable, "-c", code, json.dumps(a)], env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -140,11 +153,13 @@ def _config(tmp_path) -> str:
 
 
 def _two_processes(tmp_path, fail_pid=None) -> list[dict]:
-    cfg, port = _config(tmp_path), _free_port()
-    args = [dict(mode="run", port=port, procs=2, pid=pid, config=cfg, fail_pid=fail_pid,
-                 parallel={"mode": "multiseq", "batch": B}, out=str(tmp_path / f"p{pid}.pkl"))
-            for pid in range(2)]
-    _spawn(args)
+    cfg = _config(tmp_path)
+    with _reserved_port() as port:
+        args = [dict(mode="run", port=port, procs=2, pid=pid, config=cfg, fail_pid=fail_pid,
+                     parallel={"mode": "multiseq", "batch": B},
+                     out=str(tmp_path / f"p{pid}.pkl"))
+                for pid in range(2)]
+        _spawn(args)
     out = []
     for a in args:
         with open(a["out"], "rb") as f:
@@ -214,8 +229,8 @@ def test_initialize_multihost_noop_on_single_host():
 
 
 def test_two_process_gloo_reduction():
-    port = _free_port()
-    outs = _spawn([dict(mode="reduce", port=port, procs=2, pid=pid) for pid in range(2)])
+    with _reserved_port() as port:
+        outs = _spawn([dict(mode="reduce", port=port, procs=2, pid=pid) for pid in range(2)])
     for pid, out in enumerate(outs):
         assert f"REDUCE_OK {pid}" in out, out
 
@@ -248,5 +263,6 @@ def test_unreachable_coordinator_raises():
     """Process 1 of 2 with nothing listening on the coordinator's port: the
     start-up raises after its 2 s timeout (the child's own limit is far
     longer), and never runs as one process."""
-    out = _spawn([dict(mode="unreachable", port=_free_port(), procs=2, pid=1, timeout=2)])[0]
+    with _reserved_port() as port:
+        out = _spawn([dict(mode="unreachable", port=port, procs=2, pid=1, timeout=2)])[0]
     assert "RAISED" in out, out
