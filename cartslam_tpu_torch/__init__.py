@@ -21,3 +21,13 @@ Layout (file names follow the JAX package, so counterparts are easy to find):
     config/    JSON config reader with the JAX package's schema and defaults
     viz/       host visualization modules and image sinks
 """
+
+# The package constants of the JAX package, with the same values as the ops
+# that use them (ops/disparity.py, ops/derivative.py, ops/planeseg.py).
+DISPARITY_INVALID = -32768
+DERIVATIVE_INVALID = -32768
+
+# Plane classes.
+PLANE_HORIZONTAL = 0
+PLANE_VERTICAL = 1
+PLANE_UNKNOWN = 2

@@ -13,7 +13,11 @@ Host step: every frame's histogram adds to a running total; at frame ids
 it, and the total resets at frame ids == 1 (mod update_interval *
 reset_interval).  The new ranges apply from the first frame dispatched
 after the host step ran: with the System's default 4 frames in flight,
-frame t's update applies from frame t + 4 (runtime/system.py).
+frame t's update applies from frame t + 4 (runtime/system.py).  Under a
+System the host step publishes into its global data, as the JAX module
+does: the running total every frame (``disp_derivative_histogram_live``),
+and the provider's parameters and the interval snapshot at each update;
+the plane segmentation visualization draws its histogram window from them.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ KEY_OPTFLOW = "optflow"
 KEY_PLANES = "planes"
 KEY_PLANES_UNSMOOTHED = "planes_unsmoothed"
 KEY_FRAME_HIST = "planeseg_frame_histogram"
+KEY_PLANE_PARAMETERS = "plane_parameters"
+KEY_GLOBAL_HIST = "disp_derivative_histogram"
 
 
 class DisparityPlaneSegmentationModule(Module):
@@ -113,13 +119,20 @@ class DisparityPlaneSegmentationModule(Module):
 
     def host_update(self, ctx, frame_id, fetched, system=None):
         self._running += fetched[KEY_FRAME_HIST].astype(np.int64)
+        if system is not None:
+            # A copy: the running total keeps growing and resets in place.
+            system.insert_global_data(KEY_GLOBAL_HIST + "_live", self._running.copy())
         if frame_id % self.update_interval != 1:
             return None
         snapshot = self._running.copy()
         if frame_id % (self.update_interval * self.reset_interval) == 1:
             self._running[:] = 0
         self.provider.update(snapshot)
-        return {"ranges": self.provider.get().ranges_array()}
+        params = self.provider.get()
+        if system is not None:
+            system.insert_global_data(KEY_PLANE_PARAMETERS, params)
+            system.insert_global_data(KEY_GLOBAL_HIST, snapshot)
+        return {"ranges": params.ranges_array()}
 
     def compute(self, ctx, step, deps, state, params, variant):
         deriv, hist = dops.planeseg_derivative(deps[KEY_DISPARITY])

@@ -11,7 +11,10 @@ frames' planes from the flow history (``"faithful"``,
 the running histogram of channel 0 of the derivative histogram: the first
 contribution is skipped, the total resets at frame ids == 1 (mod
 update_interval * reset_interval), and the provider refreshes the class
-ranges at frame ids == 1 (mod update_interval).
+ranges at frame ids == 1 (mod update_interval).  Under a System the host
+step publishes into its global data, as the JAX module does: the running
+histogram every frame (``disp_derivative_histogram_live``), and the
+provider's parameters and the snapshot it was given at each update.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ KEY_DERIVATIVE_HISTOGRAM = "disparity_derivative_histogram"
 KEY_OPTFLOW = "optflow"
 KEY_PLANES = "planes"
 KEY_PLANES_UNSMOOTHED = "planes_unsmoothed"
+KEY_PLANE_PARAMETERS = "plane_parameters"
+KEY_GLOBAL_HIST = "disp_derivative_histogram"
 
 
 class SuperPixelDisparityPlaneSegmentationModule(Module):
@@ -125,12 +130,19 @@ class SuperPixelDisparityPlaneSegmentationModule(Module):
         else:
             self._running += hist
             snapshot = self._running.copy()
+        if system is not None:
+            # `snapshot` is a new array every frame, never the running total.
+            system.insert_global_data(KEY_GLOBAL_HIST + "_live", snapshot)
         if frame_id % (self.update_interval * self.reset_interval) == 1:
             self._running[:] = 0
         if frame_id % self.update_interval != 1:
             return None
         self.provider.update(snapshot)
-        return {"ranges": self.provider.get().ranges_array()}
+        params = self.provider.get()
+        if system is not None:
+            system.insert_global_data(KEY_PLANE_PARAMETERS, params)
+            system.insert_global_data(KEY_GLOBAL_HIST, snapshot)
+        return {"ranges": params.ranges_array()}
 
     def compute(self, ctx, step, deps, state, params, variant):
         pixel_planes = pops.classify(deps[KEY_DERIVATIVE][..., 0], params["ranges"])

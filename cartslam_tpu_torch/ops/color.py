@@ -35,3 +35,8 @@ def bgr_to_ycrcb(img: torch.Tensor) -> torch.Tensor:
     cr = (r - y) * _CR_W + _DELTA
     cb = (b - y) * _CB_W + _DELTA
     return _to_u8(torch.stack([y, cr, cb], dim=-1))
+
+
+def gray_to_bgr(img: torch.Tensor) -> torch.Tensor:
+    """Gray uint8 [H,W] -> BGR uint8 [H,W,3]."""
+    return img[..., None].expand(*img.shape, 3).contiguous()

@@ -146,3 +146,18 @@ def relax(labels: torch.Tensor, feature_data: Sequence[torch.Tensor],
         if k + 1 < steps:
             stats = tally(labels)
     return labels
+
+
+def boundary_mask(labels: torch.Tensor) -> torch.Tensor:
+    """The 8-neighbourhood label-boundary mask (the reference's
+    computeBoundaries): bool [H, W], true where a neighbour inside the frame
+    has another label; neighbours beyond the frame are ignored."""
+    h, w = labels.shape
+    padded = torch.nn.functional.pad(labels, (1, 1, 1, 1), value=krelax.OOB)
+    out = torch.zeros((h, w), dtype=torch.bool, device=labels.device)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if dy or dx:
+                nb = padded[1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w]
+                out |= (nb != krelax.OOB) & (nb != labels)
+    return out

@@ -65,6 +65,10 @@ class PipelineContext:
         object.__setattr__(self, "q_tensor", torch.as_tensor(
             np.asarray(self.q, np.float32)).to(self.device))
 
+    @property
+    def image_size(self) -> tuple[int, int]:
+        return (self.height, self.width)
+
 
 class StepContext:
     """Per-step access to frame inputs and history ring buffers."""
@@ -83,6 +87,16 @@ class StepContext:
         """Value of `key` from `offset` frames ago (offset <= -1)."""
         assert offset < 0
         return self._history[key][-offset - 1]
+
+    def history_stack(self, key: str) -> torch.Tensor:
+        """The [K, ...] ring of `key`: index k holds the value of frame t-1-k."""
+        return self._history[key]
+
+    def history_len(self, key: str) -> torch.Tensor:
+        """The count of valid entries of `key`'s ring at this frame,
+        min(frame_id - 1, K), an int32 scalar on the device (never read
+        back, so a captured step can use it)."""
+        return (self.frame_id - 1).clamp(max=self._history[key].shape[0])
 
 
 class SpatialContext:

@@ -193,6 +193,25 @@ Phases (each raises on failure; none is caught):
                 unsharded ops; (f) the SpatialFlagship preset's captured
                 steps over 4 frames equal to the config-built
                 SpatialPipeline.  Their launches join the kernels line.
+  4g. global data and sharded flow - (a) the flagship's modules (provider
+                updates every 5 frames) plus disparity_planeseg_visualization
+                with its histogram through build_system at 376x1248,
+                captured, host keys, 10 frames: the System's global data
+                holds the live histogram (the running total of the fetched
+                histograms on every frame), the interval snapshot and the
+                PlaneParameters from frame 1 on, the last two published anew
+                on the provider updates (frames 1 and 6), the histogram
+                window rendered on every frame;
+                (b) configs/kitti-planeseg-spatial.json's modules with
+                "flow_mode": "sharded" (8 shards, the shards on the caller's
+                stream, apron 46 = min(46, h_local)) through build_system,
+                10 frames: captured equal to the eager System on every
+                fetched output of every frame and the final state; K2-K4
+                and K5 (its 14 settle sweeps and 8 output passes) against
+                their plain versions on each shard's first calls; the same
+                config at 192x320 (apron 24), card against the port's CPU
+                run; its ms a frame beside the 'global' flow's.  Their
+                launches join the kernels line.
   5. parity   - the small temporal slice (64x128, 6 frames) on the card and on
                 the CPU, every output and the final state equal, and the same
                 with the reference-faithful modes; the full-size flow of one
@@ -212,7 +231,9 @@ Phases (each raises on failure; none is caught):
                 then configs/sources/synthetic.json with
                 configs/modules/kitti-planeseg.json for 30 frames, --timing
                 and --save-samples: a timing CSV with the JAX columns and a
-                PNG of both plane-segmentation visualizations at frame 30.
+                PNG of both plane-segmentation visualizations at frame 30;
+                configs/modules/kitti-naive-segmentation.json for 30 frames
+                with --save-samples: the histogram window's PNG at frame 30.
   8. times    - per-frame ms and each kernel's numbers.
 The last two lines of standard output are the kernels JSON line and the
 result line ``{"ok": true, "device": {...}}``.
@@ -3903,12 +3924,317 @@ def multicard_phase(first_frames, intrinsics, dev, tag, plan) -> dict:
     return out
 
 
+# ------------------------------------------- global data and sharded flow
+# Phase 4g: the plane segmentation's global data through the System with its
+# histogram window, and the spatial System with the 'sharded' flow.
+# 10 frames, the provider updating every 5 (frames 1 and 6) instead of 30,
+# so that two updates land in the run.
+HISTOGRAM_FRAMES = 10
+HISTOGRAM_UPDATE_INTERVAL = 5
+GLOBAL_KEYS = ("disp_derivative_histogram_live", "plane_parameters", "disp_derivative_histogram")
+HISTOGRAM_WINDOW = "Plane Segmentation Histogram"
+SHARDED_FLOW_FRAMES = 10
+SHARDED_SMALL = (192, 320)  # 24-row shards: the superpixels' 24-sweep halo fits
+SHARDED_SMALL_FRAMES = 4
+
+
+class _WindowSink:
+    """An image sink that keeps, for each frame, the windows rendered and
+    copies of the System's global data as the renderer read it."""
+
+    def __init__(self):
+        self.system = None
+        self.windows, self.globals = {}, {}
+
+    def set_image_if_later(self, window, image, frame_id):
+        self.windows.setdefault(frame_id, {})[window] = image
+        self.globals[frame_id] = {k: v if k == "plane_parameters" else np.array(v)
+                                  for k, v in self.system.global_data.items()}
+
+
+def check_histogram_globals(label, sink, seen, n, interval) -> list:
+    """`sink`'s record of n frames of a System whose superpixel plane
+    segmentation (update_interval `interval`, no reset within the run) fed a
+    histogram visualization, against `seen`, its fetched outputs: the
+    global data holds the three keys from frame 1 on; the live histogram of
+    frame f is the sum of the fetched vertical histograms of frames 2..f
+    (frame 1's on frame 1: the first contribution is dropped) and the
+    interval snapshot the live one of the last update; the parameters are
+    published anew exactly on the updates; the histogram window renders on
+    every frame, not blank on the updates.  Returns the update frames."""
+    hist = {fid: out["disparity_derivative_histogram"][:, 0].astype(np.int64)
+            for fid, out in seen.items()}
+    updates = [fid for fid in range(1, n + 1) if fid % interval == 1]
+    for fid in range(1, n + 1):
+        g = sink.globals.get(fid, {})
+        if sorted(g) != sorted(GLOBAL_KEYS) or HISTOGRAM_WINDOW not in sink.windows[fid]:
+            raise AssertionError(f"{label} frame {fid}: global data {sorted(g)}, windows "
+                                 f"{sorted(sink.windows.get(fid, {}))}")
+        running = hist[1] if fid == 1 else sum(hist[k] for k in range(2, fid + 1))
+        if not np.array_equal(g["disp_derivative_histogram_live"], running):
+            raise AssertionError(f"{label} frame {fid}: the live histogram is not the running "
+                                 "total of the fetched histograms")
+        snap = max(u for u in updates if u <= fid)
+        if not np.array_equal(g["disp_derivative_histogram"],
+                              sink.globals[snap]["disp_derivative_histogram_live"]):
+            raise AssertionError(f"{label} frame {fid}: the interval snapshot is not frame "
+                                 f"{snap}'s running total")
+        new_params = fid == 1 or g["plane_parameters"] is not sink.globals[fid - 1][
+            "plane_parameters"]
+        if new_params != (fid in updates):
+            raise AssertionError(f"{label} frame {fid}: parameters published "
+                                 f"{new_params}, provider updates on {updates}")
+        if fid in updates and not sink.windows[fid][HISTOGRAM_WINDOW].any():
+            raise AssertionError(f"{label} frame {fid}: a blank histogram window")
+    return updates
+
+
+def histogram_window_phase(frames, intrinsics, dev, tag) -> dict:
+    """(a): the flagship's modules (the plane segmentation updating every
+    HISTOGRAM_UPDATE_INTERVAL frames) plus disparity_planeseg_visualization
+    with its histogram through build_system at 376x1248, captured, host keys,
+    4 in flight, HISTOGRAM_FRAMES frames: the global data holds the three
+    keys from frame 1 on; the live histogram of frame f is the sum of the
+    fetched vertical histograms of frames 2..f (the first contribution is
+    dropped; no reset within the run) and the interval snapshot is the live
+    one of the last update; the parameters are published anew at each
+    provider update (frames 1 and 6); the histogram window renders on every
+    frame, a non-blank one at each update."""
+    from cartslam_tpu_torch.config import build_system
+    from cartslam_tpu_torch.kernels.relax import launches
+    from cartslam_tpu_torch.sources import PreloadedSource
+
+    n, label = HISTOGRAM_FRAMES, "histogram window"
+    mods = [{**m, "update_interval": HISTOGRAM_UPDATE_INTERVAL}
+            if m["type"] == "superpixel_disparity_planeseg" else m for m in flagship_modules()]
+    mods.append({"type": "disparity_planeseg_visualization", "show_histogram": True})
+    want = {"sgm": n, "moment_tally": n, "relax": launches(24) + (n - 1) * launches(8),
+            "vote_tally": n}
+    source = PreloadedSource(frames[:n], intrinsics=intrinsics)
+    sink = _WindowSink()
+    system = build_system(source, mods, device=dev, image_sink=sink, max_in_flight=SYSTEM_DEPTH)
+    sink.system = system
+    r = run_system(source, None, dev, label, want, frames=n, system=system)
+    if not system.captured or r["graphs"] == {}:
+        raise AssertionError(f"{label}: not captured ({r['graphs']})")
+    del system
+    updates = check_histogram_globals(label, sink, r["seen"], n, HISTOGRAM_UPDATE_INTERVAL)
+    p = sink.globals[n]["plane_parameters"]
+    log(f"{label}: the flagship's modules (update_interval {HISTOGRAM_UPDATE_INTERVAL}) + "
+        f"disparity_planeseg_visualization (show_histogram) at {H}x{W}, D={D}, captured, host "
+        f"keys, {n} frames at max_in_flight={SYSTEM_DEPTH}: "
+        f"global data {list(GLOBAL_KEYS)} from frame 1 on, the live histogram the running "
+        f"total of the fetched ones on every frame, the snapshot and parameters published on "
+        f"the provider updates {updates} (last ranges h {p.horizontal_range}, v "
+        f"{p.vertical_range}); '{HISTOGRAM_WINDOW}' rendered on all {n} frames; launches "
+        f"{r['counts']}, no plain call")
+    return {"counts": r["counts"], "ms": float(np.median(r["ms"][1:]))}
+
+
+@contextlib.contextmanager
+def k5_first_calls():
+    """The first call outside a capture, on each thread (a shard) and for
+    each sweep direction, of K5's settle sweep (kernels/sgm.sgm_vcarry), and
+    the first of its output pass (sgm_fused_sharded) on each thread: clones
+    of the inputs and of the result, the output pass's with the carries its
+    chain settled.  Yields {"sgm_vcarry": [...], "sgm_fused_sharded": [...]}."""
+    from cartslam_tpu_torch.kernels import sgm as ksgm
+
+    calls = {"sgm_vcarry": [], "sgm_fused_sharded": []}
+    seen, lock = set(), threading.Lock()
+    vcarry, fused = ksgm.sgm_vcarry, ksgm.sgm_fused_sharded
+    clone = lambda x: x.clone() if isinstance(x, torch.Tensor) else x
+
+    def first(key) -> bool:
+        if torch.cuda.is_current_stream_capturing():
+            return False
+        with lock:
+            new = key not in seen
+            seen.add(key)
+        return new
+
+    def rec_vcarry(*args, **kw):
+        out = vcarry(*args, **kw)
+        key = ("vcarry", threading.current_thread().name, kw.get("top_down", True),
+               kw.get("bottom_up", True))
+        if first(key):
+            calls["sgm_vcarry"].append(([clone(a) for a in args], dict(kw),
+                                        tuple(map(clone, out))))
+        return out
+
+    def rec_fused(cl0, cl1, cr0, cr1, carries, **kw):
+        if not first(("fused", threading.current_thread().name)):
+            return fused(cl0, cl1, cr0, cr1, carries, **kw)
+        settled = []
+
+        def chain(on_settled=None):
+            def on(tb, bt):
+                settled.append((clone(tb), clone(bt)))
+                if on_settled is not None:
+                    on_settled(tb, bt)
+            return carries(on)
+        census = [x.clone() for x in (cl0, cl1, cr0, cr1)]
+        out = fused(cl0, cl1, cr0, cr1, chain, **kw)
+        calls["sgm_fused_sharded"].append((census, settled[0], out.clone(),
+                                           {k: v for k, v in kw.items() if k != "side"}))
+        return out
+
+    ksgm.sgm_vcarry, ksgm.sgm_fused_sharded = rec_vcarry, rec_fused
+    try:
+        yield calls
+    finally:
+        ksgm.sgm_vcarry, ksgm.sgm_fused_sharded = vcarry, fused
+
+
+def check_k5_calls(label, calls) -> str:
+    """K5's settle sweeps and output passes that k5_first_calls recorded
+    against their plain versions on the same inputs, array_equal."""
+    from cartslam_tpu_torch.kernels import sgm as ksgm
+
+    settle, passes = calls["sgm_vcarry"], calls["sgm_fused_sharded"]
+    if len(settle) != SETTLE_LAUNCHES or len(passes) != SHARDS:
+        raise AssertionError(f"{label}: recorded {len(settle)} settle sweeps and {len(passes)} "
+                             f"output passes, expected {SETTLE_LAUNCHES} and {SHARDS}")
+    for args, kw, got in settle:
+        want = ksgm.sgm_vcarry_plain(*args, **kw)
+        if any((g is None) != (w is None) or (g is not None and not torch.equal(g, w))
+               for g, w in zip(got, want)):
+            raise AssertionError(f"{label}: a K5 settle sweep differs from its plain version")
+    for census, (tb, bt), got, kw in passes:
+        if not torch.equal(got, ksgm.sgm_fused_sharded_plain(*census, tb, bt, **kw)):
+            raise AssertionError(f"{label}: a K5 output pass differs from its plain version "
+                                 f"on its shard's census words and settled carries")
+    rows = sorted({c[0].shape[0] for c, *_ in passes})
+    return (f"K5's {len(settle)} settle sweeps and {len(passes)} output passes (shards of "
+            f"{rows} rows, settled carries) array_equal to their plain versions")
+
+
+def _flow_module(system):
+    return next(m for m in system.pipeline.modules if m.name == "ImageOpticalFlow")
+
+
+def sharded_flow_small_check(dev) -> str:
+    """The same config, 'sharded' flow, at SHARDED_SMALL (8 shards of 24
+    rows, the apron clamped to 24) through build_system for
+    SHARDED_SMALL_FRAMES frames, card (captured) against the port's CPU run:
+    every fetched output of every frame and the final state equal (depth
+    within ~3 ulp)."""
+    from cartslam_tpu_torch.config import build_system
+    from cartslam_tpu_torch.sources import SyntheticDataSource
+
+    config = spatial_config()
+    parallel = {**config["parallel"], "flow_mode": "sharded"}
+    (h, w), n = SHARDED_SMALL, SHARDED_SMALL_FRAMES
+    runs = {}
+    for device in ("cpu", dev):
+        src = SyntheticDataSource(image_size=(h, w), num_frames=n, seed=0, max_disparity=80.0,
+                                  baseline=20.0)
+        system = build_system(src, config["modules"], device=device, parallel=parallel,
+                              extra_fetch_keys=SYSTEM_KEYS, max_in_flight=SYSTEM_DEPTH)
+        flow = _flow_module(system)
+        if (flow.spatial_mode, flow.spatial_halo) != ("sharded", min(46, h // SHARDS)) or \
+                system.captured != (device != "cpu"):
+            raise AssertionError(f"sharded flow {h}x{w} on {device}: flow "
+                                 f"{flow.spatial_mode} apron {flow.spatial_halo}, captured "
+                                 f"{system.captured}")
+        seen = {}
+        if system.run(on_frame=lambda fid, o: seen.update({fid: dict(o)})) != n \
+                or system.failed_frames:
+            raise AssertionError(f"sharded flow {h}x{w} on {device}: failed "
+                                 f"{system.failed_frames}")
+        runs[str(device)] = (seen, system.final_state)
+        del system
+    (cpu_seen, cpu_state), (dev_seen, dev_state) = runs["cpu"], runs[str(dev)]
+    for fid in range(1, n + 1):
+        _assert_equal_trees(dev_seen[fid], cpu_seen[fid], f"sharded flow {h}x{w} frame {fid}")
+    _assert_equal_trees(dev_state, cpu_state, f"sharded flow {h}x{w} final state")
+    if not (dev_seen[n]["optflow"] != 0).any():
+        raise AssertionError(f"sharded flow {h}x{w}: zero flow")
+    return (f"at {h}x{w} ({SHARDS} shards of {h // SHARDS} rows, apron {min(46, h // SHARDS)}), "
+            f"{n} frames, the captured card run equal to the port's CPU run on every fetched "
+            f"output and the final state (depth within ~3 ulp)")
+
+
+def sharded_flow_phase(frames, intrinsics, dev, tag) -> dict:
+    """(b): configs/kitti-planeseg-spatial.json's modules with
+    {"mode": "spatial", "devices": 8, "flow_mode": "sharded"} on this one
+    card (shards sharing the caller's stream, the default; the apron the
+    registry's default min(46, h_local) = 46 at 47-row shards) through
+    build_system, SHARDED_FLOW_FRAMES frames, 4 in flight: captured with
+    every key fetched, array_equal to the eager System (module_timing) on
+    every output of every frame and on the final state; K2-K5 against their
+    plain versions on each shard's first calls; the small geometry against
+    the CPU; the ms a frame with the host keys beside the 'global' flow's,
+    one call.  The sharded flow's outputs are not the full frame's by
+    design, so no full-frame reference is run."""
+    from cartslam_tpu_torch.sources import PreloadedSource
+
+    config, n = spatial_config(), SHARDED_FLOW_FRAMES
+    mods, parallel = config["modules"], {**config["parallel"], "flow_mode": "sharded"}
+    want, label = spatial_plan(SHARDS, n), "spatial System, 'sharded' flow"
+    runs = {}
+
+    def run(mode, par, **kw):
+        r = run_system(PreloadedSource(frames[:n], intrinsics=intrinsics), mods, dev,
+                       f"{label} {mode}", want, frames=n, parallel=par,
+                       max_in_flight=SYSTEM_DEPTH, **kw)
+        system = r.pop("system")
+        flow = _flow_module(system)
+        if system.pipeline.n != SHARDS or system.captured != (mode != "eager") or \
+                (flow.spatial_mode, flow.spatial_halo) != (par.get("flow_mode", "global"), 46):
+            raise AssertionError(f"{label} {mode}: {system.pipeline.n} shards, captured "
+                                 f"{system.captured}, flow {flow.spatial_mode} apron "
+                                 f"{flow.spatial_halo}")
+        runs[mode] = dict(r, state=system.final_state)
+        del system
+        torch.cuda.empty_cache()
+
+    with first_calls(by_shard=True) as calls, k5_first_calls() as k5calls:
+        run("captured", parallel, extra_fetch_keys=SYSTEM_KEYS)
+    note = f"{check_path_kernels(label, calls)}; {check_k5_calls(label, k5calls)}"
+    del calls, k5calls
+    run("eager", parallel, extra_fetch_keys=SYSTEM_KEYS, module_timing=True)
+    run("host keys", parallel)
+    run("global flow, host keys", config["parallel"])
+    cap, eager, host = runs["captured"], runs["eager"], runs["host keys"]
+    for fid in range(1, n + 1):
+        bad = _fetched_equal(cap["seen"][fid], eager["seen"][fid])
+        bad += _fetched_equal(host["seen"][fid],
+                              {k: eager["seen"][fid][k] for k in host["seen"][fid]})
+        if bad:
+            raise AssertionError(f"{label} frame {fid}: captured != eager on {bad}")
+    for r in (cap, host):
+        _assert_state_equal(r["state"], eager["state"], f"{label} final state")
+    small = sharded_flow_small_check(dev)
+    med = {m: float(np.median(r["ms"][1:])) for m, r in runs.items()}
+    log(f"{label}: {parallel} of {H // SHARDS} rows on one card, the shards on the caller's "
+        f"stream, apron 46 rows (min(46, h_local)), {n} frames at max_in_flight={SYSTEM_DEPTH}: "
+        f"captured ({len(cap['graphs'])} graphs) equal to the eager System (module_timing) on "
+        f"every fetched output ({', '.join(sorted(cap['seen'][1]))}) of every frame and the "
+        f"final state, the host-keys run too; launches {host['counts']}, no plain call")
+    log(f"{label}: {note}")
+    log(f"{label}: {small}")
+    log(f"{label} per-frame ms (CUDA events between frame ends, frames 3..{n}): captured host "
+        f"keys {med['host keys']:.3f}, 'global' flow captured host keys "
+        f"{med['global flow, host keys']:.3f} (same call); every key "
+        f"{med['captured']:.3f}, eager module_timing {med['eager']:.3f}; capture s "
+        f"{host['graphs']}  [{tag}]")
+    out = {"counts": host["counts"], "ms": med}
+    del runs, cap, eager, host
+    torch.cuda.empty_cache()
+    return out
+
+
 def cli_phase() -> None:
     """The CLI: configs/synthetic-planeseg.json, then the flagship's module
     config (its two plane-segmentation visualizations) for 30 frames with
     --timing and --save-samples in a temporary directory: a timing CSV with
     the JAX columns and a PNG sample of both visualization modules at frame
-    30 (the sink writes the frames with frame_id % 30 == 0)."""
+    30 (the sink writes the frames with frame_id % 30 == 0); then
+    configs/modules/kitti-naive-segmentation.json (the pixel plane
+    segmentation, its visualization with the histogram) for 30 frames with
+    --save-samples: the histogram window's PNG at frame 30 beside the plane
+    segmentation's."""
     import tempfile
 
     from cartslam_tpu_torch.__main__ import main as cli_main
@@ -3930,6 +4256,14 @@ def cli_phase() -> None:
             with open(os.path.join("timing", timing[0])) as f:
                 rows = [line.strip().split(";") for line in f]
             samples = sorted(os.listdir("samples"))
+            os.mkdir("naive")
+            os.chdir("naive")
+            args = [os.path.join(REPO, "configs", "sources", "synthetic.json"),
+                    os.path.join(REPO, "configs", "modules", "kitti-naive-segmentation.json"),
+                    "--device", "cuda", "--max-frames", str(CLI_FRAMES), "--save-samples"]
+            if cli_main(args) != 0:
+                raise AssertionError("CLI run of kitti-naive-segmentation failed")
+            naive = sorted(os.listdir("samples"))
         finally:
             os.chdir(cwd)
     if rows[0] != ["name", "run_id", "time_init", "time_start", "time_end", "duration_ms"] \
@@ -3940,11 +4274,17 @@ def cli_phase() -> None:
             f"Plane_Segmentation-{CLI_FRAMES:06d}.png"]
     if samples != want:
         raise AssertionError(f"CLI samples {samples}, expected {want}")
+    hist_png = f"Plane_Segmentation_Histogram-{CLI_FRAMES:06d}.png"
+    if not {hist_png, f"Plane_Segmentation-{CLI_FRAMES:06d}.png"} <= set(naive):
+        raise AssertionError(f"CLI samples of kitti-naive-segmentation {naive}, expected "
+                             f"{hist_png} beside the plane segmentation's")
     log("cli: configs/synthetic-planeseg.json --device cuda --max-frames 5 OK; "
         "configs/sources/synthetic.json configs/modules/kitti-planeseg.json --device cuda "
         f"--max-frames {CLI_FRAMES} --timing --save-samples OK: {timing[0]} with the "
         "JAX columns, "
-        f"samples {samples}")
+        f"samples {samples}; configs/sources/synthetic.json "
+        f"configs/modules/kitti-naive-segmentation.json --max-frames {CLI_FRAMES} "
+        f"--save-samples OK: samples {naive}")
 
 
 def ptxas_report(build, info) -> None:
@@ -4081,6 +4421,12 @@ def main() -> int:
         multicard["per_shard"]["counts"]
     by_path[f"SpatialFlagship preset ({SHARDS} shards)"] = multicard["preset"]
 
+    # 4g. the plane segmentation's global data, and the 'sharded' flow
+    hist_window = histogram_window_phase(source.frames, intrinsics, dev, tag)
+    by_path["flagship + histogram window (System)"] = hist_window["counts"]
+    sharded_flow = sharded_flow_phase(source.frames, intrinsics, dev, tag)
+    by_path[f"spatial System, 'sharded' flow ({SHARDS} shards)"] = sharded_flow["counts"]
+
     # 5. card against CPU
     small_temporal_check(dev)
     small_temporal_check(dev, faithful=True)
@@ -4166,6 +4512,11 @@ def main() -> int:
         f"host keys, a stream per shard {ps['ms']['per-shard streams, host keys']:.3f}, shared "
         f"stream {ps['ms']['shared stream, host keys']:.3f}  [{tag}]")
     log(multicard["cross_card"])
+    sf = sharded_flow["ms"]
+    log(f"spatial System ({SHARDS} shards) ms a frame, frames 3..{SHARDED_FLOW_FRAMES}, one "
+        f"call, captured host keys: 'sharded' flow {sf['host keys']:.3f}, 'global' flow "
+        f"{sf['global flow, host keys']:.3f}; flagship + histogram window (System, captured, "
+        f"host keys, frames 3..{HISTOGRAM_FRAMES}) {hist_window['ms']:.3f}  [{tag}]")
     for name, sc in quality.items():
         log(f"quality {name}: {_scores(sc)}  [{tag}]")
     launches_by_path = {}

@@ -82,7 +82,8 @@ with tempfile.TemporaryDirectory() as tmp:
                                 checkpoint_path=os.path.join(tmp, "ck.npz"),
                                 checkpoint_interval=2)
     assert system.run() == 2 and not system.failed_frames
-    assert len(os.listdir(os.path.join(tmp, "samples"))) == 4  # 2 windows x 2 frames
+    # 3 windows (the plane segmentation, its histogram, the BEV) x 2 frames
+    assert len(os.listdir(os.path.join(tmp, "samples"))) == 6
     assert os.path.exists(os.path.join(tmp, "ck.npz"))
 # The multi-sequence mode: 2 sequences in lock-step (parallel/multiseq,
 # parallel/system), and make_batched_step.
