@@ -1,0 +1,101 @@
+"""The readers of the System's own spans and device stamps, on a canned
+record; on the card, a short traced run of each cell reports them."""
+
+import json
+
+import pytest
+
+from benchmark import spec
+from benchmark.tests.test_command import command
+from benchmark.tests.tiny import REPO
+from benchmark.tracing import Record, load_reader
+
+STREAM = ["idle_share_unprofiled", "replay_ms", "host_step_ms", "disparity_module_ms",
+          "optflow_module_ms"]
+CAM = ["dispatch_lag_ms.cam", "fetch_tail_ms.cam"]
+
+
+def read(name, rec):
+    return load_reader(spec.reader_path(REPO, name))(rec)
+
+
+def canned(rows=None) -> Record:
+    """Frames 5 and 6 outside the profile (frame 7 inside it), each with
+    its System rows (name, run_id, init, start, end) in epoch ms: frame 5
+    dispatched at 100 and fetched at 112, frame 6 at 110 and 121; the
+    device busy [101, 109] and [110, 119] (device.frame), idle 1 of 18 ms."""
+    if rows is None:
+        rows = []
+        for fid, t0, replay, host, disp, flow in ((5, 100.0, 0.4, 1.0, 1.5, 2.5),
+                                                  (6, 110.0, 0.6, 3.0, 2.5, 3.5),
+                                                  (7, 120.0, 9.0, 9.0, 9.0, 9.0)):
+            rows += [
+                ("frame", fid, t0, t0, t0 + 12 - (fid == 6)),
+                ("frame.replay", fid, t0 + 0.2, t0 + 0.2, t0 + 0.2 + replay),
+                ("frame.host_step", fid, t0 + 12, t0 + 12, t0 + 12 + host),
+                ("device.frame", fid, t0 + 1 - (fid == 6), t0 + 1 - (fid == 6),
+                 t0 + 9),
+                ("device.step", fid, t0 + 2, t0 + 2, t0 + 8),
+                ("device.ImageOpticalFlow", fid, t0 + 2, t0 + 2, t0 + 2 + flow),
+                ("device.ImageDisparity", fid, t0 + 5, t0 + 5, t0 + 5 + disp),
+            ]
+    return Record(device_events=[], frames=0, wall_s=0.0, timing_rows=rows + [
+        ("system", 0, 0.0, 0.0, 500.0), ("system.snapshot", 6, 130.0, 130.0, 140.0)],
+                  timing_frames={5, 6}, due_ms={5: 99.0, 6: 108.0}, modules=[], height=0,
+                  width=0)
+
+
+def test_stream_readers():
+    rec = canned()
+    assert read("idle_share_unprofiled", rec) == pytest.approx(100 * 1 / 18)
+    assert read("replay_ms", rec) == pytest.approx(0.5)
+    assert read("host_step_ms", rec) == pytest.approx(2.0)
+    assert read("disparity_module_ms", rec) == pytest.approx(2.0)
+    assert read("optflow_module_ms", rec) == pytest.approx(3.0)
+
+
+def test_idle_share_counts_the_gaps_between_frames():
+    rows = [("device.frame", 5, 100.0, 100.0, 104.0), ("device.frame", 6, 106.0, 106.0, 110.0),
+            ("device.frame", 6, 103.0, 103.0, 105.0)]
+    assert read("idle_share_unprofiled", canned(rows)) == pytest.approx(100 * 1 / 10)
+
+
+def test_camera_readers():
+    rec = canned()
+    # Frame 5: dispatched 100, step on the device at 102, copies out done at
+    # 109, fetched at 112; frame 6: 110, 112, 119, 121.
+    assert read("dispatch_lag_ms.cam", rec) == pytest.approx(2.0)
+    assert read("fetch_tail_ms.cam", rec) == pytest.approx(2.5)
+
+
+@pytest.mark.parametrize("name", STREAM + CAM)
+def test_readers_find_nothing_without_rows(name):
+    assert read(name, canned([])) is None
+
+
+@pytest.mark.parametrize("name", STREAM + CAM)
+def test_readers_find_nothing_outside_the_unprofiled_frames(name):
+    """The profiled frame's rows alone (frame 7): nothing to read."""
+    rows = [r for r in canned().timing_rows if r[1] == 7]
+    assert read(name, canned(rows)) is None
+
+
+def test_host_spans_alone_give_no_camera_metric():
+    """A CPU run has host spans and no device rows: the camera's readers
+    take only device rows against the frame row."""
+    rows = [r for r in canned().timing_rows if not r[0].startswith("device.")]
+    assert read("dispatch_lag_ms.cam", canned(rows)) is None
+    assert read("fetch_tail_ms.cam", canned(rows)) is None
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("workload,names", [("kitti-planeseg.stream", STREAM),
+                                            ("zed-planeseg.cam60", CAM)])
+def test_a_short_traced_run_reports_the_span_metrics(card, workload, names):
+    out = command(REPO, workload, 2**31 + 29, 4, trace=1)
+    assert out.returncode == 0, out.stderr[-3000:]
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["correct"], result["checks"]
+    assert set(names) <= set(result["metrics"])
+    for name in names:
+        assert result["metrics"][name]["value"] >= 0, name

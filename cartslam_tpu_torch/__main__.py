@@ -6,9 +6,14 @@ flags, and streams every frame through the pipeline on the chosen device
 (``--device``, default ``cuda``; without a CUDA device that raises, there
 is no fallback).  On the card each frame is one replay of the step's CUDA
 graph for its variant; the first frame of each variant includes its
-capture.  ``--module-timing`` runs the eager step module by module instead,
-with a sync and a CSV row per module.  ``--profile DIR`` writes a
-torch.profiler trace of the run (the counterpart of jax.profiler.trace).
+capture.  ``--timing`` writes the System's rows to timing/*.csv: the
+`system` and `frame` rows, and the System's spans and device stamps
+(runtime/timing.py); ``--module-timing`` runs the eager step module by
+module instead, with a sync and a CSV row per module (and no spans).
+``--profile DIR`` writes a torch.profiler trace of the run (the counterpart
+of jax.profiler.trace); under ``--timing`` the trace holds the System's
+spans as `cart.*` ranges.  The closing log line gives the System's counters
+per frame (System.COUNTERS).
 A multi-sequence config (``configs/synthetic-multiseq.json``) runs its B
 sequences through a MultiSeqSystem, one graph replay a round on the card;
 the options that mode does not take (``--module-timing``) are dropped with
@@ -75,7 +80,7 @@ def main(argv=None) -> int:
     if args.record:
         sinks.append(VideoSink())
     sink = MultiSink(*sinks) if sinks else None
-    timing = TimingWriter(enabled=args.timing or args.module_timing)
+    timing = TimingWriter() if args.timing or args.module_timing else None
 
     try:
         system = read_system_config(
@@ -102,14 +107,17 @@ def main(argv=None) -> int:
             prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
         else:
             n = system.run()
-        logging.getLogger("cart").info("processed %d frames on %s", n, system.device)
+        per_frame = ", ".join(f"{k} {v / max(n, 1):.6g}" for k, v in system.counters.items())
+        logging.getLogger("cart").info("processed %d frames on %s; per frame: %s", n,
+                                       system.device, per_frame)
     finally:
         if viewer is not None:
             viewer.stop()
         for s in sinks:
             if hasattr(s, "close"):
                 s.close()
-        timing.close()
+        if timing is not None:
+            timing.close()
         logging.getLogger().removeHandler(log_file)
         log_file.close()
     return 0

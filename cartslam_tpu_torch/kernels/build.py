@@ -61,6 +61,7 @@ SIGNATURES = {
     "relax_sweeps": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I,
                      _I, _P],
     "relax_instantiation": [_I, _I, _P, _P, _P, _P],
+    "stamp": [_P, _I, _P],
 }
 
 

@@ -56,7 +56,7 @@ from ..runtime.graphs import CapturedStep, StaticBuffers
 from ..runtime.module import HostModule
 from ..runtime.state import map_tree, stack_trees, state_from_reference, state_to_numpy
 from ..runtime.system import System, _on
-from ..runtime.timing import TimingWriter
+from ..runtime.timing import TimingWriter, now_ms
 from ..sources.base import to_grayscale
 from .distributed import (DataLayout, all_gather, canonical_device, gather, global_data_layout,
                           local_devices)
@@ -216,6 +216,8 @@ class MultiSeqSystem(System):
             if f is None:
                 return None
             frames.append(to_grayscale(f) if self.pipeline.ctx.grayscale else f)
+        if self.tracing:
+            self._read_got = now_ms()
         pin = self.device.type == "cuda"
         images = {}
         for k, v in frames[0].items():

@@ -100,6 +100,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import itertools
 import time
 import weakref
 from typing import Any, Mapping, Sequence
@@ -109,6 +110,7 @@ import torch
 
 from ..kernels import build
 from ..parallel.distributed import canonical_device
+from . import timing
 from .state import map_tree, stack_trees
 
 
@@ -197,6 +199,19 @@ class StaticBuffers:
         # capture stream lies on the card of the process's first capture).
         self.capture_stream = torch.cuda.Stream(device=dev) if cuda else None
         self._state_storages = {t.untyped_storage().data_ptr() for t in _leaves(self.state)}
+        # The device stamp row of a traced single-sequence step
+        # (``add_stamps``); the graphs captured while it is None have no
+        # stamp nodes.
+        self.stamps: timing.StampRow | None = None
+
+    def add_stamps(self, modules: int) -> None:
+        """Give the step its stamp row (timing.StampRow), once: the variants
+        captured from then on stamp the step's start and each module's end
+        into it."""
+        if self.batch is not None:
+            raise ValueError("a batched step takes no stamps")
+        if self.stamps is None:
+            self.stamps = timing.StampRow(modules, self.device)
 
     def sequence(self, b: int) -> tuple[dict, dict]:
         """(state, frame) of sequence b of batched buffers: views of slice b,
@@ -284,8 +299,19 @@ def _no_gc():
 def _sequence_body(pipeline, bufs: StaticBuffers, state, frame, variant,
                    fetch_keys: frozenset) -> dict[str, torch.Tensor]:
     """One sequence's step on its static `state` and `frame`: the new state
-    written back into `state`, the fetch keys' outputs returned."""
-    new_state, available = pipeline.compute_step(state, frame, bufs.params, variant)
+    written back into `state`, the fetch keys' outputs returned.  With a
+    stamp row, the step's start and each module's end are stamped into it."""
+    hooks = {}
+    if bufs.stamps is not None:
+        row, done = bufs.stamps, itertools.count()
+        row.step_start()
+
+        def on_module(m, outputs):
+            if outputs is not None:
+                row.after_module(next(done))
+
+        hooks["on_module"] = on_module
+    new_state, available = pipeline.compute_step(state, frame, bufs.params, variant, **hooks)
     # The write-back below would change an output that shares memory with
     # the state.
     outputs = {k: v.clone() if bufs.aliases_state(v) else v
@@ -348,6 +374,8 @@ class CapturedStep:
     (``buffers.cards``) is one graph over them, its allocations on the
     other cards routed into their pools."""
 
+    made = 0  # steps captured in this process (System.counters' captures)
+
     def __init__(self, pipeline, buffers: StaticBuffers, variant: tuple,
                  fetch_keys: frozenset[str]):
         if buffers.device.type != "cuda":
@@ -393,6 +421,7 @@ class CapturedStep:
             raise CaptureError(f"a plain version ran under capture: {plain}")
         self.launches = {name: n for name, (n, _) in delta.items() if n}
         self.outputs = outputs
+        CapturedStep.made += 1
 
     def __call__(self) -> dict[str, torch.Tensor]:
         self.graph.replay()

@@ -23,6 +23,12 @@ so a frame sees exactly the host params (e.g. the plane ranges) the JAX
 System gives it.  ``runtime/loop.run`` is the synchronous form,
 ``max_in_flight=1``.
 
+Given a TimingWriter (and no ``module_timing``) the System traces: each
+frame's host phases as spans and, on the captured single-sequence step, its
+device time from stamps inside the replay, all as the writer's rows
+(runtime/timing.py names them).  ``System.counters`` counts fetched bytes,
+fetch threads, captures and pinned host allocations in every run.
+
 Failure semantics follow the reference: one bad frame logs and continues
 (src/main.cpp:48-54).  A frame whose execution fails poisons the state the
 frames dispatched after it read, so recovery restores the last known-good
@@ -46,12 +52,14 @@ from typing import Any, Callable, Iterable, Mapping
 import numpy as np
 import torch
 
+from ..kernels.stamp import stamp
 from ..sources.base import to_grayscale
 from .checkpoint import load_checkpoint, save_checkpoint
-from .graphs import CaptureError, capture_cards
+from .graphs import CapturedStep, CaptureError, StaticBuffers, capture_cards
 from .module import HostModule
+from .pipeline import Pipeline
 from .state import state_from_reference, state_to_numpy
-from .timing import TimingWriter
+from .timing import ClockFit, Span, StampRow, TimingWriter, fit_clock, now_ms, write_spans
 from ..utils.watchdog import start_fetch
 
 log = logging.getLogger("cart.system")
@@ -62,14 +70,21 @@ class DataNotAvailableException(RuntimeError):
     (the reference's DataNotAvailableException, include/utils/data.hpp:11)."""
 
 
+# Rounds of the device clock's fit (timing.fit_clock).
+CLOCK_ROUNDS = 12
+
+
 class _Slot:
     """Host buffers of one in-flight frame's fetch keys (pinned on a card),
     and the events recorded after their device-to-host copies (one on each
-    card that holds a part)."""
+    card that holds a part).  Traced: the frame's device stamps, and when
+    the fetch thread's event wait ended (epoch ms)."""
 
     def __init__(self):
         self.host: dict[str, torch.Tensor] = {}
         self.events: list[torch.cuda.Event] = []
+        self.stamps: torch.Tensor | None = None
+        self.waited = 0.0
 
 
 def _on(device):
@@ -91,6 +106,9 @@ class System:
         host_modules: visualization / recording consumers.
         max_in_flight: dispatched-but-unfetched frames.
         prefetch_depth: host frame decode look-ahead.
+        timing: where the rows go (runtime/timing.py).  Given a writer and
+            no module_timing, the System traces: host spans and, on the
+            captured single-sequence step, device stamps.
         module_timing: run module by module with a sync per module,
             emitting a per-module CSV timing row (eager step).
         data_timeout: seconds before a hung result fetch raises
@@ -101,6 +119,12 @@ class System:
     """
 
     batch = 1  # frames a round: the multi-sequence System's B
+    # System.counters: plain integers of a run, no clock read.  fetched_bytes:
+    # the fetched arrays' bytes; fetch_threads: fetch threads started;
+    # captures: step variants captured; pinned_host_allocs: pinned host
+    # blocks the caching allocator made (torch.cuda.host_memory_stats'
+    # num_host_alloc at run() end less at its start).
+    COUNTERS = ("fetched_bytes", "fetch_threads", "captures", "pinned_host_allocs")
 
     def __init__(
         self,
@@ -130,6 +154,10 @@ class System:
         self.max_in_flight = max_in_flight
         self.prefetch_depth = prefetch_depth
         self.timing = timing or TimingWriter(enabled=False)
+        self.tracing = timing is not None and not module_timing
+        self.counters = dict.fromkeys(self.COUNTERS, 0)
+        # Traced, captured: the device clock's fits at the run's start and end.
+        self.clock_fits: list[ClockFit] = []
         self.image_sink = image_sink
         self.max_frames = max_frames
         self.checkpoint_path = checkpoint_path
@@ -161,6 +189,8 @@ class System:
         self._stop = threading.Event()
         self._free_slots: list[_Slot] = []
         self._params_version = 0  # bumped by every host-param update
+        self._stamps: StampRow | None = None  # StaticBuffers.stamps, traced
+        self._read_got = 0.0  # traced: when the prefetch thread's get_next returned
 
     # ------------------------------------------------------------ global data
 
@@ -202,6 +232,8 @@ class System:
         if self.source.is_finished():
             return None
         frame = self.source.get_next()
+        if self.tracing:
+            self._read_got = now_ms()
         if frame is None:
             return None
         if self.pipeline.ctx.grayscale:
@@ -216,11 +248,16 @@ class System:
         """Decode ahead; on a card, stage each frame's images in pinned host
         memory, from which the main thread copies them without waiting.
         (PyTorch's pinned-memory cache reuses a block only after the copy
-        that read it is done.)"""
+        that read it is done.)  Each item is (host frame, images, its
+        frame.read span or None)."""
         try:
             while not self._stop.is_set():
+                asked = now_ms() if self.tracing else 0.0
                 item = self._read()
-                if item is None or not self._put(item):
+                if item is None:
+                    break
+                read = (asked, self._read_got, now_ms()) if self.tracing else None
+                if not self._put((*item, read)):
                     break
         except BaseException as e:  # surfaced in run()
             self._prefetch_error = e
@@ -259,6 +296,12 @@ class System:
                     devices.append(p.device)
         for k in set(slot.host) - set(outputs):
             del slot.host[k]
+        if self._stamps is not None:
+            self._stamps.frame_out()
+            row = self._stamps.row
+            if slot.stamps is None:
+                slot.stamps = torch.empty(row.shape, dtype=row.dtype, pin_memory=True)
+            slot.stamps.copy_(row, non_blocking=True)
         if pin:
             slot.events = []
             for dev in devices or [self.device]:
@@ -276,12 +319,15 @@ class System:
         to simulate hung or failing transfers."""
         for event in staged.events:
             event.synchronize()
+        if self.tracing:
+            staged.waited = now_ms()
         return {k: v.numpy().copy() for k, v in staged.host.items()}
 
     def _start_fetch(self, staged: _Slot):
         """Begin the fetch on its own daemon thread at dispatch time, so the
         wait for frame N overlaps the dispatch of frames N+1..N+k; a hung
         fetch is abandoned at join time (utils/watchdog.py)."""
+        self.counters["fetch_threads"] += 1
         return start_fetch(lambda: self._fetch_with_timeout(staged))
 
     def _join_fetch(self, fetch_handle) -> dict[str, np.ndarray]:
@@ -370,6 +416,9 @@ class System:
 
     def _run(self, thread, on_frame):
         pipe = self.pipeline
+        tr = self.tracing
+        self.counters = dict.fromkeys(self.COUNTERS, 0)
+        pinned_at_start = self._pinned_allocs()
         start_frame = 0
         state = self._initial_state()
         if self.resume_from is not None:
@@ -413,15 +462,18 @@ class System:
             False when the frame failed (device error or watchdog timeout):
             the caller must then recover the state."""
             nonlocal processed
-            fid, handle, frame_np, fetch_handle, slot = in_flight.popleft()
+            fid, handle, frame_np, fetch_handle, slot, spans = in_flight.popleft()
             try:
-                fetched = self._join_fetch(fetch_handle)
+                with Span(spans, "frame.join"):
+                    fetched = self._join_fetch(fetch_handle)
             except Exception:
                 log.error("frame %d failed (async):\n%s", fid, traceback.format_exc())
                 fetched = None
                 if fetch_handle.done() and slot is not None:  # a hung fetch may
                     self._free_slots.append(slot)               # still write its slot
             else:
+                if spans is not None:
+                    self._fetch_spans(spans, fetch_handle, slot)
                 self._free_slots.append(slot)
             agreed = self._agree(fid, fetched)
             if agreed is None:
@@ -430,15 +482,20 @@ class System:
                 self.failed_frames.append(fid)
                 return False
             # End the frame's timing row at the fetch's completion time.
-            handle.end = fetch_handle.t_end_ms
+            handle.end = fetch_handle.span[1]
             self.timing.end_timing_at(handle)
+            self.counters["fetched_bytes"] += sum(v.nbytes for v in fetched.values())
             self._retain(fid, fetched)
             try:
-                self._host_post_frame(fid, frame_np, fetched, host_params, agreed)
+                with Span(spans, "frame.host_step"):
+                    self._host_post_frame(fid, frame_np, fetched, host_params, agreed)
             except Exception:
                 log.error("frame %d host processing failed:\n%s", fid, traceback.format_exc())
             if on_frame is not None:
-                on_frame(fid, fetched)
+                with Span(spans, "frame.deliver"):
+                    on_frame(fid, fetched)
+            if spans is not None:
+                write_spans(self.timing, fid, spans)
             processed += self.batch
             return True
 
@@ -462,9 +519,10 @@ class System:
                     log.warning("no snapshot available; state re-initialized")
 
             item = self._prefetch_queue.get()
+            got = now_ms() if tr else 0.0
             if item is None:
                 break
-            frame_np, images = item
+            frame_np, images, read = item
             frame_id += 1
             if self.max_frames is not None and frame_id > self.max_frames:
                 break
@@ -472,37 +530,54 @@ class System:
             handle = self.timing.init_timing("frame", frame_id)
             variant = pipe.variant(frame_id)
             handle.mark_start()
+            spans = {"frame.read": read, "frame.handoff": (read[2], read[2], got)} if tr else None
             try:
                 if self.captured:
                     if bufs is None:
                         bufs = self._static_buffers(frame_np)
                         bufs.load_state(state)
                         state = None
-                    if uploaded["version"] != self._params_version:
-                        bufs.load_params(host_params)
-                        uploaded["version"] = self._params_version
-                    bufs.load_frame(images, frame_id)
-                    outputs = self._captured_step(variant)()
+                        if tr:
+                            self._add_stamps(bufs)
+                    with Span(spans, "frame.upload"):
+                        if uploaded["version"] != self._params_version:
+                            bufs.load_params(host_params)
+                            uploaded["version"] = self._params_version
+                        if self._stamps is not None:
+                            self._stamps.frame_in()
+                        bufs.load_frame(images, frame_id)
+                    made, asked = CapturedStep.made, now_ms() if tr else 0.0
+                    step = self._captured_step(variant)
+                    if CapturedStep.made != made:
+                        self.counters["captures"] += CapturedStep.made - made
+                        if tr:
+                            spans["frame.capture"] = (asked, asked, now_ms())
+                    with Span(spans, "frame.replay"):
+                        outputs = step()
                 else:
-                    if uploaded["version"] != self._params_version:
-                        uploaded["params"] = self._device_params(host_params)
-                        uploaded["version"] = self._params_version
-                    state, outputs = self._eager_frame(state, images, frame_id,
-                                                       uploaded["params"], variant)
-                slot = self._stage(outputs)
+                    with Span(spans, "frame.upload"):
+                        if uploaded["version"] != self._params_version:
+                            uploaded["params"] = self._device_params(host_params)
+                            uploaded["version"] = self._params_version
+                    with Span(spans, "frame.step"):
+                        state, outputs = self._eager_frame(state, images, frame_id,
+                                                           uploaded["params"], variant)
+                with Span(spans, "frame.stage"):
+                    slot = self._stage(outputs)
             except CaptureError:
                 raise
             except Exception as e:
                 log.error("frame %d failed:\n%s", frame_id, traceback.format_exc())
                 if self._fail_in_order:
+                    self.counters["fetch_threads"] += 1
                     in_flight.append((frame_id, handle, frame_np,
-                                      start_fetch(functools.partial(_failed, e)), None))
+                                      start_fetch(functools.partial(_failed, e)), None, None))
                     continue
                 self.failed_frames.append(frame_id)
                 need_recovery = True
                 continue
 
-            in_flight.append((frame_id, handle, frame_np, self._start_fetch(slot), slot))
+            in_flight.append((frame_id, handle, frame_np, self._start_fetch(slot), slot, spans))
             while len(in_flight) >= self.max_in_flight:
                 if not drain_one():
                     need_recovery = True
@@ -510,25 +585,82 @@ class System:
 
             if (not need_recovery and self.snapshot_interval
                     and frame_id % self.snapshot_interval == 0):
-                drain_all()  # ensure the snapshot state is actually good
-                if not need_recovery:
-                    snap_state = self._host_state(current_state())
+                sys_spans = {} if tr else None
+                with Span(sys_spans, "system.snapshot"):
+                    drain_all()  # ensure the snapshot state is actually good
+                    if not need_recovery:
+                        snap_state = self._host_state(current_state())
+                if tr:
+                    write_spans(self.timing, frame_id, sys_spans)
 
             if (not need_recovery and self.checkpoint_path is not None
                     and frame_id % self.checkpoint_interval == 0):
                 # Drain so the modules' host state (running histograms,
                 # provider ranges) matches the saved device state.
-                drain_all()
-                if not need_recovery:
-                    self._save_checkpoint(current_state(), frame_id)
+                sys_spans = {} if tr else None
+                with Span(sys_spans, "system.checkpoint"):
+                    drain_all()
+                    if not need_recovery:
+                        self._save_checkpoint(current_state(), frame_id)
+                if tr:
+                    write_spans(self.timing, frame_id, sys_spans)
 
         drain_all()
 
         self.timing.end_timing(sys_handle)
+        self.counters["pinned_host_allocs"] = self._pinned_allocs() - pinned_at_start
+        if self.clock_fits:
+            self._refit_clock()
         if self._prefetch_error is not None:
             raise self._prefetch_error
         self.final_state = self._host_state(current_state())
         return processed
+
+    # ---------------------------------------------------------------- tracing
+
+    def _add_stamps(self, bufs) -> None:
+        """Traced: the captured single-sequence step's device stamps (the
+        spatial and batched steps take none), and the device clock's fit."""
+        if not (isinstance(bufs, StaticBuffers) and isinstance(self.pipeline, Pipeline)):
+            return
+        if bufs.stamps is None and self.pipeline.captured_steps:
+            return  # its graphs were captured without stamps
+        bufs.add_stamps(len(self.pipeline.modules))
+        self._stamps = bufs.stamps
+        self.clock_fits = [self._fit_clock()]
+
+    def _fit_clock(self) -> ClockFit:
+        row = torch.zeros(CLOCK_ROUNDS, dtype=torch.int64, device=self.device)
+        return fit_clock(lambda i: stamp(row, i), lambda: torch.cuda.synchronize(self.device),
+                         row.tolist, CLOCK_ROUNDS)
+
+    def _refit_clock(self) -> None:
+        """The device clock fitted again at the run's end: its drift since
+        the start, against the two fits' errors, in the log."""
+        start = self.clock_fits[0]
+        end = self._fit_clock()
+        self.clock_fits.append(end)
+        log.info("device clock: drift %d ns over the run (offset %d -> %d ns), error +-%d / "
+                 "+-%d ns", end.offset_ns - start.offset_ns, start.offset_ns, end.offset_ns,
+                 start.error_ns, end.error_ns)
+
+    def _fetch_spans(self, spans: dict, fetch_handle, slot: _Slot) -> None:
+        """A joined frame's fetch-thread spans and device rows: the event
+        wait and the copy, ended by the fetch's own end, and the stamps on
+        the host clock."""
+        begun, ended = fetch_handle.span
+        if slot.waited:
+            spans["frame.fetch_wait"] = (begun, begun, slot.waited)
+            spans["frame.fetch_copy"] = (slot.waited, slot.waited, ended)
+        if slot.stamps is not None and self.clock_fits:
+            spans.update(StampRow.spans(slot.stamps.tolist(), self.clock_fits[0],
+                                        [m.name for m in self.pipeline.modules]))
+
+    def _pinned_allocs(self) -> int:
+        """Pinned host blocks the caching host allocator has made so far."""
+        if self.device.type != "cuda":
+            return 0
+        return int(torch.cuda.host_memory_stats().get("num_host_alloc", 0))
 
     # --------------------------------------------------------- host callbacks
 

@@ -36,15 +36,16 @@ class FetchHandle:
     device->host transfer latency overlap subsequent dispatches (the
     System's eager-drain pattern) instead of serializing the host loop on
     each fetch round trip.  ``done`` says whether the fetch thread has
-    finished (a timed-out fetch may still hold its buffers).  ``t_end_ms`` records the epoch-ms completion
-    time for timing rows.
+    finished (a timed-out fetch may still hold its buffers).  ``span`` is
+    (start, end) of the fetch on its thread, epoch ms (runtime/timing.py's
+    clock), once it has finished: its end ends the System's frame row.
     """
 
     def __init__(self, fn: Callable[[], Any]):
         self._out: queue.Queue = queue.Queue(maxsize=1)
         self._abandoned = threading.Event()
         self._cached: tuple[bool, Any] | None = None
-        self.t_end_ms: float | None = None
+        self.span: tuple[float, float] | None = None
         t = threading.Thread(
             target=self._worker, args=(fn,), daemon=True, name="cart-fetch"
         )
@@ -52,11 +53,12 @@ class FetchHandle:
 
     def _worker(self, fn):
         global _stranded
+        start = round(time.time() * 1000, 3)
         try:
             val = (True, fn())
         except BaseException as e:  # delivered to the waiter
             val = (False, e)
-        self.t_end_ms = round(time.time() * 1000, 3)
+        self.span = (start, round(time.time() * 1000, 3))
         self._out.put(val)
         with _stranded_lock:
             if self._abandoned.is_set():

@@ -212,6 +212,17 @@ Phases (each raises on failure; none is caught):
                 config at 192x320 (apron 24), card against the port's CPU
                 run; its ms a frame beside the 'global' flow's.  Their
                 launches join the kernels line.
+  4h. tracing - the flagship's modules through the captured System with a
+                TimingWriter (so it traces: host spans, the stamp kernel
+                csrc/stamp.cu in the graph), 10 frames, every output equal
+                to the same run untraced; the stamp launches, counted from 0,
+                (modules + 3) a frame plus the two clock fits' 12 rounds
+                (none untraced); each frame's stamps rising and its
+                device.frame inside its host frame row within the clock
+                fit's error and drift plus 5 us; 16 synchronised stamps,
+                mapped through the run's ClockFit, inside the time.time_ns()
+                interval around each within the fit's error plus 5 us.
+                Its K1-K4 launches join the kernels line.
   5. parity   - the small temporal slice (64x128, 6 frames) on the card and on
                 the CPU, every output and the final state equal, and the same
                 with the reference-faithful modes; the full-size flow of one
@@ -230,8 +241,10 @@ Phases (each raises on failure; none is caught):
   7. cli      - configs/synthetic-planeseg.json through the CLI entry point,
                 then configs/sources/synthetic.json with
                 configs/modules/kitti-planeseg.json for 30 frames, --timing
-                and --save-samples: a timing CSV with the JAX columns and a
-                PNG of both plane-segmentation visualizations at frame 30;
+                and --save-samples: a timing CSV with the JAX columns and,
+                the System traced, a frame, frame.replay, device.frame and
+                device.ImageDisparity row each frame, and a PNG of both
+                plane-segmentation visualizations at frame 30;
                 configs/modules/kitti-naive-segmentation.json for 30 frames
                 with --save-samples: the histogram window's PNG at frame 30.
   8. times    - per-frame ms and each kernel's numbers.
@@ -4225,6 +4238,114 @@ def sharded_flow_phase(frames, intrinsics, dev, tag) -> dict:
     return out
 
 
+# The traced System's stamp checks: a few microseconds beyond the clock
+# fit's error (and its drift over the run), for the launch and the sync.
+TRACE_SLACK_NS = 5_000
+TRACE_STAMPS = 16  # stamps of the kernel's own check against the host clock
+
+
+def trace_phase(frames, intrinsics, dev, tag) -> dict:
+    """The traced System (a TimingWriter given, no module timing): the
+    flagship's modules for PATH_FRAMES frames at max_in_flight=SYSTEM_DEPTH,
+    captured, every key fetched, beside the same run untraced.  Every output
+    of every frame equal to the untraced run's; the stamp kernel's launches,
+    counted from 0 just before each run, (modules + 3) a frame plus the two
+    clock fits' rounds traced and none untraced; each frame's stamps rising
+    (copies in <= step start <= each module's end <= copies out) and inside
+    its host `frame` row within the fit's error and drift plus
+    TRACE_SLACK_NS.  Then the stamp kernel against the host clock:
+    TRACE_STAMPS slots stamped one at a time, each synchronised, each mapped
+    through the run's last ClockFit, inside the time.time_ns() interval
+    around it within the fit's error plus TRACE_SLACK_NS, and rising."""
+    import time
+
+    from cartslam_tpu_torch.config import build_system
+    from cartslam_tpu_torch.kernels.stamp import stamp
+    from cartslam_tpu_torch.runtime.system import CLOCK_ROUNDS
+    from cartslam_tpu_torch.runtime.timing import TimingWriter
+    from cartslam_tpu_torch.sources import PreloadedSource
+
+    class Recorder(TimingWriter):
+        """Keeps (name, run_id, start, end) of every row."""
+
+        def __init__(self):
+            super().__init__(enabled=False)
+            self.rows = []
+
+        def end_timing_at(self, handle):
+            self.rows.append((handle.name, handle.run_id, handle.start, handle.end))
+
+    label, runs = "traced System", {}
+    for traced in (False, True):
+        rec = Recorder() if traced else None
+        system = build_system(PreloadedSource(frames[:PATH_FRAMES], intrinsics=intrinsics),
+                              flagship_modules(), device=dev, timing=rec,
+                              max_in_flight=SYSTEM_DEPTH, extra_fetch_keys=SYSTEM_KEYS)
+        mods = [m.name for m in system.pipeline.modules]
+        stamps = PATH_FRAMES * (len(mods) + 3) + 2 * CLOCK_ROUNDS if traced else 0
+        mode = "traced" if traced else "untraced"
+        r = run_system(None, None, dev, f"{label} {mode}", {**path_plan(8), "stamp": stamps},
+                       frames=PATH_FRAMES, system=system)
+        if system.tracing != traced or not system.captured:
+            raise AssertionError(f"{label} {mode}: tracing {system.tracing}, captured "
+                                 f"{system.captured}")
+        runs[mode] = dict(r, rows=rec.rows if traced else [], fits=system.clock_fits)
+        del system, r
+        torch.cuda.empty_cache()
+    plain, tr = runs["untraced"], runs["traced"]
+    for fid in range(1, PATH_FRAMES + 1):
+        bad = _fetched_equal(tr["seen"][fid], plain["seen"][fid])
+        if bad:
+            raise AssertionError(f"{label} frame {fid}: traced != untraced on {bad}")
+    if len(tr["fits"]) != 2 or plain["fits"]:
+        raise AssertionError(f"{label}: clock fits {tr['fits']} traced, {plain['fits']} "
+                             "untraced")
+    start, end = tr["fits"]
+    drift = end.offset_ns - start.offset_ns
+    slack_ms = (max(start.error_ns, end.error_ns) + abs(drift) + TRACE_SLACK_NS) / 1e6
+    rows = {(name, fid): (a, b) for name, fid, a, b in tr["rows"]}
+    frame_ms, margins = [], []
+    for fid in range(1, PATH_FRAMES + 1):
+        dev_frame = rows[("device.frame", fid)]
+        t = [dev_frame[0], rows[("device.step", fid)][0],
+             *(rows[(f"device.{m}", fid)][1] for m in mods), dev_frame[1]]
+        if t != sorted(t):
+            raise AssertionError(f"{label} frame {fid}: the stamps do not rise: {t}")
+        host = rows[("frame", fid)]
+        margins.append((t[0] - host[0], host[1] - t[-1]))
+        if min(margins[-1]) < -slack_ms:
+            raise AssertionError(f"{label} frame {fid}: device.frame {dev_frame} outside its "
+                                 f"frame row {host} by more than {slack_ms:.3f} ms")
+        frame_ms.append(t[-1] - t[0])
+
+    row = torch.zeros(TRACE_STAMPS, dtype=torch.int64, device=dev)
+    marks = []
+    for k in range(TRACE_STAMPS):
+        h0 = time.time_ns()
+        stamp(row, k)
+        torch.cuda.synchronize(dev)
+        marks.append((h0, time.time_ns()))
+    got = row.tolist()
+    reach = end.error_ns + TRACE_SLACK_NS
+    off = [(d + end.offset_ns - h0, h1 - d - end.offset_ns) for (h0, h1), d in zip(marks, got)]
+    if min(min(o) for o in off) < -reach or any(a >= b for a, b in zip(got, got[1:])):
+        raise AssertionError(f"{label}: stamps {got} against the host intervals {marks}: "
+                             f"(stamp - start, end - stamp) ns {off}, fit {end}")
+    log(f"{label}: the flagship's {len(mods)} modules, {PATH_FRAMES} frames at "
+        f"max_in_flight={SYSTEM_DEPTH}, captured, every output of every frame equal to the "
+        f"untraced run's; stamp launches {tr['counts']['stamp']} = {PATH_FRAMES} x "
+        f"({len(mods)} + 3) + 2 x {CLOCK_ROUNDS} (untraced {plain['counts']['stamp']}); "
+        f"every frame's stamps rising, device.frame inside its frame row (least margin "
+        f"{min(min(m) for m in margins) * 1e3:.1f} us, allowed -{slack_ms * 1e3:.1f}); clock "
+        f"fit error {start.error_ns} / {end.error_ns} ns, drift {drift} ns over the run; "
+        f"{TRACE_STAMPS} synchronised stamps inside their host intervals (least margin "
+        f"{min(min(o) for o in off) / 1e3:.1f} us, allowed -{reach / 1e3:.1f}), rising; "
+        f"device.frame median {float(np.median(frame_ms[1:])):.3f} ms (frames 2..{PATH_FRAMES}); "
+        f"per-frame ms (CUDA events between frame ends) traced {_median(tr['ms']):.3f}, "
+        f"untraced {_median(plain['ms']):.3f}  [{tag}]")
+    return {"counts": tr["counts"]}
+
+
 def cli_phase() -> None:
     """The CLI: configs/synthetic-planeseg.json, then the flagship's module
     config (its two plane-segmentation visualizations) for 30 frames with
@@ -4266,9 +4387,10 @@ def cli_phase() -> None:
             naive = sorted(os.listdir("samples"))
         finally:
             os.chdir(cwd)
+    every = list(range(1, CLI_FRAMES + 1))
     if rows[0] != ["name", "run_id", "time_init", "time_start", "time_end", "duration_ms"] \
-            or sorted(int(r[1]) for r in rows[1:] if r[0] == "frame") != \
-            list(range(1, CLI_FRAMES + 1)):
+            or any(sorted(int(r[1]) for r in rows[1:] if r[0] == name) != every
+                   for name in ("frame", "frame.replay", "device.frame", "device.ImageDisparity")):
         raise AssertionError(f"CLI timing CSV: {rows[:3]}")
     want = [f"PlaneSegmentationBEVVisualization-{CLI_FRAMES:06d}.png",
             f"Plane_Segmentation-{CLI_FRAMES:06d}.png"]
@@ -4281,7 +4403,8 @@ def cli_phase() -> None:
     log("cli: configs/synthetic-planeseg.json --device cuda --max-frames 5 OK; "
         "configs/sources/synthetic.json configs/modules/kitti-planeseg.json --device cuda "
         f"--max-frames {CLI_FRAMES} --timing --save-samples OK: {timing[0]} with the "
-        "JAX columns, "
+        "JAX columns, a frame, frame.replay, device.frame and device.ImageDisparity row a "
+        "frame, "
         f"samples {samples}; configs/sources/synthetic.json "
         f"configs/modules/kitti-naive-segmentation.json --max-frames {CLI_FRAMES} "
         f"--save-samples OK: samples {naive}")
@@ -4426,6 +4549,10 @@ def main() -> int:
     by_path["flagship + histogram window (System)"] = hist_window["counts"]
     sharded_flow = sharded_flow_phase(source.frames, intrinsics, dev, tag)
     by_path[f"spatial System, 'sharded' flow ({SHARDS} shards)"] = sharded_flow["counts"]
+
+    # 4h. the traced System: its stamps and clock fit
+    by_path["temporal flagship, traced (System)"] = trace_phase(source.frames, intrinsics, dev,
+                                                                tag)["counts"]
 
     # 5. card against CPU
     small_temporal_check(dev)
