@@ -80,12 +80,13 @@ def _warp_backward(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
 
 
 def _median3x3(x: torch.Tensor) -> torch.Tensor:
-    """3x3 median over the last two dims (edge-clamped).
+    """3x3 median over the last two dims (edge-clamped): one pass of the
+    plain version of kernels/median.median3x3, which ``dense_flow`` calls.
 
     The JAX function runs Smith's 19-exchange min/max network, which keeps
     the TPU on plain vector ops; the median of 9 values is one value, so
     here one gather of the 9 neighbours and ``median`` give the same
-    result in a handful of launches instead of 38.
+    result.
     """
     h, w = x.shape[-2:]
     d = torch.arange(-1, 2, device=x.device)
@@ -134,8 +135,12 @@ def dense_flow(cur_gray: torch.Tensor, prev_gray: torch.Tensor, *, levels: int =
     The finest searched level is ``base_level`` (half resolution by
     default); the result is upsampled to full resolution.  The coarsest
     level searches +-search, intermediate ones +-refine, the finest searched
-    one +-fine_refine; ``med_passes`` 3x3 medians follow every level.
+    one +-fine_refine; ``med_passes`` 3x3 medians follow every level
+    (kernels/median: one launch a level on the card for two passes).
     """
+    # kernels/median imports this module for its plain version.
+    from ..kernels.median import median3x3
+
     h, w = cur_gray.shape
     m = 1 << (levels - 1)
     ph, pw = (-h) % m, (-w) % m
@@ -157,9 +162,7 @@ def dense_flow(cur_gray: torch.Tensor, prev_gray: torch.Tensor, *, levels: int =
             flow = _upsample2(flow)[:, : c.shape[0], : c.shape[1]]
             pw_img = _warp_backward(p, flow)
         dx, dy = _search_level(c, pw_img, radius, win)
-        flow = flow + torch.stack([dx, dy])
-        for _ in range(med_passes):
-            flow = _median3x3(flow)
+        flow = median3x3(flow + torch.stack([dx, dy]), med_passes)
 
     for _ in range(base_level):
         flow = _upsample2(flow)

@@ -7,8 +7,8 @@ Phases (each raises on failure; none is caught):
                 ptxas's registers, shared memory and spill bytes of the SGM
                 path and WTA kernels (K6's accumulate forms among them), the
                 relax kernels and the K2 / K4 / K7 tally kernels, and fail if
-                the flagship's instantiation of the fused relax kernel, or a
-                tally kernel a path runs, spills.
+                the flagship's instantiation of the fused relax kernel, a
+                tally kernel a path runs, or a 3x3 median kernel spills.
   3. kernels  - each kernel against its plain PyTorch version on the card, at
                 the flagship's shapes (376x1248, 256 disparities, 3329
                 labels), with its time, the plain version's, the time of one
@@ -63,6 +63,15 @@ Phases (each raises on failure; none is caught):
                 and 95 rows with the superpixels' halos) against their plain
                 versions, K2's and K4's psum'd tables against the full
                 frame's.
+                The flow's 3x3 medians (kernels/median, csrc/median.cu)
+                torch.equal to their plain version (gather + median) for 1,
+                2 and 3 passes on [h, w] and [2, h, w] fields: the edge
+                shapes, tile-boundary shapes (31, 32, 33, 65 rows by
+                columns) and the flow levels at KITTI and ZED size, on
+                random and tie-heavy data; each level's device ms (graph
+                replay) beside its bound, the plain version's and the
+                median3x3 launches a frame on the flagship's paths (3: one
+                a searched level).
   4. paths    - each path driven with the launch counts set to 0 just before
                 it and read just after:
                   * K6's entry point (kernels/sgm.sgm_aggregate) once;
@@ -71,9 +80,10 @@ Phases (each raises on failure; none is caught):
                   * the temporal flagship: configs/kitti-planeseg.json's
                     modules minus the host visualizations, unedited, for 65
                     synthetic frames through the registry and the run loop
-                    (K1 x65, K2 x65, K4 x65, K3 once per launch of its
-                    fused sweeps: launches(24) on frames 1 and 64,
-                    launches(8) on the others; no plain call);
+                    (K1 x65, K2 x65, K4 x65, the 3x3 medians 3 x65, K3
+                    once per launch of its fused sweeps: launches(24) on
+                    frames 1 and 64, launches(8) on the others; no plain
+                    call);
                   * the non-temporal slice (no optflow, no temporal vote) for
                     10 frames;
                   * the reference-faithful flagship (the flagship's modules
@@ -336,6 +346,21 @@ QUALITY_FLOORS = {"boundary_recall": 0.70, "plane_accuracy": 0.90, "disp_valid_f
 QUALITY_CEILINGS = {"underseg_error": 0.12, "flow_epe_px": 0.3, "disp_med_err_px": 0.3}
 QUALITY_SIZE, QUALITY_D, QUALITY_FRAMES = (96, 320), 32, 8
 
+# The flow's 3x3 median fields: the edge shapes, the 32 x 32 tile's boundaries,
+# the searched levels of the flagship's flow at 376x1241 (padded to 376x1248)
+# and at 720x1280 (ZED), and [2, 192, 624] and its halvings.
+MEDIAN_EDGE_SHAPES = [(1, 1), (1, 7), (7, 1), (2, 2), (3, 5), (33, 65), (15, 22)]
+MEDIAN_TILE_SIDES = (31, 32, 33, 65)
+MEDIAN_KITTI_LEVELS = [(2, 188, 624), (2, 94, 312), (2, 47, 156)]
+MEDIAN_ZED_LEVELS = [(2, 360, 640), (2, 180, 320), (2, 90, 160)]
+MEDIAN_LEVELS = MEDIAN_KITTI_LEVELS + MEDIAN_ZED_LEVELS + [(2, 192, 624), (2, 96, 312),
+                                                           (2, 48, 156)]
+# min/max operations of one 3x3 median (Smith's 19 exchanges).
+MEDIAN_OPS = 2 * 19
+# Searched pyramid levels of the flagship's flow (levels 4, base level 1), one
+# median launch each (two passes fused).
+MEDIAN_LAUNCHES_A_FRAME = 3
+
 # name -> (source, the TPU kernel it replaces (file:line), the path that runs it)
 KERNELS = {
     "sgm": ("cartslam_tpu_torch/csrc/sgm.cu", "cartslam_tpu/ops/pallas/sgm.py:654",
@@ -352,6 +377,9 @@ KERNELS = {
                     "init_stats entry point, 9 channels"),
     "sgm_sharded": ("cartslam_tpu_torch/csrc/sgm.cu", "cartslam_tpu/ops/pallas/sgm.py:320",
                     "spatial mode, 8 shards on one card"),
+    "median3x3": ("cartslam_tpu_torch/csrc/median.cu",
+                  "none: jnp min/max network cartslam_tpu/ops/optflow.py:104",
+                  "the paths with optflow"),
 }
 
 
@@ -386,7 +414,7 @@ def launch_plan() -> dict:
                           "relax": SHARDS * spatial_phase,
                           "vote_tally": SHARDS * SPATIAL_PHASE_FRAMES},
         "flagship": {"sgm": FRAMES, "moment_tally": FRAMES, "relax": k3(FRAMES, 1),
-                     "vote_tally": FRAMES},
+                     "vote_tally": FRAMES, "median3x3": MEDIAN_LAUNCHES_A_FRAME * FRAMES},
         "nontemporal": {"sgm": NONTEMPORAL_FRAMES, "moment_tally": NONTEMPORAL_FRAMES,
                         "relax": k3(NONTEMPORAL_FRAMES), "vote_tally": NONTEMPORAL_FRAMES},
         "full_frame_select": {"sgm": SPATIAL_FRAMES, "sgm_sharded": 0, "sgm_settle": 0,
@@ -802,6 +830,68 @@ def kernel_phase(dev, tag):
     paths = dict(census=(cl, cr), labels=labels, data9=data9, num_labels=num_labels,
                  k1_disparity=out_k, votes=votes, feats=feats)
     return results, paths
+
+
+def median_phase(dev, tag, results) -> None:
+    """The flow's 3x3 medians (kernels/median) torch.equal to their plain
+    version on the card for 1, 2 and 3 passes: every edge shape and
+    tile-boundary shape as [h, w] and [2, h, w], and every level field, on
+    uniform random data and on tie-heavy integers in [-3, 3]; the launches
+    a call (ceil(passes / 2)), no plain call.  Then each level field's
+    device ms for the flow's two passes (one launch; a CUDA graph of 100
+    calls replayed) beside its bound (one read and one write of the field;
+    38 min / max a median and pass), the plain version's ms, and a KITTI and
+    a ZED frame's three levels summed; records the finest KITTI level."""
+    from cartslam_tpu_torch.kernels import build
+    from cartslam_tpu_torch.kernels import median as kmedian
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    shapes = [p + s for s in MEDIAN_EDGE_SHAPES for p in ((), (2,))]
+    shapes += [(2, r, c) for r in MEDIAN_TILE_SIDES for c in MEDIAN_TILE_SIDES]
+    shapes += MEDIAN_LEVELS
+    checked = 0
+    for shape in shapes:
+        for data in ("random", "ties"):
+            if data == "random":
+                x = torch.rand(shape, generator=gen, device=dev)
+            else:
+                x = torch.randint(-3, 4, shape, generator=gen, device=dev).float()
+            for passes in (1, 2, 3):
+                build.reset_counts()
+                got = kmedian.median3x3(x, passes)
+                counts = (kmedian.MEDIAN_COUNTER.launches, kmedian.MEDIAN_COUNTER.plain_calls)
+                want = kmedian.median3x3_plain(x, passes)
+                if counts != (-(-passes // 2), 0):
+                    raise AssertionError(f"median3x3 {shape} x{passes}: (launches, plain "
+                                         f"calls) {counts}")
+                if got.shape != x.shape or not torch.equal(got, want):
+                    n = int((got != want).sum()) if got.shape == want.shape else -1
+                    raise AssertionError(f"median3x3 {shape} {data} x{passes}: {n} values "
+                                         "differ from the plain version")
+                checked += 1
+    torch.cuda.synchronize()
+    log(f"median3x3 torch.equal to its plain version in {checked} cases: {len(shapes)} shapes "
+        f"(edge {MEDIAN_EDGE_SHAPES} as [h, w] and [2, h, w], [2, r, c] for r, c in "
+        f"{MEDIAN_TILE_SIDES}, levels {MEDIAN_LEVELS}) x random / ties x 1, 2, 3 passes; "
+        "launches ceil(passes / 2) a call, no plain call")
+
+    times = {}
+    for shape in MEDIAN_LEVELS:
+        x = torch.randint(-40, 41, shape, generator=gen, device=dev).float()
+        n = x.numel()
+        dms = graph_ms(lambda: kmedian.median3x3(x, 2))
+        pms = cuda_ms(lambda: kmedian.median3x3_plain(x, 2), 20)
+        bms, by = bound(2 * 4 * n, 2 * MEDIAN_OPS * n)
+        times[shape] = (dms, pms, bms, by)
+        log(f"median3x3 {list(shape)}, 2 passes: device {dms:.4f} ms (one launch), plain "
+            f"{pms:.4f} ms, bound {bms:.5f} ms ({by}), {bms / dms:.1%} of it  [{tag}]")
+    for name, levels in (("KITTI", MEDIAN_KITTI_LEVELS), ("ZED", MEDIAN_ZED_LEVELS)):
+        k, p = (sum(times[s][i] for s in levels) for i in (0, 1))
+        log(f"median3x3 a {name} frame ({MEDIAN_LAUNCHES_A_FRAME} levels {levels}): device "
+            f"{k:.4f} ms, plain {p:.4f} ms  [{tag}]")
+    dms, pms, bms, by = times[MEDIAN_KITTI_LEVELS[0]]
+    results["median3x3"] = dict(max_abs_err=0.0, ms=dms, plain_ms=pms, library_ms=None,
+                                bound_ms=bms, bound_by=by)
 
 
 def relax_phase_checks(dev, tag, t) -> None:
@@ -2087,7 +2177,9 @@ def spatial_system_phase(frames, intrinsics, dev, tag, plan) -> dict:
     output of every frame of the captured runs must be array_equal to both
     references and the final state to the eager one; each graph's launches
     those of one eager frame of its variant (K5 8, 14 settle sweeps, K2 8,
-    K3 8 x launches(sweeps), K4 8); each run's counts its plan, no plain call;
+    K3 8 x launches(sweeps), K4 8, the 3x3 medians 8 x 3: the 'global' flow
+    runs the whole pyramid on every shard); each run's counts its plan, no
+    plain call;
     the step bodies captured with the collector off (run_system).  Prints the
     medians of frames 3..65, the capture seconds, the peak memory and the
     launches a frame; returns them with the captured run's last frame."""
@@ -2124,7 +2216,7 @@ def spatial_system_phase(frames, intrinsics, dev, tag, plan) -> dict:
                 want = {"sgm_sharded": SHARDS, "sgm_settle": SETTLE_LAUNCHES,
                         "moment_tally": SHARDS,
                         "relax": SHARDS * launches(sweeps[step.variant], 1, "frame"),
-                        "vote_tally": SHARDS}
+                        "vote_tally": SHARDS, "median3x3": SHARDS * MEDIAN_LAUNCHES_A_FRAME}
                 if step.launches != want:
                     raise AssertionError(f"{label}: the graph of {step.variant} launches "
                                          f"{step.launches}, an eager frame {want}")
@@ -3737,7 +3829,7 @@ def cross_card_spatial(frames, intrinsics, dev, n: int, full: dict, tag) -> str:
             for step in pipe.captured_steps.values():
                 want = {"sgm_sharded": n, "sgm_settle": 2 * (n - 1), "moment_tally": n,
                         "relax": n * launches(sweeps[step.variant], 1, "frame"),
-                        "vote_tally": n}
+                        "vote_tally": n, "median3x3": n * MEDIAN_LAUNCHES_A_FRAME}
                 if step.launches != want or step.cards != cards:
                     raise AssertionError(f"{label} {mode}: the graph of {step.variant} on "
                                          f"{step.cards} launches {step.launches}, an eager "
@@ -4412,19 +4504,22 @@ def cli_phase() -> None:
 
 def ptxas_report(build, info) -> None:
     """Registers, static shared memory and spill bytes (ptxas -v) of K1's
-    and K6's path kernels, the WTA, K3's kernels and the K2, K4 and K7
-    tally kernels; fails if the flagship's instantiation of the fused relax
-    kernel, or a tally kernel a path runs (K2 with 7 and 5 channels, K4,
-    K7), spills."""
+    and K6's path kernels, the WTA, K3's kernels, the K2, K4 and K7
+    tally kernels and the 3x3 median kernels; fails if the flagship's
+    instantiation of the fused relax kernel, a tally kernel a path runs (K2
+    with 7 and 5 channels, K4, K7) or a median kernel (1 and 2 passes)
+    spills."""
     import re
 
     kernels = build.kernel_resources(info.report.read_text())
-    flagship_relax = []
+    flagship_relax, medians = [], []
     for k in kernels:
         name = k["name"]
         if not re.search(r"sgm_[hv]paths|sgm_settle|sgm_wta|relax_|moment_tally|vote_tally|"
-                         r"label_tally", name):
+                         r"label_tally|median3x3", name):
             continue
+        if "median3x3" in name:
+            medians.append(k)
         if re.search(r"relax_sweeps_kernel(<true>|<\(bool\)1>|ILb1E)", name):
             flagship_relax.append(k)
         if re.search(r"moment_tally_kernel<\(int\)[57]>|vote_tally_kernel|label_tally_kernel",
@@ -4438,6 +4533,9 @@ def ptxas_report(build, info) -> None:
             flagship_relax[0]["spill_loads"]:
         raise AssertionError(f"ptxas: the flagship relax kernel spills, or is missing from "
                              f"the report: {flagship_relax}")
+    if len(medians) != 2 or any(k["spill_stores"] or k["spill_loads"] for k in medians):
+        raise AssertionError(f"ptxas: a 3x3 median kernel spills, or the two are not in the "
+                             f"report: {medians}")
 
 
 def main() -> int:
@@ -4470,6 +4568,7 @@ def main() -> int:
 
     # 3. kernels vs plain versions
     results, paths = kernel_phase(dev, tag)
+    median_phase(dev, tag, results)
     sharded_sgm_phase(dev, tag, paths, results)
     shard_kernels_phase(dev, paths)
 

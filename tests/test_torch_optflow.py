@@ -7,12 +7,14 @@ its scan form, the route it takes on every backend but the TPU; dense_flow
 is called jitted, as the JAX module calls it.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from cartslam_tpu.ops import optflow as jflow
+from cartslam_tpu_torch.kernels import median as kmedian
 from cartslam_tpu_torch.ops import optflow as tflow
 
 
@@ -71,6 +73,44 @@ def test_median3x3_matches_jax():
     out = tflow._median3x3(t(x)).numpy()
     for c in range(2):
         np.testing.assert_array_equal(out[c], np.asarray(jflow._median3x3(jnp.asarray(x[c]))))
+
+
+# Edge shapes (a single row, column or pixel), shapes under and across the
+# card kernel's 32 x 32 tile, and test_median3x3_matches_jax's.
+MEDIAN_SHAPES = [(1, 1), (1, 7), (7, 1), (2, 2), (3, 5), (33, 65), (15, 22)]
+_jax_median = jax.jit(jflow._median3x3)
+
+
+@pytest.mark.parametrize("planes", [(), (2,)], ids=["hw", "2hw"])
+@pytest.mark.parametrize("passes", [0, 1, 2, 3])
+@pytest.mark.parametrize("shape", MEDIAN_SHAPES, ids=[f"{h}x{w}" for h, w in MEDIAN_SHAPES])
+def test_median3x3_passes_match_jax(shape, passes, planes):
+    """The wrapper's plain path equals the JAX network applied `passes` times
+    to each plane; small integer values, so ties are frequent."""
+    rng = np.random.RandomState(passes * 100 + shape[0] * 7 + shape[1])
+    x = rng.randint(-3, 4, (*planes, *shape)).astype(np.float32)
+    before = kmedian.MEDIAN_COUNTER.plain_calls
+    out = kmedian.median3x3(t(x), passes)
+    assert out.shape == x.shape and out.dtype == torch.float32
+    assert kmedian.MEDIAN_COUNTER.plain_calls == before + (passes > 0)
+    for idx in np.ndindex(*planes):
+        ref = jnp.asarray(x[idx])
+        for _ in range(passes):
+            ref = _jax_median(ref)
+        np.testing.assert_array_equal(out.numpy()[idx], np.asarray(ref))
+
+
+@pytest.mark.parametrize("x,passes", [
+    (torch.zeros((4, 4), dtype=torch.float64), 2),
+    (torch.zeros((4, 4), dtype=torch.int32), 2),
+    (torch.zeros((2, 4, 4), dtype=torch.float16), 1),
+    (torch.zeros(5), 2),
+    (torch.zeros(()), 1),
+    (torch.zeros((4, 4)), -1),
+], ids=["float64", "int32", "float16", "1-d", "0-d", "negative-passes"])
+def test_median3x3_refuses(x, passes):
+    with pytest.raises(ValueError, match="median3x3"):
+        kmedian.median3x3(x, passes)
 
 
 def test_warp_backward_matches_jax():
