@@ -1,33 +1,43 @@
 """How ``correct`` is decided: what the timed path produced, held against the
 plain reference (benchmark/reference).
 
-The System's run hands over every frame it delivered (the fetched
-``planes`` and derivative histogram of each frame id), the frames that
-failed, the state it left (``final_state``) and the host step's last plane
-parameters.  The reference replays frames 1..n of the same stream in the
-System's drain order and each number below counts a disagreement:
+The System's run hands over every round it delivered (the fetched
+``planes`` and derivative histograms of each round id, batch-leading: [B,
+...] for the B streams of a round, [1, ...] for a single stream's frame),
+the rounds that failed, the state it left (``final_state``, batch-leading)
+and the host step's last plane parameters.  The reference replays rounds
+1..n of the same B streams in lock-step, in the System's drain order
+(reference/chain.py), and each number below counts a disagreement:
 
-  frames_missing   frames dispatched whose outputs never came
-  planes_px_diff   pixels of the delivered frames' planes that differ
-  hist_bins_diff   derivative-histogram bins of the delivered frames that differ
-  state_diff       elements of the final state that differ (superpixel
-                   labels, the flow's previous gray frame, the temporal
-                   vote's carried state, the unsmoothed-planes history)
-  params_diff      fields of the final plane parameters that differ
+  frames_missing   stereo frames dispatched whose outputs never came
+  planes_px_diff   pixels of the delivered frames' planes that differ, over
+                   every stream of every delivered round
+  hist_bins_diff   derivative-histogram bins of the delivered frames that
+                   differ, over every stream of every delivered round
+  state_diff       elements of the final state that differ, every stream's
+                   (superpixel labels, the flow's previous gray frame, the
+                   temporal vote's carried state, the unsmoothed-planes
+                   history)
+  params_diff      fields of the final plane parameters that differ (one
+                   set, shared by the streams)
 
 Every comparison is exact, so each limit is 0.  The planes pass through
 every layer the cells name (K1's disparity, the derivative, the superpixel
 labels of K2 and K3, the flow, the temporal vote and K4's tally, and the
-ranges of the host step), the histograms check the disparity and the
-derivative directly, and the state checks the labels and the flow's input.
+ranges of the host step, which in a multi-stream cell come from the
+histograms summed over the streams), the histograms check the disparity
+and the derivative directly, and the state checks the labels and the flow's
+input.
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
-from .reference.chain import Chain
+from .reference import chain as reference
 
 LIMITS = {"frames_missing": 0, "planes_px_diff": 0, "hist_bins_diff": 0, "state_diff": 0,
           "params_diff": 0}
@@ -49,21 +59,22 @@ def _field(params, name: str) -> list | None:
     return None if value is None else [int(x) for x in np.ravel(np.asarray(value))]
 
 
-def judge(modules: list, frames: list, device, run: dict, max_in_flight: int,
-          snapshot_interval: int, fdt=torch.float32) -> tuple[dict, Chain]:
-    """The numbers compared, from `run` = {"delivered": {frame id: fetched},
-    "failed": [frame ids], "final_state": host tree or None, "params":
-    the program's plane parameters or None}; and the reference chain (its
-    seconds)."""
+def judge(modules: list, streams: list, device, run: dict, max_in_flight: int,
+          snapshot_interval: int, fdt=torch.float32) -> tuple[dict, dict]:
+    """The numbers compared, from `run` = {"delivered": {round id: fetched,
+    batch-leading}, "failed": [round ids], "final_state": batch-leading host
+    tree or None, "params": the program's plane parameters or None}, over
+    `streams` (each stream's frame cycle); and the reference's seconds by
+    kind of work."""
     delivered = run["delivered"]
     n = max([*delivered, *run["failed"], 0])
-    chain = Chain(modules, frames, device, fdt)
+    chains = reference.chains(modules, streams, device, fdt)
     diffs = {PLANES: torch.zeros((), dtype=torch.int64, device=device),
              HIST: torch.zeros((), dtype=torch.int64, device=device)}
     pending: list = []
 
     def flush():
-        """Compare the pending frames in one batch: one upload of the
+        """Compare the pending rounds in one batch: one upload of the
         program's outputs a key, no read back."""
         for key, want in ((PLANES, [p for _, p, _ in pending]),
                           (HIST, [h for _, _, h in pending])):
@@ -78,10 +89,11 @@ def judge(modules: list, frames: list, device, run: dict, max_in_flight: int,
     def visit(t, planes, hist):
         if t in delivered:
             pending.append((t, planes, hist))
-            if len(pending) >= 64:
+            if len(pending) * len(streams) >= 64:
                 flush()
 
-    expected = chain.replay(n, max_in_flight, snapshot_interval, visit)
+    t0 = time.perf_counter()
+    expected = reference.replay(chains, n, max_in_flight, snapshot_interval, visit)
     if pending:
         flush()
     state_diff = 0
@@ -96,20 +108,24 @@ def judge(modules: list, frames: list, device, run: dict, max_in_flight: int,
     params_diff = sum(_field(run["params"], f) != _field(expected["params"], f)
                       for f in PARAM_FIELDS)
     missing = sorted(set(range(1, n + 1)) - set(delivered))
-    return {"frames_missing": len(missing), "planes_px_diff": int(diffs[PLANES]),
+    seconds = {k: sum(c.seconds[k] for c in chains) for k in chains[0].seconds}
+    seconds["replay"] = time.perf_counter() - t0
+    return {"frames_missing": len(missing) * len(streams), "planes_px_diff": int(diffs[PLANES]),
             "hist_bins_diff": int(diffs[HIST]), "state_diff": int(state_diff),
-            "params_diff": int(params_diff)}, chain
+            "params_diff": int(params_diff)}, seconds
 
 
-def as_program(chain: Chain, n: int, max_in_flight: int, snapshot_interval: int) -> dict:
-    """The chain's own replay in the form a System's run hands over (the
-    control: the reference in the program's place)."""
+def as_program(modules: list, streams: list, device, n: int, max_in_flight: int,
+               snapshot_interval: int, fdt) -> dict:
+    """The reference's own replay in `fdt`, in the form a System's run hands
+    over (the control: the reference in the program's place)."""
     delivered = {}
 
     def visit(t, planes, hist):
         delivered[t] = {PLANES: planes.cpu().numpy(), HIST: hist.cpu().numpy()}
 
-    out = chain.replay(n, max_in_flight, snapshot_interval, visit)
+    out = reference.replay(reference.chains(modules, streams, device, fdt), n, max_in_flight,
+                           snapshot_interval, visit)
     state: dict = {}
     for path, value in out["state"].items():
         node = state

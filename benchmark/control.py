@@ -7,8 +7,9 @@ that each limit is set below.
     python benchmark/control.py --workload <name> --seeds 1,2,3 --frames <n>
 
 Runs on the card (or with --device cpu); prints one JSON line a seed with
-the numbers compared.  `frames` is as many as a run of the cell compares.
-The benchmark's runs never run it.
+the numbers compared.  `frames` is as many rounds as a run of the cell
+compares (a round is one frame of each of the mix's streams).  The
+benchmark's runs never run it.
 """
 
 from __future__ import annotations
@@ -25,24 +26,21 @@ if __name__ == "__main__":
 import torch  # noqa: E402
 
 from benchmark import compare, spec  # noqa: E402
-from benchmark.data.synthetic import SyntheticScene  # noqa: E402
-from benchmark.reference.chain import Chain  # noqa: E402
+from benchmark.harness import render_streams  # noqa: E402
 
 
 def control_readings(root: Path, workload: str, seed: int, frames: int, device: str,
                      fdt=torch.bfloat16) -> dict:
     """The numbers compared when the reference in `fdt` stands in for the
-    program over frames 1..frames of the cell's stream."""
+    program over rounds 1..frames of the cell's streams."""
     bench = spec.load(root)
     cell = spec.cell(bench, workload)
     config = spec.load_config(root, bench, cell["config"])
     traffic = spec.load_traffic(root, cell["traffic"])
-    g = config["geometry"]
-    scene = SyntheticScene((g["height"], g["width"]), seed, **traffic["scene"])
-    cycle = scene.cycle(traffic["frame_cycle"], device=device)
+    streams, _ = render_streams(config, traffic, seed, device)
     m, s = traffic["max_in_flight"], config["system"]["snapshot_interval"]
-    low = compare.as_program(Chain(config["modules"], cycle, device, fdt), frames, m, s)
-    checks, _ = compare.judge(config["modules"], cycle, torch.device(device), low, m, s)
+    low = compare.as_program(config["modules"], streams, device, frames, m, s, fdt)
+    checks, _ = compare.judge(config["modules"], streams, torch.device(device), low, m, s)
     return checks
 
 

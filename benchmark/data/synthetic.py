@@ -13,6 +13,13 @@ any whole number is a seed (the source's RandomState takes 32 bits); the
 pan per frame is a parameter; and a cycle of frames is rendered in one
 batch of float32 torch operations on the run's device (the source renders
 one frame at a time in float64 numpy, which takes seconds a cycle).
+
+Several streams of one run (a multi-stream traffic mix) each show a scene
+of their own: stream j's texture draws from ``SeedSequence(seed mod 2**64,
+spawn_key=(j,))``, the j-th child that ``SeedSequence.spawn`` gives, for
+j >= 1, and stream 0's from the seed's own sequence, the single-stream
+scene.  The geometry (ground, wall, pan) is the traffic's and the same for
+every stream.
 """
 
 from __future__ import annotations
@@ -21,9 +28,13 @@ import numpy as np
 import torch
 
 
-def rng_for(seed: int) -> np.random.RandomState:
-    """A RandomState seeded from any whole number (negative ones too)."""
-    return np.random.RandomState(np.random.MT19937(np.random.SeedSequence(seed % (1 << 64))))
+def rng_for(seed: int, stream: int = 0) -> np.random.RandomState:
+    """A RandomState seeded from any whole number (negative ones too), for
+    stream `stream` of a run (0: the seed's own sequence; j >= 1: its j-th
+    spawned child)."""
+    spawn_key = (stream,) if stream else ()
+    return np.random.RandomState(np.random.MT19937(
+        np.random.SeedSequence(seed % (1 << 64), spawn_key=spawn_key)))
 
 
 def _texture(h, w, rng):
@@ -39,17 +50,19 @@ def _texture(h, w, rng):
 
 
 class SyntheticScene:
-    """One seeded scene; ``cycle(n)`` renders its frame indices 0..n-1."""
+    """One seeded scene (of stream `stream` of the run); ``cycle(n)`` renders
+    its frame indices 0..n-1."""
 
     def __init__(self, image_size: tuple[int, int], seed: int, fx: float = 100.0,
-                 baseline: float = 0.5, max_disparity: float = 40.0, pan_px: int = 2):
+                 baseline: float = 0.5, max_disparity: float = 40.0, pan_px: int = 2,
+                 stream: int = 0):
         self.image_size = tuple(image_size)
         self.fx = fx
         self.baseline = baseline
         self.max_disparity = max_disparity
         self.pan_px = pan_px
         h, w = self.image_size
-        self._tex = _texture(h, w + int(max_disparity) + 8, rng_for(seed))
+        self._tex = _texture(h, w + int(max_disparity) + 8, rng_for(seed, stream))
         q = np.eye(4, dtype=np.float32)
         q[0, 3] = -w / 2
         q[1, 3] = -h / 2

@@ -8,13 +8,23 @@ frames in flight and fetch keys, and, in a traced run, a TimingWriter that
 keeps the System's frame rows in memory.  The System's ``run`` drives every
 frame; the harness stamps each frame's delivery in ``on_frame``.
 
+A mix of B > 1 ``streams`` renders B scenes (data/synthetic.py says how
+each stream's seed follows from the run's) and hands B sources, which stop
+together, to ``build_system`` with the parallel block ``{"mode":
+"multiseq", "batch": B, "sources": [...]}``: the program's multi-sequence
+mode, one batched step a round of B stereo frames.  There the frame ids
+below are round ids, ``on_frame`` delivers a round, and ``fps``,
+``attempted``, ``failed`` and a traced record's ``frames`` count stereo
+frames, rounds x B.  A single stream's outputs and state are handed to the
+comparison batch-leading too, as a batch of one.
+
 Set-up runs frames 1..warm, where warm is the first frame after which no
 new step variant appears (the flagship's 'reset' frame, 64), so every
 variant's CUDA graph is captured before the window.  The window starts at
 frame warm's delivery:
 
   closed loop: the source yields frames as fast as the System takes them;
-      fps = frames delivered in the window / its seconds.
+      fps = stereo frames delivered in the window / its seconds.
   open loop:   frame warm + k is due at t0 + k / rate, released then whether
       or not the System kept up; the latency of each frame due in the
       window runs from its due time to its delivery, a frame that never
@@ -64,9 +74,20 @@ def warm_frames(variant, horizon: int = 10_000) -> int:
     return last
 
 
-def _make_source(base, frames, q, traffic: dict, seconds: float):
-    """The cell's DataSource (a subclass of the program's base class, made
-    once the program is imported); its ``warm`` is set before the run."""
+def render_streams(config: dict, traffic: dict, seed: int, device) -> tuple[list, np.ndarray]:
+    """(each stream's cycle of host (left, right) pairs, the cameras' Q):
+    the mix's ``streams`` scenes, stream j's from the run's seed as
+    data/synthetic.py derives it."""
+    g = config["geometry"]
+    scenes = [SyntheticScene((g["height"], g["width"]), seed, stream=j, **traffic["scene"])
+              for j in range(spec.streams_of(traffic))]
+    return [sc.cycle(traffic["frame_cycle"], device=device) for sc in scenes], scenes[0].q
+
+
+def _make_source(base, frames, q, traffic: dict, seconds: float, stop: threading.Event):
+    """The cell's DataSource of one stream (a subclass of the program's base
+    class, made once the program is imported); its ``warm`` is set before
+    the run.  The streams of a cell share `stop`."""
 
     class StreamSource(base):
         """Cycles through the rendered frames.  Closed loop: yields until
@@ -80,7 +101,7 @@ def _make_source(base, frames, q, traffic: dict, seconds: float):
             self.rate = traffic.get("rate_fps")
             self.warm = 0
             self.next_id = 1
-            self.stop = threading.Event()
+            self.stop = stop
             self.armed = threading.Event()
             self.t0 = 0.0
             self.due: dict[int, float] = {}
@@ -149,10 +170,11 @@ def _percentile(values, q: float) -> float:
     return float(np.percentile(np.asarray(values, dtype=np.float64), q))
 
 
-def _log_spread(log, source, stamp: dict, window_ids, ws: float, seconds: float) -> None:
+def _log_spread(log, source, stamp: dict, window_ids, ws: float, seconds: float,
+                batch: int) -> None:
     """How the window's numbers spread, for the run's log: the latency's
-    tail (open loop) or the delivery intervals (closed loop), and both by
-    fifths of the window."""
+    tail (open loop) or the delivery intervals of rounds of `batch` frames
+    (closed loop), and both by fifths of the window."""
     fifths: list[list] = [[] for _ in range(5)]
     if source.rate:
         lat = {f: (stamp[f] - source.due[f]) * 1e3 for f in window_ids if f in stamp}
@@ -171,7 +193,8 @@ def _log_spread(log, source, stamp: dict, window_ids, ws: float, seconds: float)
             fifths[min(4, int((stamp[f] - ws) / seconds * 5))].append(f)
         log("window: delivery intervals ms "
             + ", ".join(f"p{q} {np.percentile(gaps, q):.3f}" for q in (50, 90, 99, 100))
-            + "; frames/s by fifths " + " ".join(f"{len(f) * 5 / seconds:.1f}" for f in fifths))
+            + "; frames/s by fifths "
+            + " ".join(f"{len(f) * batch * 5 / seconds:.1f}" for f in fifths))
 
 
 def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
@@ -197,18 +220,25 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     if patch is not None:
         patch()
     geometry = config["geometry"]
-    scene = SyntheticScene((geometry["height"], geometry["width"]), seed, **traffic["scene"])
-    frames = scene.cycle(traffic["frame_cycle"], device=dev)
+    streams, q = render_streams(config, traffic, seed, dev)
+    batch = len(streams)
     max_in_flight = traffic["max_in_flight"]
     snapshot_interval = config["system"]["snapshot_interval"]
     writer = _timing_writer(TimingWriter) if trace else None
-    source = _make_source(DataSource, frames, scene.q, traffic, seconds)
+    stop = threading.Event()
+    sources = [_make_source(DataSource, frames, q, traffic, seconds, stop) for frames in streams]
+    source = sources[0]
+    parallel = ({"mode": "multiseq", "batch": batch, "sources": sources} if batch > 1
+                else None)
     system = build_system(source, config["modules"], device=device,
                           max_in_flight=max_in_flight, extra_fetch_keys=traffic["fetch"],
-                          timing=writer, snapshot_interval=snapshot_interval)
-    warm = source.warm = warm_frames(system.pipeline.variant)
-    log(f"set-up: {len(frames)} frames of {geometry['height']}x{geometry['width']} rendered, "
-        f"System built ({'captured' if system.captured else 'eager'}), warm-up frames 1..{warm}")
+                          timing=writer, snapshot_interval=snapshot_interval, parallel=parallel)
+    warm = warm_frames(system.pipeline.variant)
+    for s in sources:
+        s.warm = warm
+    log(f"set-up: {batch} x {len(streams[0])} frames of {geometry['height']}x"
+        f"{geometry['width']} rendered, {type(system).__name__} built "
+        f"({'captured' if system.captured else 'eager'}), warm-up rounds 1..{warm}")
 
     prof = None
     if trace:
@@ -241,14 +271,14 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
 
     def on_frame(fid, fetched):
         now = time.perf_counter()
-        delivered[fid] = fetched
+        delivered[fid] = fetched if batch > 1 else {k: v[None] for k, v in fetched.items()}
         stamp[fid] = now
         if fid == warm:
             window["start"] = now
             window["end"] = now + seconds
             source.arm(now)
         elif "end" in window and now >= window["end"] and not source.rate:
-            source.stop.set()
+            stop.set()
         if prof is not None and fid == p_first:
             sync()
             prof.start()
@@ -261,7 +291,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     try:
         system.run(on_frame)
     finally:
-        source.stop.set()
+        stop.set()
     if prof is not None and "trace_s" not in window:
         prof.stop()
         raise RuntimeError("the window ended before the traced sub-window did")
@@ -281,9 +311,9 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
         window_ids = set(due_ids)
     else:
         window_ids = {f for f, t in stamp.items() if ws < t <= we}
-        failed = sum(1 for f in failed_ids if f > warm)
-        attempted = len(window_ids) + failed
-        measured = {"fps": len(window_ids) / seconds}
+        failed = batch * sum(1 for f in failed_ids if f > warm)
+        attempted = batch * len(window_ids) + failed
+        measured = {"fps": batch * len(window_ids) / seconds}
     measured["setup_s"] = ws - t_start
 
     memory_peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
@@ -301,7 +331,8 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
         device_events, host_events = profile_events(prof)
         epoch_ms = (time.time() - time.perf_counter()) * 1e3
         rec = Record(
-            device_events=device_events, frames=p_last - p_first, wall_s=window["trace_s"],
+            device_events=device_events, frames=batch * (p_last - p_first),
+            wall_s=window["trace_s"],
             timing_rows=writer.rows, timing_frames={f for f in window_ids if f <= p_first},
             due_ms={f: d * 1e3 + epoch_ms for f, d in source.due.items()},
             modules=config["modules"], height=geometry["height"], width=geometry["width"])
@@ -318,27 +349,38 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     else:
         for name in e2e:
             metrics[name] = {"value": measured[name], "unit": units[name]}
-    log(f"window: {len(window_ids)} frames, {failed} failed; "
+    log(f"window: {len(window_ids)} rounds of {batch}, {failed} frames failed; "
         + ", ".join(f"{k} {v}" for k, v in measured.items()))
-    _log_spread(log, source, stamp, window_ids, ws, seconds)
+    _log_spread(log, source, stamp, window_ids, ws, seconds, batch)
 
-    run = {"delivered": delivered, "failed": failed_ids, "final_state": system.final_state,
+    final_state = system.final_state
+    if batch == 1 and final_state is not None:
+        final_state = _batch_of_one(final_state)
+    run = {"delivered": delivered, "failed": failed_ids, "final_state": final_state,
            "params": system.global_data.get("plane_parameters")}
-    del system, source
+    del system, source, sources
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    checks, chain = compare.judge(config["modules"], frames, dev, run, max_in_flight,
+    checks, ref_s = compare.judge(config["modules"], streams, dev, run, max_in_flight,
                                   snapshot_interval)
-    log(f"reference: {len(delivered)} frames compared in {time.perf_counter() - t_ref:.1f} s "
-        f"(" + ", ".join(f"{k} {v:.1f} s" for k, v in chain.seconds.items()) + ")")
+    log(f"reference: {len(delivered)} rounds of {batch} compared in "
+        f"{time.perf_counter() - t_ref:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in ref_s.items()) + ")")
     found = forbidden_modules()
     if found:
         raise ForbiddenImport(f"modules of JAX or the JAX package are loaded: {found}")
     return {"correct": compare.correct(checks), "attempted": attempted,
             "failed": failed, "metrics": metrics, "device": result_device, **extra,
             "checks": {k: {"value": v, "limit": compare.LIMITS[k]} for k, v in checks.items()}}
+
+
+def _batch_of_one(tree):
+    """A single stream's state tree with a leading batch axis of one."""
+    if isinstance(tree, dict):
+        return {k: _batch_of_one(v) for k, v in tree.items()}
+    return np.asarray(tree)[None]
 
 
 def print_result(result: dict) -> None:

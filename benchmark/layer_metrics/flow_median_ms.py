@@ -1,8 +1,10 @@
-"""Device milliseconds a frame of the optical flow's 3x3 medians: the
-kernels PyTorch runs for ``median(dim)`` (the flow's only median), matched
-by these names."""
+"""Device milliseconds a stream frame of the optical flow's 3x3 medians,
+whatever implements them: the program's hand-written kernel
+(``median3x3_kernel``, csrc/median.cu, one launch a searched pyramid
+level) or, before it, the kernels PyTorch runs for ``median(dim)``
+(``gatherMedian``); matched by these names in the traced sub-window."""
 
-NAMES = ("gatherMedian",)
+NAMES = ("median3x3", "gatherMedian")
 
 
 def read(rec):

@@ -1,21 +1,30 @@
-"""The plain reference of a configured module chain over a stream of frames.
+"""The plain reference of a configured module chain over B streams of frames
+in lock-step.
 
-``Chain(modules, frames, device).replay(n, max_in_flight, snapshot_interval,
-visit)`` works out, for frame ids 1..n of a stream that cycles through
-`frames` (frame id t shows frames[(t - 1) % len(frames)]), what the
-System should produce: each frame's planes and derivative histogram (handed
-to ``visit``), the state it leaves after frame n, and the host step's final
-plane parameters.  It follows the System's drain order: frame t's host
-update (the running histogram and the provider) runs once frame
-t + max_in_flight - 1 has been dispatched, or earlier at a state snapshot
-(every `snapshot_interval` frames the System drains everything), so frame
-t sees the ranges of the frames drained before it was dispatched.
+``replay(chains, n, max_in_flight, snapshot_interval, visit)`` works out,
+for rounds 1..n of B streams (one ``Chain`` each) that advance together,
+what the System should produce: each round's planes and derivative
+histograms of every stream (handed to ``visit``, stacked [B, ...]), the
+state the streams leave after round n (batch-leading), and the host step's
+final plane parameters.  Stream b's round t shows its
+frames[(t - 1) % len(frames)].  One host step serves the batch, as the
+program's multi-sequence mode runs one provider: each drained round feeds
+it the int64 sum of the B streams' histograms.  It follows the System's
+drain order: round t's host update (the running histogram and the
+provider) runs once round t + max_in_flight - 1 has been dispatched, or
+earlier at a state snapshot (every `snapshot_interval` rounds the System
+drains everything), so round t sees the ranges of the rounds drained
+before it was dispatched.  Each stream keeps its own labels, flow input,
+temporal vote and warp state.  A single stream is a batch of one: the same
+computation, with a histogram sum of one term.
 
 The work is shared where the inputs repeat, which changes no value:
 disparity, derivative and histogram depend on the frame alone, the flow on
 the pair of frames, and the superpixel labels on the frames since the last
-grid reset; each is computed once per distinct input.  The temporal vote,
-the pixel classes and the host step run for every frame.
+grid reset; each is computed once per distinct input of a stream.  The
+temporal vote, the pixel classes and the host step run for every frame.
+The streams' chains replay the same CUDA graphs (graphs.py): their shapes
+and settings are the same.
 
 Supported: the module types and options of the benchmark's configurations
 (superpixels in 'frame' statistics mode with one phase and no progressive
@@ -86,10 +95,13 @@ def _settings(modules: list[dict]) -> dict:
 
 
 class Chain:
-    """The module chain over `frames`, a list of host (left, right) BGR
-    uint8 pairs; float work in `fdt` (float32: the reference)."""
+    """One stream's module chain over `frames`, a list of host (left, right)
+    BGR uint8 pairs; float work in `fdt` (float32: the reference).  `like`:
+    a chain of the same settings and geometry whose CUDA graphs this one
+    replays."""
 
-    def __init__(self, modules: list[dict], frames: list, device, fdt=torch.float32):
+    def __init__(self, modules: list[dict], frames: list, device, fdt=torch.float32,
+                 like: "Chain | None" = None):
         self.s = _settings(modules)
         self.frames = frames
         self.device = torch.device(device)
@@ -100,11 +112,14 @@ class Chain:
         self._products: dict[int, dict] = {}
         self._flows: dict[tuple[int, int], torch.Tensor] = {}
         self._labels: dict[tuple, torch.Tensor] = {}
-        self._frame_products = Replay(self._products_body)
-        self._sweeps = RepeatInPlace(self._sweep)
-        self._feature_list = None
-        # Seconds spent on each kind of work, and on the whole replay.
-        self.seconds = {"disparity": 0.0, "flow": 0.0, "relax": 0.0, "replay": 0.0}
+        self._feature_list = self._feature_layout()
+        if like is None:
+            self._frame_products = Replay(self._products_body)
+            self._sweeps = RepeatInPlace(self._sweep)
+        else:
+            self._frame_products, self._sweeps = like._frame_products, like._sweeps
+        # Seconds spent on each kind of work.
+        self.seconds = {"disparity": 0.0, "flow": 0.0, "relax": 0.0}
 
     # ------------------------------------------------ per distinct input
 
@@ -152,26 +167,29 @@ class Chain:
             self.seconds["flow"] += time.perf_counter() - t0
         return self._flows[key]
 
-    def _features(self, i: int):
-        """(data [C, H, W], features (kind, offset, channels, weight)) of
-        frame i: derivative, YCrCb, then the pixel coordinates."""
+    def _feature_layout(self) -> list:
+        """(kind, offset, channels, weight) of the relaxation's data
+        channels, in the order ``_features`` stacks them: the derivative's
+        2 (where weighted), YCrCb's 3, then the 2 pixel coordinates."""
+        s = self.s
+        kinds = ([("gaussian", 2, s["disparity_weight"])] if s["disparity_weight"] > 0 else [])
+        kinds += [("gaussian", 3, s["image_weight"]), ("compactness", 2, s["compactness_weight"])]
+        features, offset = [], 0
+        for kind, channels, weight in kinds:
+            features.append((kind, offset, channels, weight))
+            offset += channels
+        return features
+
+    def _features(self, i: int) -> torch.Tensor:
+        """data [C, H, W] of frame i in ``_feature_layout``'s order."""
         s, p = self.s, self.products(i)
-        parts, features, offset = [], [], 0
-
-        def add(kind, data, weight):
-            nonlocal offset
-            parts.append(data.to(self.fdt))
-            features.append((kind, offset, data.shape[0], weight))
-            offset += data.shape[0]
-
-        if s["disparity_weight"] > 0:
-            add("gaussian", p["deriv"].to(torch.float32).permute(2, 0, 1), s["disparity_weight"])
-        add("gaussian", p["ycrcb"].to(torch.float32).permute(2, 0, 1), s["image_weight"])
         ys = torch.arange(self.h, dtype=torch.float32, device=self.device)
         xs = torch.arange(self.w, dtype=torch.float32, device=self.device)[None, :]
         coords = torch.stack([xs.expand(self.h, self.w), ys[:, None].expand(self.h, self.w)])
-        add("compactness", coords, s["compactness_weight"])
-        return torch.cat(parts).contiguous(), features
+        parts = ([p["deriv"].to(torch.float32).permute(2, 0, 1)]
+                 if s["disparity_weight"] > 0 else [])
+        parts += [p["ycrcb"].to(torch.float32).permute(2, 0, 1), coords]
+        return torch.cat([x.to(self.fdt) for x in parts]).contiguous()
 
     def _sweep(self, labels, stat_img, pixel_rows):
         return ops.relax_sweep(labels, stat_img, pixel_rows, self._feature_list,
@@ -184,72 +202,100 @@ class Chain:
         statistics table of the incoming labels, then `iterations` sweeps."""
         if segment not in self._labels:
             t0 = time.perf_counter()
-            data, self._feature_list = self._features(segment[-1])
-            stat_img, pixel_rows = ops.relax_start(start, data, self.num_labels)
+            stat_img, pixel_rows = ops.relax_start(start, self._features(segment[-1]),
+                                                   self.num_labels)
             labels, _ = self._sweeps(iterations, (start, stat_img), (pixel_rows,))
             self._labels[segment] = labels
             self._sync()
             self.seconds["relax"] += time.perf_counter() - t0
         return self._labels[segment]
 
-    # ------------------------------------------------------------ replay
+    # ------------------------------------------------ the stream's frames
 
-    def replay(self, n: int, max_in_flight: int, snapshot_interval: int,
-               visit: Callable[[int, torch.Tensor, torch.Tensor], None]) -> dict:
-        """Frames 1..n; visit(t, planes uint8 [H, W], histogram int32
-        [256, 2]) for each.  Returns {"state": {path: tensor}, "params":
-        Params}: the state after frame n, keyed as the System's state tree
-        ("modules/<module>/<key>", "history/<key>"), and the provider's
-        parameters once every frame has been drained."""
-        s = self.s
-        host = HostStep(s["update_interval"], s["reset_interval"])
-        ranges_np = host.params.ranges()
-        ranges = torch.from_numpy(ranges_np).to(self.device)
-        drained = 0
-        cycle = len(self.frames)
-        warp = torch.full((s["distance"], self.h, self.w), ops.WARP_INVALID, dtype=torch.uint8,
-                          device=self.device)
-        pixel_prev = None
-        labels = self.grid
-        segment: tuple = ()
-        t_start = time.perf_counter()
+    def begin(self) -> None:
+        """The stream's state before frame 1."""
+        self._warp = torch.full((self.s["distance"], self.h, self.w), ops.WARP_INVALID,
+                                dtype=torch.uint8, device=self.device)
+        self._pixel_prev = None
+        self._now = self.grid
+        self._segment: tuple = ()
+        self._last = 0
 
-        def drain_to(limit: int):
-            nonlocal drained, ranges_np
-            while drained < limit:
-                drained += 1
-                got = host.update(drained, self.products((drained - 1) % cycle)["hist_np"])
-                if got is not None:
-                    ranges_np = got
+    def histogram(self, t: int) -> np.ndarray:
+        """Frame t's derivative histogram int32 [256, 2] on the host."""
+        return self.products((t - 1) % len(self.frames))["hist_np"]
 
-        for t in range(1, n + 1):
-            last_snapshot = (t - 1) // snapshot_interval * snapshot_interval if \
-                snapshot_interval else 0
-            before = ranges_np
-            drain_to(max(t - max_in_flight, last_snapshot))
-            if ranges_np is not before:
-                ranges = torch.from_numpy(ranges_np).to(self.device)
-            i = (t - 1) % cycle
-            p = self.products(i)
-            reset = t == 1 or t % s["reset_iterations"] == 0
-            segment = (i,) if reset else segment + (i,)
-            labels = self.labels(segment, self.grid if reset else labels,
-                                 s["initial_iterations"] if reset else s["iterations"])
-            pixel = ops.classify(p["deriv"][..., 0], ranges)
-            flow = (torch.zeros((self.h, self.w, 2), dtype=torch.int16, device=self.device)
-                    if t == 1 else self.flow((t - 2) % cycle, i))
-            prev = torch.full_like(pixel, ops.WARP_INVALID) if pixel_prev is None else pixel_prev
-            voted, warp = ops.temporal_vote_warped(pixel, prev, warp, flow, 2, True)
-            planes = ops.superpixel_vote(voted, labels, self.num_labels)
-            visit(t, planes, p["hist"])
-            pixel_prev = pixel
-        drain_to(n)
-        self._sync()
-        self.seconds["replay"] += time.perf_counter() - t_start
-        i = (n - 1) % cycle
-        state = {"modules/SuperPixelDetect/labels": labels,
-                 "modules/ImageOpticalFlow/prev_gray": self.products(i)["gray"],
-                 "modules/SPPlaneSegmentation/warp_votes": warp,
-                 "history/planes_unsmoothed": pixel_prev[None]}
-        return {"state": state, "params": host.params}
+    def step(self, t: int, ranges: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Frame t (the one after the last) with the classification ranges
+        int32 [2, 2]: (planes uint8 [H, W], histogram int32 [256, 2])."""
+        s, cycle = self.s, len(self.frames)
+        i = (t - 1) % cycle
+        p = self.products(i)
+        reset = t == 1 or t % s["reset_iterations"] == 0
+        self._segment = (i,) if reset else self._segment + (i,)
+        self._now = self.labels(self._segment, self.grid if reset else self._now,
+                                s["initial_iterations"] if reset else s["iterations"])
+        pixel = ops.classify(p["deriv"][..., 0], ranges)
+        flow = (torch.zeros((self.h, self.w, 2), dtype=torch.int16, device=self.device)
+                if t == 1 else self.flow((t - 2) % cycle, i))
+        prev = (torch.full_like(pixel, ops.WARP_INVALID) if self._pixel_prev is None
+                else self._pixel_prev)
+        voted, self._warp = ops.temporal_vote_warped(pixel, prev, self._warp, flow, 2, True)
+        self._pixel_prev = pixel
+        self._last = t
+        return ops.superpixel_vote(voted, self._now, self.num_labels), p["hist"]
 
+    def state(self) -> dict:
+        """The state after the last frame, keyed as the System's state tree
+        ("modules/<module>/<key>", "history/<key>")."""
+        return {"modules/SuperPixelDetect/labels": self._now,
+                "modules/ImageOpticalFlow/prev_gray": self.products(
+                    (self._last - 1) % len(self.frames))["gray"],
+                "modules/SPPlaneSegmentation/warp_votes": self._warp,
+                "history/planes_unsmoothed": self._pixel_prev[None]}
+
+
+def chains(modules: list[dict], streams: list, device, fdt=torch.float32) -> list[Chain]:
+    """One chain a stream (`streams`: each stream's frame cycle), all
+    replaying the first one's CUDA graphs."""
+    first = Chain(modules, streams[0], device, fdt)
+    return [first] + [Chain(modules, f, device, fdt, like=first) for f in streams[1:]]
+
+
+def replay(chains: list[Chain], n: int, max_in_flight: int, snapshot_interval: int,
+           visit: Callable[[int, torch.Tensor, torch.Tensor], None]) -> dict:
+    """Rounds 1..n of the streams in lock-step; visit(t, planes uint8 [B, H,
+    W], histograms int32 [B, 256, 2]) for each.  Returns {"state": {path:
+    tensor [B, ...]}, "params": Params}: the streams' state after round n,
+    and the provider's parameters once every round has been drained."""
+    s = chains[0].s
+    device = chains[0].device
+    host = HostStep(s["update_interval"], s["reset_interval"])
+    ranges_np = host.params.ranges()
+    ranges = torch.from_numpy(ranges_np).to(device)
+    drained = 0
+    for c in chains:
+        c.begin()
+
+    def drain_to(limit: int):
+        nonlocal drained, ranges_np
+        while drained < limit:
+            drained += 1
+            total = np.sum([c.histogram(drained) for c in chains], axis=0, dtype=np.int64)
+            got = host.update(drained, total)
+            if got is not None:
+                ranges_np = got
+
+    for t in range(1, n + 1):
+        last_snapshot = (t - 1) // snapshot_interval * snapshot_interval if \
+            snapshot_interval else 0
+        before = ranges_np
+        drain_to(max(t - max_in_flight, last_snapshot))
+        if ranges_np is not before:
+            ranges = torch.from_numpy(ranges_np).to(device)
+        planes, hists = zip(*(c.step(t, ranges) for c in chains))
+        visit(t, torch.stack(planes), torch.stack(hists))
+    drain_to(n)
+    states = [c.state() for c in chains]
+    return {"state": {path: torch.stack([st[path] for st in states]) for path in states[0]},
+            "params": host.params}

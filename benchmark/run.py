@@ -32,6 +32,21 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path[0] = str(ROOT)
 
 
+def limit_cards(chips: int) -> None:
+    """The cell's cards only, set before torch is imported: the first `chips`
+    of CUDA_VISIBLE_DEVICES where it lists more, indices 0..chips-1 where it
+    is unset.  The program's multi-sequence mode splits its batch over every
+    card it sees, so a one-card cell on a host with more would spread its
+    rounds over them."""
+    listed = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if listed is None:
+        os.environ["CUDA_VISIBLE_DEVICES"] = ",".join(str(i) for i in range(chips))
+    else:
+        cards = [c.strip() for c in listed.split(",") if c.strip()]
+        if len(cards) > chips:
+            os.environ["CUDA_VISIBLE_DEVICES"] = ",".join(cards[:chips])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
@@ -40,11 +55,15 @@ def main() -> int:
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = ap.parse_args()
 
-    from benchmark import harness, spec
+    from benchmark import spec
+
+    chips = spec.cell(spec.load(ROOT), args.workload)["chips"]
+    limit_cards(chips)
 
     import torch
 
-    chips = spec.cell(spec.load(ROOT), args.workload)["chips"]
+    from benchmark import harness
+
     if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
         print(f"no card: the cell needs {chips} CUDA device(s), "
               f"{torch.cuda.device_count()} visible", file=sys.stderr)

@@ -2,7 +2,9 @@
 
 A cell (an entry of ``workloads``) names a configuration (a file of its
 own, ``configs[].file``), a traffic mix (``benchmark/traffic/<name>.json``)
-and the chips it needs.  Its end-to-end metrics are the ``end_to_end``
+and the chips it needs.  A mix's ``streams`` (default 1) is how many
+streams the cell runs in lock-step through the program's multi-sequence
+mode, a closed loop only.  Its end-to-end metrics are the ``end_to_end``
 entries without a ``workloads`` key or with the cell in it; its per-layer
 metrics are the ``per_layer`` entries that list it, or that list no cells
 and move one of its end-to-end metrics.  Each per-layer metric is read by
@@ -67,6 +69,18 @@ def reader_path(root: Path, metric: str) -> Path:
 def load_traffic(root: Path, traffic: str) -> dict:
     with open(traffic_path(root, traffic)) as f:
         return json.load(f)
+
+
+def streams_of(traffic: dict) -> int:
+    """The mix's stream count: a whole number >= 1 (default 1); more than
+    one only in a closed loop, whose rounds the multi-sequence mode takes
+    as fast as it can (an open loop's due times are one camera's)."""
+    b = traffic.get("streams", 1)
+    if isinstance(b, bool) or not isinstance(b, int) or b < 1:
+        raise SpecError(f"streams {b!r}: a whole number >= 1")
+    if b > 1 and traffic.get("loop") != "closed":
+        raise SpecError(f"streams {b}: several streams run in a closed loop only")
+    return b
 
 
 def load_config(root: Path, spec: dict, name: str) -> dict:
@@ -200,7 +214,12 @@ def validate(spec: dict, root: Path) -> None:
             if w not in cell_names:
                 raise SpecError(f"{m['name']}: unknown workload {w}")
     for w in cells:
-        loop = load_traffic(root, w["traffic"])["loop"]
+        traffic = load_traffic(root, w["traffic"])
+        loop = traffic["loop"]
+        try:
+            streams_of(traffic)
+        except SpecError as e:
+            raise SpecError(f"{w['name']}: {e}") from None
         reported = {m["name"] for m in end_to_end_of(spec, w["name"])}
         if not reported <= E2E_BY_LOOP[loop]:
             raise SpecError(f"{w['name']}: a {loop} loop does not give "

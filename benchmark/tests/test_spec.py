@@ -35,14 +35,46 @@ def test_names_units_and_moves(bench):
 
 
 def test_the_cells_and_metrics(bench):
-    assert {w["name"] for w in bench["workloads"]} == {"kitti-planeseg.stream",
-                                                        "zed-planeseg.cam60"}
-    # latency_p95_ms was measured and left out: its runs spread too widely
-    # for the widest bound (PERF.md).
-    assert {m["name"] for m in bench["end_to_end"]} == {"fps", "latency_p50_ms", "setup_s"}
-    assert {m["name"] for m in bench["per_layer"]} == {
-        "device_idle_share", "device_ops_per_frame", "flow_median_ms", "sgm_roofline",
-        "frame_span_ms.cam", "device_busy_ms.cam", "queue_wait_ms.cam"}
+    """The contract, not a list of names: every declared per-layer metric has
+    a reader under benchmark/layer_metrics/ with a ``read``, and every
+    reader there is declared; every metric's cells exist and every metric
+    is reported in some cell; every end-to-end metric is one the harness's
+    core computes for the loop of each cell that reports it; every cell
+    reports setup_s, another end-to-end metric and a per-layer metric."""
+    readers = {p.name.removesuffix(".py")
+               for p in (REPO / "benchmark" / "layer_metrics").glob("*.py")}
+    declared = {m["name"] for m in bench["per_layer"]}
+    assert readers == declared
+    for name in declared:
+        assert callable(load_reader(spec.reader_path(REPO, name))), name
+    cells = {w["name"] for w in bench["workloads"]}
+    reported_somewhere = set()
+    for w in bench["workloads"]:
+        loop = spec.load_traffic(REPO, w["traffic"])["loop"]
+        e2e = {m["name"] for m in spec.end_to_end_of(bench, w["name"])}
+        layer = {m["name"] for m in spec.per_layer_of(bench, w["name"])}
+        assert "setup_s" in e2e and e2e - {"setup_s"}, w["name"]
+        assert e2e <= spec.E2E_BY_LOOP[loop], w["name"]
+        assert layer, w["name"]
+        reported_somewhere |= e2e | layer
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        assert set(m.get("workloads", [])) <= cells, m["name"]
+    assert reported_somewhere == {m["name"] for m in bench["end_to_end"] + bench["per_layer"]}
+
+
+@pytest.mark.parametrize("mix,streams", [("cam60", 2), ("fleet8", 0), ("fleet8", 1.5),
+                                         ("fleet8", "8"), ("fleet8", True)])
+def test_a_broken_stream_count_is_refused(tmp_path, bench, mix, streams):
+    """Several streams in an open loop, or a stream count that is not a
+    whole number >= 1, fail validation."""
+    shutil.copytree(REPO / "benchmark", tmp_path / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    path = spec.traffic_path(tmp_path, mix)
+    traffic = json.loads(path.read_text())
+    traffic["streams"] = streams
+    path.write_text(json.dumps(traffic))
+    with pytest.raises(spec.SpecError, match="streams"):
+        spec.validate(bench, tmp_path)
 
 
 @pytest.mark.parametrize("breakage", [

@@ -60,6 +60,33 @@ def test_idle_share_counts_the_gaps_between_frames():
     assert read("idle_share_unprofiled", canned(rows)) == pytest.approx(100 * 1 / 10)
 
 
+def test_fleet_read_reader():
+    """read_ms.fleet: the median frame.read row, from the sources' first
+    get_next (init) to the round's pinned stack (end), of the rounds before
+    the profiled sub-window (5 and 6 here; round 7 is profiled)."""
+    rows = [("frame.read", 5, 90.0, 91.0, 94.0), ("frame.read", 6, 100.0, 100.5, 106.0),
+            ("frame.read", 7, 110.0, 110.0, 150.0), ("frame.replay", 5, 95.0, 95.0, 99.0)]
+    assert read("read_ms.fleet", canned(rows)) == pytest.approx(5.0)
+    assert read("read_ms.fleet", canned([r for r in rows if r[1] == 7])) is None
+
+
+def test_flow_median_reader_takes_either_kernel():
+    """flow_median_ms: the device ms a frame of the flow's medians, by the
+    hand-written kernel's name or PyTorch's median kernel's, and nothing
+    else."""
+    events = [("void median3x3_kernel<2>(float const*, float*, int, int)", 0.0, 6.0),
+              ("void median3x3_kernel<1>(float const*, float*, int, int)", 10.0, 12.0),
+              ("void at::native::(anonymous namespace)::gatherMedian<float>(...)", 20.0, 30.0),
+              ("void sgm_wta_kernel(unsigned char const*)", 30.0, 1030.0)]
+    rec = canned()
+    rec.device_events, rec.frames = events, 2
+    assert read("flow_median_ms", rec) == pytest.approx((6.0 + 2.0 + 10.0) / 1e3 / 2)
+    rec.device_events = events[:2]
+    assert read("flow_median_ms", rec) == pytest.approx(8.0 / 1e3 / 2)
+    rec.device_events = events[3:]
+    assert read("flow_median_ms", rec) is None
+
+
 def test_camera_readers():
     rec = canned()
     # Frame 5: dispatched 100, step on the device at 102, copies out done at

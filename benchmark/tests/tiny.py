@@ -1,7 +1,10 @@
 """A tiny copy of the benchmark for CPU tests: the committed benchmark files
-plus two cells at 64x160 with 32 disparities, short superpixel segments,
+plus three cells at 64x160 with 32 disparities, short superpixel segments,
 frequent provider updates and snapshots, so that a run of a few seconds on the CPU passes through
-every step variant, the provider's updates and the snapshot drains."""
+every step variant, the provider's updates and the snapshot drains: one
+stream in a closed loop (tiny.stream), one camera in an open loop
+(tiny.cam), and three streams in lock-step through the eager
+multi-sequence System (tiny.fleet)."""
 
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ MODULES = [
 # Disparities inside the smoothing's validity bound (width / 16 px), so the
 # histogram has peaks and the planes more than one class.
 SCENE = {"fx": 100.0, "baseline": 0.4, "max_disparity": 10.0, "pan_px": 2}
+FLEET = 3  # tiny.fleet's streams
 
 
 def make_root(dest: Path) -> Path:
@@ -40,6 +44,9 @@ def make_root(dest: Path) -> Path:
     (b / "traffic" / "tiny_stream.json").write_text(json.dumps({
         "loop": "closed", "max_in_flight": 4, "fetch": ["planes"], "frame_cycle": 8,
         "scene": SCENE, "trace": {"after_frames": 4, "frames": 6}}))
+    (b / "traffic" / "tiny_fleet.json").write_text(json.dumps({
+        "loop": "closed", "streams": FLEET, "max_in_flight": 4, "fetch": ["planes"],
+        "frame_cycle": 8, "scene": SCENE, "trace": {"after_frames": 2, "frames": 3}}))
     (b / "traffic" / "tiny_cam.json").write_text(json.dumps({
         "loop": "open", "rate_fps": 30, "max_in_flight": 1, "fetch": ["planes"],
         "frame_cycle": 8, "scene": SCENE, "trace": {"frames": 6, "before_end_frames": 3}}))
@@ -50,11 +57,14 @@ def make_root(dest: Path) -> Path:
         {"name": "tiny.stream", "config": "tiny", "traffic": "tiny_stream", "chips": 1,
          "why": "tests"},
         {"name": "tiny.cam", "config": "tiny", "traffic": "tiny_cam", "chips": 1,
+         "why": "tests"},
+        {"name": "tiny.fleet", "config": "tiny", "traffic": "tiny_fleet", "chips": 1,
          "why": "tests"}]
     for m in spec["end_to_end"] + spec["per_layer"]:
         if "workloads" in m:
             for real, tiny in (("kitti-planeseg.stream", "tiny.stream"),
-                               ("zed-planeseg.cam60", "tiny.cam")):
+                               ("zed-planeseg.cam60", "tiny.cam"),
+                               ("kitti-planeseg.fleet8", "tiny.fleet")):
                 if real in m["workloads"]:
                     m["workloads"].append(tiny)
     (dest / "BENCHMARK.json").write_text(json.dumps(spec, indent=1))
