@@ -1,6 +1,8 @@
-"""The control of the comparison: the reference itself, computed in bfloat16
-where the configuration states float32 (the colour conversions, the flow
-and the relaxation costs), put in the program's place.  The comparison
+"""The control of the comparison: the reference module that the cell's
+configuration names, computed in bfloat16 where the configuration states
+float32 (for the plane segmentation: the colour conversions, the flow, the
+relaxation costs and the reprojection to depth), put in the program's
+place.  The comparison
 that decides ``correct`` has to reject it; its readings are the upper end
 that each limit is set below.
 
@@ -37,11 +39,15 @@ def control_readings(root: Path, workload: str, seed: int, frames: int, device: 
     cell = spec.cell(bench, workload)
     config = spec.load_config(root, bench, cell["config"])
     traffic = spec.load_traffic(root, cell["traffic"])
-    streams, _ = render_streams(config, traffic, seed, device)
+    ref = compare.reference_of(root, config)
+    checks = compare.checks_of(ref, config["modules"], traffic["fetch"])
+    streams, q = render_streams(config, traffic, seed, device)
     m, s = traffic["max_in_flight"], config["system"]["snapshot_interval"]
-    low = compare.as_program(config["modules"], streams, device, frames, m, s, fdt)
-    checks, _ = compare.judge(config["modules"], streams, torch.device(device), low, m, s)
-    return checks
+    low = compare.as_program(ref, config["modules"], streams, q, device, frames, m, s, checks,
+                             traffic["frame_cycle"], fdt)
+    compared, _ = compare.judge(ref, config["modules"], streams, q, torch.device(device), low,
+                                checks, m, s)
+    return compared
 
 
 def main() -> int:
@@ -56,7 +62,8 @@ def main() -> int:
         t0 = time.perf_counter()
         checks = control_readings(root, args.workload, seed, args.frames, args.device)
         print(json.dumps({"workload": args.workload, "seed": seed, "frames": args.frames,
-                          "control": "bfloat16", "checks": checks,
+                          "control": "bfloat16",
+                          "checks": {k: c["value"] for k, c in checks.items()},
                           "correct": compare.correct(checks),
                           "seconds": time.perf_counter() - t0}), flush=True)
     return 0

@@ -31,6 +31,14 @@ frame warm's delivery:
       comes counts as failed.
 
 setup_s runs from the start of the process to the window's start.
+
+Every delivered round is held for the comparison (compare.Deliveries): the
+outputs that the reference's checks keep "every" whole, round by round;
+those kept "first" (the depth, 5.6 MB a KITTI frame, which depends on the
+frame alone) as one copy a position of the frame cycle, against which a
+thread of the harness compares each later delivery as it comes and then
+drops it.  So what a run holds of such an output stays within about a
+frame cycle a stream, however long the window.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import resource
 import subprocess
 import sys
 import threading
@@ -209,6 +218,8 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     cell = spec.cell(bench, workload)
     config = spec.load_config(root, bench, cell["config"])
     traffic = spec.load_traffic(root, cell["traffic"])
+    ref = compare.reference_of(root, config)
+    checks = compare.checks_of(ref, config["modules"], traffic["fetch"])
     e2e = [m["name"] for m in spec.end_to_end_of(bench, workload)]
     layer = [m["name"] for m in spec.per_layer_of(bench, workload)]
     dev = torch.device(device)
@@ -261,7 +272,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
         p_first = warm + t_trace.get("after_frames", 64)
         p_last = p_first + t_trace.get("frames", 100)
 
-    delivered: dict[int, dict] = {}
+    deliveries = compare.Deliveries(checks, traffic["frame_cycle"])
     stamp: dict[int, float] = {}
     window: dict[str, float] = {}
 
@@ -271,8 +282,8 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
 
     def on_frame(fid, fetched):
         now = time.perf_counter()
-        delivered[fid] = fetched if batch > 1 else {k: v[None] for k, v in fetched.items()}
         stamp[fid] = now
+        deliveries.put(fid, fetched if batch > 1 else _batch_of_one(fetched))
         if fid == warm:
             window["start"] = now
             window["end"] = now + seconds
@@ -292,6 +303,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
         system.run(on_frame)
     finally:
         stop.set()
+        deliveries.close()
     if prof is not None and "trace_s" not in window:
         prof.stop()
         raise RuntimeError("the window ended before the traced sub-window did")
@@ -352,32 +364,40 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     log(f"window: {len(window_ids)} rounds of {batch}, {failed} frames failed; "
         + ", ".join(f"{k} {v}" for k, v in measured.items()))
     _log_spread(log, source, stamp, window_ids, ws, seconds, batch)
+    if deliveries.first_keys:
+        log(f"held: {deliveries.held_bytes() / 1e9:.3f} GB of {sorted(deliveries.first_keys)} "
+            f"in {len(deliveries.copies)} copies; at most {deliveries.most_queued} deliveries "
+            f"queued; on_frame waited {sum(deliveries.waited.values()):.3f} s, "
+            f"{sum(deliveries.waited.get(f, 0.0) for f in window_ids):.3f} s of it in the window")
+    log(f"host: peak resident set {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.3f}"
+        " GB")
 
     final_state = system.final_state
     if batch == 1 and final_state is not None:
         final_state = _batch_of_one(final_state)
-    run = {"delivered": delivered, "failed": failed_ids, "final_state": final_state,
-           "params": system.global_data.get("plane_parameters")}
+    run = {"deliveries": deliveries, "failed": failed_ids, "final_state": final_state,
+           "global": system.global_data.get(ref.GLOBAL) if ref.GLOBAL else None}
     del system, source, sources
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    checks, ref_s = compare.judge(config["modules"], streams, dev, run, max_in_flight,
-                                  snapshot_interval)
-    log(f"reference: {len(delivered)} rounds of {batch} compared in "
+    compared, ref_s = compare.judge(ref, config["modules"], streams, q, dev, run, checks,
+                                    max_in_flight, snapshot_interval)
+    log(f"reference: {len(deliveries.rounds)} rounds of {batch} compared in "
         f"{time.perf_counter() - t_ref:.1f} s ("
         + ", ".join(f"{k} {v:.1f} s" for k, v in ref_s.items()) + ")")
     found = forbidden_modules()
     if found:
         raise ForbiddenImport(f"modules of JAX or the JAX package are loaded: {found}")
-    return {"correct": compare.correct(checks), "attempted": attempted,
+    return {"correct": compare.correct(compared), "attempted": attempted,
             "failed": failed, "metrics": metrics, "device": result_device, **extra,
-            "checks": {k: {"value": v, "limit": compare.LIMITS[k]} for k, v in checks.items()}}
+            "checks": compared}
 
 
 def _batch_of_one(tree):
-    """A single stream's state tree with a leading batch axis of one."""
+    """A single stream's tree of arrays (its outputs, its state) with a
+    leading batch axis of one."""
     if isinstance(tree, dict):
         return {k: _batch_of_one(v) for k, v in tree.items()}
     return np.asarray(tree)[None]

@@ -1,12 +1,15 @@
 """The plain reference of a configured module chain over B streams of frames
-in lock-step.
+in lock-step: the reference module of the superpixel plane segmentation
+(a configuration names it in its ``reference`` key; benchmark/compare.py
+says what a reference module gives).
 
-``replay(chains, n, max_in_flight, snapshot_interval, visit)`` works out,
-for rounds 1..n of B streams (one ``Chain`` each) that advance together,
-what the System should produce: each round's planes and derivative
-histograms of every stream (handed to ``visit``, stacked [B, ...]), the
-state the streams leave after round n (batch-leading), and the host step's
-final plane parameters.  Stream b's round t shows its
+``replay(chains, n, max_in_flight, snapshot_interval, visit, keys)`` works
+out, for rounds 1..n of B streams (one ``Chain`` each) that advance
+together, what the System should produce: each round's outputs of `keys`
+(planes, derivative histograms, depth) of every stream (handed to
+``visit`` as a dict, each stacked [B, ...]), the state the streams leave
+after round n (batch-leading), and the host step's final plane parameters
+(the global ``plane_parameters``).  Stream b's round t shows its
 frames[(t - 1) % len(frames)].  One host step serves the batch, as the
 program's multi-sequence mode runs one provider: each drained round feeds
 it the int64 sum of the B streams' histograms.  It follows the System's
@@ -19,19 +22,19 @@ temporal vote and warp state.  A single stream is a batch of one: the same
 computation, with a histogram sum of one term.
 
 The work is shared where the inputs repeat, which changes no value:
-disparity, derivative and histogram depend on the frame alone, the flow on
-the pair of frames, and the superpixel labels on the frames since the last
-grid reset; each is computed once per distinct input of a stream.  The
+disparity, derivative, histogram and depth depend on the frame alone, the
+flow on the pair of frames, and the superpixel labels on the frames since
+the last grid reset; each is computed once per distinct input of a stream.  The
 temporal vote, the pixel classes and the host step run for every frame.
 The streams' chains replay the same CUDA graphs (graphs.py): their shapes
 and settings are the same.
 
 Supported: the module types and options of the benchmark's configurations
 (superpixels in 'frame' statistics mode with one phase and no progressive
-compactness; optflow; disparity; disparity_derivative; depth, which feeds
-nothing that is compared; superpixel_disparity_planeseg with the
-histogram-peak provider and the carried temporal vote with the 'gather'
-warp).  Anything else raises, so a configuration the reference cannot
+compactness; optflow; disparity; disparity_derivative; depth, whose output
+is compared where the traffic fetches it; superpixel_disparity_planeseg
+with the histogram-peak provider and the carried temporal vote with the
+'gather' warp).  Anything else raises, so a configuration the reference cannot
 follow fails loudly.
 """
 
@@ -44,8 +47,23 @@ import numpy as np
 import torch
 
 from . import ops
+from .checks import Check
 from .graphs import RepeatInPlace, Replay
 from .provider import HostStep
+
+PLANES, HIST, DEPTH = "planes", "disparity_derivative_histogram", "depth"
+CHECKS = (
+    Check(PLANES, "planes_px_diff", "pixels of the delivered frames' planes that differ, over "
+          "every stream of every delivered round"),
+    Check(HIST, "hist_bins_diff", "derivative-histogram bins of the delivered frames that "
+          "differ, over every stream of every delivered round", always=True),
+    Check(DEPTH, "depth_diff", "elements (X, Y, Z) of the delivered frames' depth whose "
+          "float32 bit patterns differ, over every stream of every delivered round",
+          kept="first"),
+)
+# The host global compared (params_diff), and its fields.
+GLOBAL = "plane_parameters"
+PARAM_FIELDS = ("horizontal_range", "vertical_range", "horizontal_center", "vertical_center")
 
 
 def _settings(modules: list[dict]) -> dict:
@@ -53,7 +71,7 @@ def _settings(modules: list[dict]) -> dict:
     types = [m["type"] for m in modules]
     need = {"superpixels", "optflow", "disparity", "disparity_derivative",
             "superpixel_disparity_planeseg"}
-    unknown = set(types) - need - {"depth"}
+    unknown = set(types) - need - {DEPTH}
     if unknown or not need <= set(types):
         raise NotImplementedError(f"the reference follows {sorted(need)} (+ depth), not {types}")
     cfg = {m["type"]: m for m in modules}
@@ -80,6 +98,7 @@ def _settings(modules: list[dict]) -> dict:
         "update_interval": ps.get("update_interval", 30),
         "reset_interval": ps.get("reset_interval", 10),
         "distance": ps.get("temporal_smoothing_distance", 3),
+        "depth": DEPTH in types,
     }
     if (sp.get("relax_phases", 1) != 1 or sp.get("stats_refresh", "frame") != "frame"
             or sp.get("progressive_compactness_cost", 0.0) > 0):
@@ -94,16 +113,33 @@ def _settings(modules: list[dict]) -> dict:
     return s
 
 
+def outputs(modules: list[dict]) -> set[str]:
+    """The keys the chain of `modules` produces for the comparison."""
+    return {PLANES, HIST} | ({DEPTH} if _settings(modules)["depth"] else set())
+
+
+def _field(params, name: str) -> list | None:
+    """A plane-parameter field as a list of ints (None where absent)."""
+    value = getattr(params, name, None)
+    return None if value is None else [int(x) for x in np.ravel(np.asarray(value))]
+
+
+def global_diff(got, want) -> int:
+    """Fields of the plane parameters that differ."""
+    return sum(_field(got, f) != _field(want, f) for f in PARAM_FIELDS)
+
+
 class Chain:
     """One stream's module chain over `frames`, a list of host (left, right)
-    BGR uint8 pairs; float work in `fdt` (float32: the reference).  `like`:
-    a chain of the same settings and geometry whose CUDA graphs this one
-    replays."""
+    BGR uint8 pairs, seen by cameras of reprojection matrix `q` (float32 [4,
+    4]); float work in `fdt` (float32: the reference).  `like`: a chain of
+    the same settings and geometry whose CUDA graphs this one replays."""
 
-    def __init__(self, modules: list[dict], frames: list, device, fdt=torch.float32,
+    def __init__(self, modules: list[dict], frames: list, q, device, fdt=torch.float32,
                  like: "Chain | None" = None):
         self.s = _settings(modules)
         self.frames = frames
+        self.q = torch.as_tensor(np.asarray(q, dtype=np.float32))
         self.device = torch.device(device)
         self.fdt = fdt
         self.h, self.w = frames[0][0].shape[:2]
@@ -119,7 +155,7 @@ class Chain:
         else:
             self._frame_products, self._sweeps = like._frame_products, like._sweeps
         # Seconds spent on each kind of work.
-        self.seconds = {"disparity": 0.0, "flow": 0.0, "relax": 0.0}
+        self.seconds = {"disparity": 0.0, "flow": 0.0, "relax": 0.0, "depth": 0.0}
 
     # ------------------------------------------------ per distinct input
 
@@ -141,19 +177,30 @@ class Chain:
                                    iterations=s["smoothing_iterations"],
                                    min_disparity=s["min_disparity"] * 16, max_disparity=self.w)
         deriv, hist = ops.directional_derivatives(disp)
-        return gray, ops.bgr_to_ycrcb(left, self.fdt), deriv, hist
+        return gray, ops.bgr_to_ycrcb(left, self.fdt), disp, deriv, hist
 
     def products(self, i: int) -> dict:
-        """Frame i's gray, YCrCb, derivatives and histogram."""
+        """Frame i's gray, YCrCb, disparity, derivatives and histogram."""
         if i not in self._products:
             t0 = time.perf_counter()
             left, right = (torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
                            for x in self.frames[i])
-            gray, ycrcb, deriv, hist = (x.clone() for x in self._frame_products(left, right))
-            self._products[i] = {"gray": gray, "ycrcb": ycrcb, "deriv": deriv, "hist": hist,
-                                 "hist_np": hist.cpu().numpy()}
+            gray, ycrcb, disp, deriv, hist = (x.clone()
+                                              for x in self._frame_products(left, right))
+            self._products[i] = {"gray": gray, "ycrcb": ycrcb, "disparity": disp,
+                                 "deriv": deriv, "hist": hist, "hist_np": hist.cpu().numpy()}
             self.seconds["disparity"] += time.perf_counter() - t0
         return self._products[i]
+
+    def depth(self, t: int) -> torch.Tensor:
+        """Frame t's depth float32 [H, W, 3] from its disparity."""
+        p = self.products((t - 1) % len(self.frames))
+        if "depth" not in p:
+            t0 = time.perf_counter()
+            p["depth"] = ops.reproject_to_3d(p["disparity"], self.q, self.fdt)
+            self._sync()
+            self.seconds["depth"] += time.perf_counter() - t0
+        return p["depth"]
 
     def flow(self, i_prev: int, i: int) -> torch.Tensor:
         """int16 S10.5 flow [H, W, 2] from frame i back to frame i_prev."""
@@ -255,18 +302,20 @@ class Chain:
                 "history/planes_unsmoothed": self._pixel_prev[None]}
 
 
-def chains(modules: list[dict], streams: list, device, fdt=torch.float32) -> list[Chain]:
-    """One chain a stream (`streams`: each stream's frame cycle), all
-    replaying the first one's CUDA graphs."""
-    first = Chain(modules, streams[0], device, fdt)
-    return [first] + [Chain(modules, f, device, fdt, like=first) for f in streams[1:]]
+def chains(modules: list[dict], streams: list, q, device, fdt=torch.float32) -> list[Chain]:
+    """One chain a stream (`streams`: each stream's frame cycle; `q`: the
+    cameras' reprojection matrix), all replaying the first one's CUDA
+    graphs."""
+    first = Chain(modules, streams[0], q, device, fdt)
+    return [first] + [Chain(modules, f, q, device, fdt, like=first) for f in streams[1:]]
 
 
 def replay(chains: list[Chain], n: int, max_in_flight: int, snapshot_interval: int,
-           visit: Callable[[int, torch.Tensor, torch.Tensor], None]) -> dict:
-    """Rounds 1..n of the streams in lock-step; visit(t, planes uint8 [B, H,
-    W], histograms int32 [B, 256, 2]) for each.  Returns {"state": {path:
-    tensor [B, ...]}, "params": Params}: the streams' state after round n,
+           visit: Callable[[int, dict], None], keys) -> dict:
+    """Rounds 1..n of the streams in lock-step; visit(t, {key: [B, ...]})
+    for each with the outputs of `keys`: planes uint8 [B, H, W], histograms
+    int32 [B, 256, 2], depth float32 [B, H, W, 3].  Returns {"state": {path:
+    tensor [B, ...]}, "global": Params}: the streams' state after round n,
     and the provider's parameters once every round has been drained."""
     s = chains[0].s
     device = chains[0].device
@@ -294,8 +343,11 @@ def replay(chains: list[Chain], n: int, max_in_flight: int, snapshot_interval: i
         if ranges_np is not before:
             ranges = torch.from_numpy(ranges_np).to(device)
         planes, hists = zip(*(c.step(t, ranges) for c in chains))
-        visit(t, torch.stack(planes), torch.stack(hists))
+        out = {PLANES: planes, HIST: hists}
+        if DEPTH in keys:
+            out[DEPTH] = [c.depth(t) for c in chains]
+        visit(t, {k: torch.stack(out[k]) for k in keys})
     drain_to(n)
     states = [c.state() for c in chains]
     return {"state": {path: torch.stack([st[path] for st in states]) for path in states[0]},
-            "params": host.params}
+            "global": host.params}

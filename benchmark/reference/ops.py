@@ -4,7 +4,8 @@ This is the benchmark's own copy of the port's plain versions (the XLA-level
 formulation of each CUDA kernel, in PyTorch operations), reduced to what
 the benchmark's configurations run: census and 4-path SGM with WTA,
 uniqueness, subpixel and the left-right check; the disparity smoothing; the
-directional derivatives and their histogram; pyramidal block-matching
+directional derivatives and their histogram; the reprojection to depth;
+pyramidal block-matching
 flow; contour-relaxation superpixels in 'frame' statistics mode; the pixel
 classification, the carried flow-warped temporal vote ('gather' warp) and
 the per-superpixel majority vote.  It imports nothing of the program, so a
@@ -245,6 +246,25 @@ def directional_derivatives(disparity: torch.Tensor):
     out_h = torch.where(horz_valid, horz, DERIVATIVE_INVALID).to(torch.int16)
     hist = torch.stack([hist256(vert, vert_valid), hist256(horz, horz_valid)], dim=-1)
     return torch.stack([out_v, out_h], dim=-1), hist
+
+
+# ------------------------------------------------------------------ depth
+
+def reproject_to_3d(disparity: torch.Tensor, q: torch.Tensor, fdt=torch.float32) -> torch.Tensor:
+    """OpenCV's reprojectImageTo3D: int16 x16 disparity [H, W] and the
+    cameras' Q [4, 4] -> (X/W, Y/W, Z/W) float32 [H, W, 3], where [X Y Z
+    W] = Q [x y d 1] at column x, row y and disparity d (pixels: the fixed
+    point / 16).  Invalid disparities go through the same arithmetic.  Each
+    row of Q is summed as ((q0 x + q1 y) + q2 d) + q3 in `fdt`, one
+    rounding an operation, then divided by W."""
+    h, w = disparity.shape
+    dev = disparity.device
+    q = q.to(device=dev, dtype=fdt)
+    d = disparity.to(fdt) / 16.0
+    xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :].to(fdt)
+    ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None].to(fdt)
+    rows = [q[i, 0] * xs + q[i, 1] * ys + q[i, 2] * d + q[i, 3] for i in range(4)]
+    return (torch.stack(rows[:3], dim=-1) / rows[3][..., None]).to(torch.float32)
 
 
 # ------------------------------------------------------------------- flow

@@ -2,12 +2,14 @@
 
 A cell (an entry of ``workloads``) names a configuration (a file of its
 own, ``configs[].file``), a traffic mix (``benchmark/traffic/<name>.json``)
-and the chips it needs.  A mix's ``streams`` (default 1) is how many
-streams the cell runs in lock-step through the program's multi-sequence
-mode, a closed loop only.  Its end-to-end metrics are the ``end_to_end``
-entries without a ``workloads`` key or with the cell in it; its per-layer
-metrics are the ``per_layer`` entries that list it, or that list no cells
-and move one of its end-to-end metrics.  Each per-layer metric is read by
+and the chips it needs.  A configuration's ``reference`` key names its
+reference module (benchmark/compare.py says what one gives).  A mix's
+``streams`` (default 1) is how many streams the cell runs in lock-step
+through the program's multi-sequence mode, a closed loop only.  Its
+end-to-end metrics are the ``end_to_end`` entries without a ``workloads``
+key or with the cell in it; its per-layer metrics are the ``per_layer``
+entries that list it, or that list no cells and move one of its end-to-end
+metrics.  Each per-layer metric is read by
 ``benchmark/layer_metrics/<name>.py``.  Everything is found by name, so a
 cell, a mix or a metric is added by adding files and entries.
 """
@@ -56,6 +58,10 @@ def _keys(entry: dict, allowed: set, what: str, optional: set = frozenset()) -> 
     missing, extra = allowed - set(entry), set(entry) - allowed - set(optional)
     if missing or extra:
         raise SpecError(f"{what}: missing {sorted(missing)}, unknown {sorted(extra)}")
+
+
+def _under(path: str, paths: list) -> bool:
+    return any(Path(path).parts[:len(Path(p).parts)] == Path(p).parts for p in paths)
 
 
 def traffic_path(root: Path, traffic: str) -> Path:
@@ -144,11 +150,16 @@ def validate(spec: dict, root: Path) -> None:
         unique(c["name"], "config")
         _text(c["source"], "config source")
         _text(c["why"], "config why")
-        if not any(Path(c["file"]).parts[:len(Path(p).parts)] == Path(p).parts for p in paths):
+        if not _under(c["file"], paths):
             raise SpecError(f"config file {c['file']} is not under paths")
         if c["file"] in files or not (root / c["file"]).is_file():
             raise SpecError(f"config file {c['file']} is missing or shared")
         files.add(c["file"])
+        with open(root / c["file"]) as f:
+            ref = json.load(f).get("reference")
+        if not isinstance(ref, str) or not PATH.match(ref) or not ref.endswith(".py") \
+                or ".." in ref.split("/") or not _under(ref, paths) or not (root / ref).is_file():
+            raise SpecError(f"config {c['name']}: reference {ref!r} is no .py file under paths")
         if not isinstance(c["reduced"], list) or len(c["reduced"]) > 16:
             raise SpecError("reduced: a list of at most 16 keys")
         for k in c["reduced"]:

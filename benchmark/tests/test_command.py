@@ -61,7 +61,8 @@ def test_a_short_run_on_the_card(card, workload, trace):
 @pytest.mark.card
 @pytest.mark.parametrize("workload,frames", [("kitti-planeseg.stream", 300),
                                              ("zed-planeseg.cam60", 300),
-                                             ("kitti-planeseg.fleet8", 300)])
+                                             ("kitti-planeseg.fleet8", 300),
+                                             ("kitti-planeseg.bev", 300)])
 def test_the_control_fails_at_the_cells_size(card, workload, frames):
     from benchmark import compare
     from benchmark.control import control_readings

@@ -62,6 +62,50 @@ def test_the_cells_and_metrics(bench):
     assert reported_somewhere == {m["name"] for m in bench["end_to_end"] + bench["per_layer"]}
 
 
+def test_the_bev_cell(bench):
+    """kitti-planeseg.bev: the stream's scene and loop, fetching planes and
+    depth, reporting fps and setup_s, and traced, the fetch copy's span
+    beside the stream's metrics of the captured single-sequence step (its
+    launch, host step, module stamps, kernels and the device); every
+    metric it reports has its reader."""
+    cell = spec.cell(bench, "kitti-planeseg.bev")
+    assert (cell["config"], cell["traffic"], cell["chips"]) == ("kitti-planeseg", "bev", 1)
+    bev, stream = spec.load_traffic(REPO, "bev"), spec.load_traffic(REPO, "stream")
+    assert bev["fetch"] == ["planes", "depth"]
+    assert (bev["loop"], bev["streams"], bev["max_in_flight"], bev["frame_cycle"]) == \
+        ("closed", 1, 4, 64)
+    assert bev["scene"] == stream["scene"]
+    assert bev["trace"] == {"after_frames": 64, "frames": 200}
+    assert {m["name"] for m in spec.end_to_end_of(bench, cell["name"])} == {"fps", "setup_s"}
+    layer = {m["name"] for m in spec.per_layer_of(bench, cell["name"])}
+    assert layer == {"device_idle_share", "device_ops_per_frame", "idle_share_unprofiled",
+                     "fetch_copy_ms.bev", "replay_ms", "host_step_ms", "disparity_module_ms",
+                     "optflow_module_ms", "sgm_roofline", "flow_median_ms"}
+    for name in layer:
+        assert callable(load_reader(spec.reader_path(REPO, name))), name
+
+
+@pytest.mark.parametrize("reference", [None, "benchmark/reference/none.py",
+                                       "benchmark/../benchmark/reference/chain.py",
+                                       "cartslam_tpu_torch/config/registry.py"])
+def test_a_configuration_names_its_reference_module(tmp_path, bench, reference):
+    """Each configuration's ``reference`` names a .py file under paths; one
+    that is missing, absent, leaves the checkout's paths or lies outside
+    them fails validation."""
+    shutil.copytree(REPO / "benchmark", tmp_path / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    path = tmp_path / "benchmark" / "configs" / "kitti-planeseg.json"
+    cfg = json.loads(path.read_text())
+    spec.validate(bench, tmp_path)
+    if reference is None:
+        del cfg["reference"]
+    else:
+        cfg["reference"] = reference
+    path.write_text(json.dumps(cfg))
+    with pytest.raises(spec.SpecError, match="reference"):
+        spec.validate(bench, tmp_path)
+
+
 @pytest.mark.parametrize("mix,streams", [("cam60", 2), ("fleet8", 0), ("fleet8", 1.5),
                                          ("fleet8", "8"), ("fleet8", True)])
 def test_a_broken_stream_count_is_refused(tmp_path, bench, mix, streams):

@@ -13,6 +13,7 @@ from benchmark.tracing import Record, load_reader
 STREAM = ["idle_share_unprofiled", "replay_ms", "host_step_ms", "disparity_module_ms",
           "optflow_module_ms"]
 CAM = ["dispatch_lag_ms.cam", "fetch_tail_ms.cam"]
+BEV = ["fetch_copy_ms.bev"]
 
 
 def read(name, rec):
@@ -31,6 +32,7 @@ def canned(rows=None) -> Record:
                                                   (7, 120.0, 9.0, 9.0, 9.0, 9.0)):
             rows += [
                 ("frame", fid, t0, t0, t0 + 12 - (fid == 6)),
+                ("frame.fetch_copy", fid, t0 + 9.5, t0 + 9.5, t0 + 10 + flow / 2),
                 ("frame.replay", fid, t0 + 0.2, t0 + 0.2, t0 + 0.2 + replay),
                 ("frame.host_step", fid, t0 + 12, t0 + 12, t0 + 12 + host),
                 ("device.frame", fid, t0 + 1 - (fid == 6), t0 + 1 - (fid == 6),
@@ -52,6 +54,26 @@ def test_stream_readers():
     assert read("host_step_ms", rec) == pytest.approx(2.0)
     assert read("disparity_module_ms", rec) == pytest.approx(2.0)
     assert read("optflow_module_ms", rec) == pytest.approx(3.0)
+
+
+def test_fetch_copy_reader():
+    """fetch_copy_ms.bev: the median frame.fetch_copy row of the frames
+    before the profiled sub-window (5: 1.75 ms, 6: 2.25 ms; frame 7's 5 ms
+    is profiled)."""
+    assert read("fetch_copy_ms.bev", canned()) == pytest.approx(2.0)
+
+
+def test_fetch_copy_reads_a_tiny_traced_run(tiny_root):
+    """A traced run of the tiny planes-and-depth cell on the CPU: the
+    System's fetch-copy rows are there, and the reader takes a number."""
+    import time
+
+    from benchmark import harness
+
+    result = harness.run_cell(tiny_root, "tiny.bev", 20260419, 2.0, True, "cpu",
+                              time.perf_counter())
+    assert result["correct"], result["checks"]
+    assert result["metrics"]["fetch_copy_ms.bev"]["value"] > 0
 
 
 def test_idle_share_counts_the_gaps_between_frames():
@@ -95,12 +117,12 @@ def test_camera_readers():
     assert read("fetch_tail_ms.cam", rec) == pytest.approx(2.5)
 
 
-@pytest.mark.parametrize("name", STREAM + CAM)
+@pytest.mark.parametrize("name", STREAM + CAM + BEV)
 def test_readers_find_nothing_without_rows(name):
     assert read(name, canned([])) is None
 
 
-@pytest.mark.parametrize("name", STREAM + CAM)
+@pytest.mark.parametrize("name", STREAM + CAM + BEV)
 def test_readers_find_nothing_outside_the_unprofiled_frames(name):
     """The profiled frame's rows alone (frame 7): nothing to read."""
     rows = [r for r in canned().timing_rows if r[1] == 7]
@@ -117,7 +139,8 @@ def test_host_spans_alone_give_no_camera_metric():
 
 @pytest.mark.card
 @pytest.mark.parametrize("workload,names", [("kitti-planeseg.stream", STREAM),
-                                            ("zed-planeseg.cam60", CAM)])
+                                            ("zed-planeseg.cam60", CAM),
+                                            ("kitti-planeseg.bev", STREAM + BEV)])
 def test_a_short_traced_run_reports_the_span_metrics(card, workload, names):
     out = command(REPO, workload, 2**31 + 29, 4, trace=1)
     assert out.returncode == 0, out.stderr[-3000:]
