@@ -63,6 +63,7 @@ SIGNATURES = {
     "relax_instantiation": [_I, _I, _P, _P, _P, _P],
     "stamp": [_P, _I, _P],
     "median3x3": [_P, _P, _I, _I, _I, _I, _P],
+    "census": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 

@@ -2,8 +2,9 @@
 
 Output contract: int16 disparity in x16 fixed point, invalid = -32768.
 
-The census transform is plain tensor code.  The rest of this file is the
-plain SGM chain (cost volume, 4-path aggregation, winner-take-all with
+The census transform here is plain tensor code: the plain version of the
+census kernel (kernels/census.py, csrc/census.cu).  The rest of this file is
+the plain SGM chain (cost volume, 4-path aggregation, winner-take-all with
 uniqueness and subpixel, left-right check) in the XLA path's formulation:
 it is the plain version of the fused CUDA kernel K1
 (kernels/sgm.py, csrc/sgm.cu), which replaces the Pallas
@@ -201,14 +202,15 @@ def sgm_disparity(left_gray: torch.Tensor, right_gray: torch.Tensor, *,
                   lr_check: bool = True, subpixel: bool = True) -> torch.Tensor:
     """Gray uint8 pair -> int16 x16 disparity (-32768 = invalid).
 
-    Census runs as tensor ops; the aggregation and WTA run in kernel K1 on
-    CUDA tensors and in its plain version on CPU tensors.
+    The census of both images (one launch) and the aggregation and WTA
+    (kernel K1) run as kernels on CUDA tensors and as their plain versions
+    on CPU tensors.
     """
+    from ..kernels import census as kcensus
     from ..kernels import sgm as ksgm
 
     check_sgm_params(p1, p2)
-    cl0, cl1 = census_transform(left_gray)
-    cr0, cr1 = census_transform(right_gray)
+    (cl0, cl1), (cr0, cr1) = kcensus.census_pair(left_gray, right_gray)
     return ksgm.sgm_fused(
         cl0, cl1, cr0, cr1, min_disparity=min_disparity,
         num_disparities=num_disparities, p1=p1, p2=p2,

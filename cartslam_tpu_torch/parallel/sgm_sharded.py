@@ -8,7 +8,8 @@ construction; a chain of n-1 ``ppermute`` hops of the [W, D] carry then
 makes each following shard exact in turn, and symmetrically bottom-up.  In
 each hop only the shard whose carry in is already exact sweeps.
 
-The census sees true neighbour rows through a 3-row halo; the cost volume,
+The census (kernels/census: both images in one launch on CUDA tensors) sees
+true neighbour rows through a 3-row halo; the cost volume,
 horizontal sweeps, WTA, uniqueness and LR check are row-local.  On CUDA
 tensors the shard's SGM is kernel K5: the output pass
 kernels/sgm.sgm_fused_sharded (its row paths on a side stream before the
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels import census as kcensus
 from ..kernels import sgm as ksgm
 from ..ops import stereo
 
@@ -106,8 +108,8 @@ def sgm_disparity_sharded(gray_l: torch.Tensor, gray_r: torch.Tensor, sp, *,
     hc = _CENSUS_HALO
     gl = sp.exchange(gray_l, hc, hc)
     gr = sp.exchange(gray_r, hc, hc)
-    cl0, cl1 = (c[hc:-hc].contiguous() for c in stereo.census_transform(gl))
-    cr0, cr1 = (c[hc:-hc].contiguous() for c in stereo.census_transform(gr))
+    cl0, cl1, cr0, cr1 = (c[hc:-hc].contiguous() for words in kcensus.census_pair(gl, gr)
+                          for c in words)
     return sgm_census_sharded(
         cl0, cl1, cr0, cr1, sp, min_disparity=min_disparity,
         num_disparities=num_disparities, p1=p1, p2=p2, uniqueness=uniqueness,

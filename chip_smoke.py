@@ -8,7 +8,8 @@ Phases (each raises on failure; none is caught):
                 path and WTA kernels (K6's accumulate forms among them), the
                 relax kernels and the K2 / K4 / K7 tally kernels, and fail if
                 the flagship's instantiation of the fused relax kernel, a
-                tally kernel a path runs, or a 3x3 median kernel spills.
+                tally kernel a path runs, a 3x3 median kernel or the census
+                kernel spills.
   3. kernels  - each kernel against its plain PyTorch version on the card, at
                 the flagship's shapes (376x1248, 256 disparities, 3329
                 labels), with its time, the plain version's, the time of one
@@ -72,6 +73,15 @@ Phases (each raises on failure; none is caught):
                 replay) beside its bound, the plain version's and the
                 median3x3 launches a frame on the flagship's paths (3: one
                 a searched level).
+                The census (kernels/census, csrc/census.cu) torch.equal to
+                its plain version (ops/stereo.census_transform) for one
+                image and for a pair in one launch: the edge shapes, the
+                16 x 64 tile's boundaries and the KITTI and ZED frames, on
+                random, tie-heavy, constant, 0, 255 and 0/255 checkerboard
+                images; a pair's device ms (graph replay) at KITTI and ZED
+                size beside its bound and the plain version's ms; census
+                launches on the paths one a stereo frame (a shard's frame
+                in the spatial mode), no plain call.
   4. paths    - each path driven with the launch counts set to 0 just before
                 it and read just after:
                   * K6's entry point (kernels/sgm.sgm_aggregate) once;
@@ -355,6 +365,15 @@ MEDIAN_KITTI_LEVELS = [(2, 188, 624), (2, 94, 312), (2, 47, 156)]
 MEDIAN_ZED_LEVELS = [(2, 360, 640), (2, 180, 320), (2, 90, 160)]
 MEDIAN_LEVELS = MEDIAN_KITTI_LEVELS + MEDIAN_ZED_LEVELS + [(2, 192, 624), (2, 96, 312),
                                                            (2, 48, 156)]
+# The census's images: the edge shapes (a single row, column or pixel, under
+# the 9 x 7 window), the 16 x 64 tile's boundaries, and the KITTI (376x1241,
+# and the padded 376x1248) and ZED (720x1280) frames.
+CENSUS_EDGE_SHAPES = [(1, 1), (1, 9), (7, 1), (3, 5), (7, 9), (33, 65), (64, 128)]
+CENSUS_TILE_ROWS, CENSUS_TILE_COLS = (15, 16, 17, 22, 23), (63, 64, 65, 72, 73)
+CENSUS_FRAMES = {"KITTI": (376, 1241), "KITTI padded": (376, 1248), "ZED": (720, 1280)}
+CENSUS_DATA = ("random", "ties", "constant", "zeros", "full", "checkerboard")
+# Operations of one census pixel: a compare, a shift and an OR per neighbour.
+CENSUS_OPS = 3 * 62
 # min/max operations of one 3x3 median (Smith's 19 exchanges).
 MEDIAN_OPS = 2 * 19
 # Searched pyramid levels of the flagship's flow (levels 4, base level 1), one
@@ -380,6 +399,9 @@ KERNELS = {
     "median3x3": ("cartslam_tpu_torch/csrc/median.cu",
                   "none: jnp min/max network cartslam_tpu/ops/optflow.py:104",
                   "the paths with optflow"),
+    "census": ("cartslam_tpu_torch/csrc/census.cu",
+               "none: jnp compares cartslam_tpu/ops/stereo.py:37",
+               "the paths with ImageDisparity"),
 }
 
 
@@ -399,7 +421,7 @@ def launch_plan() -> dict:
     # last), so K2 counts what K3 counts.
     faithful = k3(FRAMES, 1, 2, "phase")
     spatial_phase = k3(SPATIAL_PHASE_FRAMES, 0, 1, "phase")
-    return {
+    return with_census({
         "faithful": {"sgm": FRAMES, "moment_tally": faithful, "relax": faithful,
                      "vote_tally": FRAMES},
         "pixel": {"sgm": PIXEL_FRAMES, "moment_tally": 0, "relax": 0, "vote_tally": 0},
@@ -433,7 +455,16 @@ def launch_plan() -> dict:
                                 "moment_tally": SPATIAL_SYSTEM_FRAMES,
                                 "relax": k3(SPATIAL_SYSTEM_FRAMES, 1),
                                 "vote_tally": SPATIAL_SYSTEM_FRAMES},
-    }
+    })
+
+
+def with_census(plan: dict) -> dict:
+    """`plan` (a path's launches, or a dict of paths') with the census's
+    launches: one a stereo frame on the full frame (K1's) and one a shard's
+    frame in the spatial mode (K5's)."""
+    if "sgm" not in plan:
+        return {path: with_census(p) for path, p in plan.items()}
+    return {**plan, "census": plan["sgm"] + plan.get("sgm_sharded", 0)}
 
 
 class OpCount(TorchDispatchMode):
@@ -576,6 +607,7 @@ def kernel_phase(dev, tag):
     {name: dict(max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by)}
     and the inputs the path phase reuses."""
     from cartslam_tpu_torch.kernels import build
+    from cartslam_tpu_torch.kernels import census as kcensus
     from cartslam_tpu_torch.kernels import relax as krelax
     from cartslam_tpu_torch.kernels import sgm as ksgm
     from cartslam_tpu_torch.kernels import tally as ktally
@@ -705,8 +737,11 @@ def kernel_phase(dev, tag):
                                      "from its plain version")
     log("K6 sgm_aggregate array_equal on synthetic and random census at "
         + "; ".join(f"[{h},{w}] D={c['num_disparities']} p2 {c['p2']}" for (h, w), c in k6_cases))
-    census_ms = cuda_ms(lambda: (stereo.census_transform(gl), stereo.census_transform(gr)), 10)
-    log(f"SGM stages at [{H},{W}] D={D}: census x2 {census_ms:.3f} ms, "
+    census_ms = cuda_ms(lambda: kcensus.census_pair(gl, gr), 20)
+    plain_census_ms = cuda_ms(lambda: (stereo.census_transform(gl),
+                                       stereo.census_transform(gr)), 10)
+    log(f"SGM stages at [{H},{W}] D={D}: census pair {census_ms:.4f} ms (one launch; plain "
+        f"x2 {plain_census_ms:.3f} ms), "
         f"K6 aggregate {results['sgm_aggregate']['ms']:.3f} ms, "
         f"K1 fused aggregate+WTA {results['sgm']['ms']:.3f} ms  [{tag}]")
     torch.cuda.empty_cache()
@@ -892,6 +927,81 @@ def median_phase(dev, tag, results) -> None:
     dms, pms, bms, by = times[MEDIAN_KITTI_LEVELS[0]]
     results["median3x3"] = dict(max_abs_err=0.0, ms=dms, plain_ms=pms, library_ms=None,
                                 bound_ms=bms, bound_by=by)
+
+
+def census_image(kind: str, shape, gen, dev) -> torch.Tensor:
+    """A uint8 image of `shape`: uniform random, tie-heavy (values 0-2),
+    constant, all 0, all 255 or a 0/255 checkerboard."""
+    if kind == "random":
+        return torch.randint(0, 256, shape, generator=gen, device=dev, dtype=torch.uint8)
+    if kind == "ties":
+        return torch.randint(0, 3, shape, generator=gen, device=dev, dtype=torch.uint8)
+    if kind == "checkerboard":
+        ys, xs = torch.meshgrid(torch.arange(shape[0], device=dev),
+                                torch.arange(shape[1], device=dev), indexing="ij")
+        return ((ys + xs) % 2 * 255).to(torch.uint8)
+    value = {"constant": 77, "zeros": 0, "full": 255}[kind]
+    return torch.full(shape, value, dtype=torch.uint8, device=dev)
+
+
+def census_phase(dev, tag, results) -> None:
+    """The census (kernels/census) torch.equal to its plain version
+    (ops/stereo.census_transform) on the card: census_transform of each
+    image and census_pair of it with a random image, over the edge shapes,
+    the 16 x 64 tile's boundary shapes and the KITTI and ZED frames, on
+    every CENSUS_DATA image; one launch a call, no plain call.  Then a
+    pair's device ms (one launch; a CUDA graph of 100 calls replayed) at
+    KITTI and ZED size beside its bound (both images read once, two int32
+    words written a pixel; CENSUS_OPS a pixel) and the plain version's ms
+    for both images; records the KITTI frame's."""
+    from cartslam_tpu_torch.kernels import build
+    from cartslam_tpu_torch.kernels import census as kcensus
+    from cartslam_tpu_torch.ops import stereo
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    shapes = CENSUS_EDGE_SHAPES + [(r, c) for r in CENSUS_TILE_ROWS for c in CENSUS_TILE_COLS]
+    shapes += list(CENSUS_FRAMES.values())
+    checked = 0
+    for shape in shapes:
+        other = census_image("random", shape, gen, dev)
+        for data in CENSUS_DATA:
+            img = census_image(data, shape, gen, dev)
+            for images in ((img,), (img, other), (other, img)):
+                build.reset_counts()
+                got = kcensus.census_pair(*images) if len(images) == 2 else \
+                    (kcensus.census_transform(*images),)
+                counts = (kcensus.COUNTER.launches, kcensus.COUNTER.plain_calls)
+                if counts != (1, 0):
+                    raise AssertionError(f"census {shape} x{len(images)}: (launches, plain "
+                                         f"calls) {counts}")
+                for g, words in zip(images, got):
+                    want = stereo.census_transform(g)
+                    for word, (a, b) in enumerate(zip(words, want)):
+                        if a.dtype != torch.int32 or a.shape != b.shape or not torch.equal(a, b):
+                            n = int((a != b).sum()) if a.shape == b.shape else -1
+                            raise AssertionError(f"census {shape} {data} x{len(images)}: word "
+                                                 f"{word}, {n} pixels differ from the plain "
+                                                 "version")
+                checked += 1
+    torch.cuda.synchronize()
+    log(f"census torch.equal to its plain version in {checked} cases: {len(shapes)} shapes "
+        f"(edge {CENSUS_EDGE_SHAPES}, [r, c] for r in {CENSUS_TILE_ROWS}, c in "
+        f"{CENSUS_TILE_COLS}, frames {list(CENSUS_FRAMES.values())}) x {CENSUS_DATA} x one "
+        "image, a pair and the pair swapped; one launch a call, no plain call")
+
+    times = {}
+    for name, shape in CENSUS_FRAMES.items():
+        left, right = (census_image("random", shape, gen, dev) for _ in range(2))
+        n = shape[0] * shape[1]
+        dms = graph_ms(lambda: kcensus.census_pair(left, right))
+        pms = cuda_ms(lambda: (stereo.census_transform(left), stereo.census_transform(right)), 20)
+        bms, by = bound(2 * n * (1 + 2 * 4), 2 * n * CENSUS_OPS)
+        times[name] = (dms, pms, bms, by)
+        log(f"census pair {list(shape)} ({name}): device {dms:.4f} ms (one launch), plain "
+            f"x2 {pms:.4f} ms, bound {bms:.5f} ms ({by}), {bms / dms:.1%} of it  [{tag}]")
+    dms, pms, bms, by = times["KITTI"]
+    results["census"] = dict(max_abs_err=0.0, ms=dms, plain_ms=pms, library_ms=None,
+                             bound_ms=bms, bound_by=by)
 
 
 def relax_phase_checks(dev, tag, t) -> None:
@@ -2216,7 +2326,8 @@ def spatial_system_phase(frames, intrinsics, dev, tag, plan) -> dict:
                 want = {"sgm_sharded": SHARDS, "sgm_settle": SETTLE_LAUNCHES,
                         "moment_tally": SHARDS,
                         "relax": SHARDS * launches(sweeps[step.variant], 1, "frame"),
-                        "vote_tally": SHARDS, "median3x3": SHARDS * MEDIAN_LAUNCHES_A_FRAME}
+                        "vote_tally": SHARDS, "median3x3": SHARDS * MEDIAN_LAUNCHES_A_FRAME,
+                        "census": SHARDS}
                 if step.launches != want:
                     raise AssertionError(f"{label}: the graph of {step.variant} launches "
                                          f"{step.launches}, an eager frame {want}")
@@ -3764,9 +3875,10 @@ def spatial_plan(shards: int, frames: int) -> dict:
     from cartslam_tpu_torch.kernels.relax import launches
 
     k3 = launches(24, 1, "frame") + (frames - 1) * launches(8, 1, "frame")
-    return {"sgm": 0, "sgm_sharded": shards * frames, "sgm_settle": 2 * (shards - 1) * frames,
-            "moment_tally": shards * frames, "relax": shards * k3,
-            "vote_tally": shards * frames}
+    return with_census({"sgm": 0, "sgm_sharded": shards * frames,
+                        "sgm_settle": 2 * (shards - 1) * frames,
+                        "moment_tally": shards * frames, "relax": shards * k3,
+                        "vote_tally": shards * frames})
 
 
 def crossing_bytes(pipe, state) -> tuple[int, int]:
@@ -3829,7 +3941,8 @@ def cross_card_spatial(frames, intrinsics, dev, n: int, full: dict, tag) -> str:
             for step in pipe.captured_steps.values():
                 want = {"sgm_sharded": n, "sgm_settle": 2 * (n - 1), "moment_tally": n,
                         "relax": n * launches(sweeps[step.variant], 1, "frame"),
-                        "vote_tally": n, "median3x3": n * MEDIAN_LAUNCHES_A_FRAME}
+                        "vote_tally": n, "median3x3": n * MEDIAN_LAUNCHES_A_FRAME,
+                        "census": n}
                 if step.launches != want or step.cards != cards:
                     raise AssertionError(f"{label} {mode}: the graph of {step.variant} on "
                                          f"{step.cards} launches {step.launches}, an eager "
@@ -4505,21 +4618,23 @@ def cli_phase() -> None:
 def ptxas_report(build, info) -> None:
     """Registers, static shared memory and spill bytes (ptxas -v) of K1's
     and K6's path kernels, the WTA, K3's kernels, the K2, K4 and K7
-    tally kernels and the 3x3 median kernels; fails if the flagship's
-    instantiation of the fused relax kernel, a tally kernel a path runs (K2
-    with 7 and 5 channels, K4, K7) or a median kernel (1 and 2 passes)
-    spills."""
+    tally kernels, the 3x3 median kernels and the census kernel; fails if
+    the flagship's instantiation of the fused relax kernel, a tally kernel a
+    path runs (K2 with 7 and 5 channels, K4, K7), a median kernel (1 and 2
+    passes) or the census kernel spills."""
     import re
 
     kernels = build.kernel_resources(info.report.read_text())
-    flagship_relax, medians = [], []
+    flagship_relax, medians, census = [], [], []
     for k in kernels:
         name = k["name"]
         if not re.search(r"sgm_[hv]paths|sgm_settle|sgm_wta|relax_|moment_tally|vote_tally|"
-                         r"label_tally|median3x3", name):
+                         r"label_tally|median3x3|census", name):
             continue
         if "median3x3" in name:
             medians.append(k)
+        if "census_kernel" in name:
+            census.append(k)
         if re.search(r"relax_sweeps_kernel(<true>|<\(bool\)1>|ILb1E)", name):
             flagship_relax.append(k)
         if re.search(r"moment_tally_kernel<\(int\)[57]>|vote_tally_kernel|label_tally_kernel",
@@ -4536,6 +4651,9 @@ def ptxas_report(build, info) -> None:
     if len(medians) != 2 or any(k["spill_stores"] or k["spill_loads"] for k in medians):
         raise AssertionError(f"ptxas: a 3x3 median kernel spills, or the two are not in the "
                              f"report: {medians}")
+    if len(census) != 1 or census[0]["spill_stores"] or census[0]["spill_loads"]:
+        raise AssertionError(f"ptxas: the census kernel spills, or is missing from the report: "
+                             f"{census}")
 
 
 def main() -> int:
@@ -4569,6 +4687,7 @@ def main() -> int:
     # 3. kernels vs plain versions
     results, paths = kernel_phase(dev, tag)
     median_phase(dev, tag, results)
+    census_phase(dev, tag, results)
     sharded_sgm_phase(dev, tag, paths, results)
     shard_kernels_phase(dev, paths)
 
